@@ -1,0 +1,64 @@
+"""Carry data between the reference package and the port.
+
+The reference's arrays come in as anything ``numpy.asarray`` reads (its
+dataclasses and NamedTuples can be passed as they are: fields are read by
+name).  They become the port's tensors, with the port's pinned types, on a
+given device; ``to_numpy`` goes back.  Both sides then run on identical
+data.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.algorithms.pagerank import PRState
+from repro_torch.core.delta import DeltaBuffer
+from repro_torch.core.partition import PartitionSnapshot
+from repro_torch.data.graphs import CSRGraph
+from repro_torch.device import resolve_device
+
+# Field -> pinned dtype, per port type.
+DTYPES = {
+    CSRGraph: {"indptr": torch.int32, "indices": torch.int32,
+               "out_degree": torch.int32},
+    DeltaBuffer: {"keys": torch.int32, "payload": torch.float32,
+                  "ann": torch.int8, "count": torch.int32,
+                  "overflowed": torch.bool},
+    PRState: {"acc": torch.float32, "sent": torch.float32},
+}
+
+
+def _field(src, name: str):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def to_torch(cls, src, device=None):
+    """Build a ``cls`` (CSRGraph, DeltaBuffer or PRState) from ``src``'s
+    same-named fields (an object or a dict), pinned types, on ``device``."""
+    dev = resolve_device(device)
+    fields = {name: torch.from_numpy(np.array(_field(src, name))).to(
+        device=dev, dtype=dtype) for name, dtype in DTYPES[cls].items()}
+    return cls(**fields)
+
+
+def to_numpy(obj) -> dict:
+    """The port's CSRGraph / DeltaBuffer / PRState as a dict of numpy
+    arrays, by field name."""
+    names = (obj._fields if hasattr(obj, "_fields")
+             else [f.name for f in dataclasses.fields(obj)])
+    return {n: getattr(obj, n).detach().cpu().numpy() for n in names}
+
+
+def snapshot(src) -> PartitionSnapshot:
+    """A port PartitionSnapshot with ``src``'s n_keys, num_shards, scheme
+    and replication."""
+    return PartitionSnapshot(
+        **{n: _field(src, n) for n in
+           ("n_keys", "num_shards", "scheme", "replication")})
+
+
+def snapshot_fields(snap: PartitionSnapshot) -> dict:
+    """Back: the snapshot's fields as a dict."""
+    return dataclasses.asdict(snap)

@@ -1,0 +1,441 @@
+"""Distributed delta execution: the rehash operator + sharded fixpoint.
+
+The paper's runtime (§4.1–4.2) pushes batched delta messages between
+workers according to the partition snapshot.  Here each shard groups its
+outgoing deltas by destination into equal-size segments, the segments are
+swapped across shards, and the receiver recounts live slots.  The dense
+(no-delta / fallback) path exchanges each shard's full contribution vector
+instead; the two patterns are the delta/dense duality at the wire level.
+
+Backend: ``simulated`` only: shards are a leading tensor axis on one
+device and the swap is an axis transpose.  Algorithms are written against
+:class:`DeltaAlgorithm` (five shard-local functions); the engine calls them
+once per shard, owns routing, density switching and the fixpoint loop.
+Outgoing deltas use GLOBAL keys; the engine routes by the snapshot.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import delta as deltamod
+from repro_torch.core.delta import DeltaBuffer, _i32
+from repro_torch.core.fixpoint import (ROUTE_SCATTER, ROUTE_SORT,
+                                       FixpointResult, StratumOutcome,
+                                       run_strata, with_explicit_condition)
+from repro_torch.core.partition import PartitionSnapshot
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaAlgorithm:
+    """A REX recursive query lowered to shard-local callables.
+
+    active_fn(state, imm) -> (active[bool; block], est_edges[int32;])
+        The Δᵢ set plus the EXACT emission size if run sparsely.
+    sparse_emit(state, imm, active, stratum, shard_id)
+        -> (state_partial, DeltaBuffer)        O(|Δ|) emission.
+    dense_emit(state, imm, stratum, shard_id)
+        -> (state_partial, contrib[f32; n_padded_global, payload_width])
+    apply_sparse(state_partial, incoming: DeltaBuffer, imm, stratum, shard_id)
+        -> (state', next_active_count[int32;])
+    apply_dense(state_partial, incoming[f32; block, payload_width], imm,
+        stratum, shard_id) -> (state', next_active_count)
+
+    combiner: how concurrent contributions to one key merge.
+    emit_factory(src_capacity, edge_capacity) -> sparse_emit-like callable,
+    which lets the executor run sparse strata at several capacity rungs.
+    """
+
+    active_fn: Callable
+    sparse_emit: Callable
+    dense_emit: Callable
+    apply_sparse: Callable
+    apply_dense: Callable
+    combiner: str = "add"
+    payload_width: int = 1
+    bytes_per_delta: int = 8  # int32 key + f32 payload
+    emit_factory: Optional[Callable] = None
+
+    def dense_identity(self) -> float:
+        return {"add": 0.0, "min": float("inf"), "max": float("-inf")}[
+            self.combiner]
+
+
+def _dense_combine(stacked: torch.Tensor, combiner: str, dim: int
+                   ) -> torch.Tensor:
+    if combiner == "add":
+        return torch.sum(stacked, dim=dim)
+    if combiner == "min":
+        return torch.amin(stacked, dim=dim)
+    if combiner == "max":
+        return torch.amax(stacked, dim=dim)
+    raise ValueError(combiner)
+
+
+def _take(tree, s: int):
+    """Shard ``s`` of a tensor / NamedTuple / dataclass with a leading
+    shard axis (views, no copies)."""
+    if torch.is_tensor(tree):
+        return tree[s]
+    if isinstance(tree, tuple):
+        parts = [_take(x, s) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _take(getattr(tree, f.name), s)
+                             for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _stack(trees: list):
+    """Inverse of :func:`_take` over a list of per-shard trees."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return torch.stack(trees)
+    if isinstance(first, tuple):
+        parts = [_stack(list(xs)) for xs in zip(*trees)]
+        return (type(first)(*parts) if hasattr(first, "_fields")
+                else tuple(parts))
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: _stack([getattr(t, f.name)
+                                              for t in trees])
+                              for f in dataclasses.fields(first)})
+    raise TypeError(type(first))
+
+
+class CapacityTier(NamedTuple):
+    """One rung of the density ladder: the three sparse-stratum budgets."""
+
+    src: int    # active-source compaction slots
+    edge: int   # edge-emission slots
+    seg: int    # per-destination rehash segment slots
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedExecutor:
+    """Runs a DeltaAlgorithm over a partitioned key space.
+
+    snapshot      partition snapshot routed against (paper §4.1).
+    seg_capacity  per-destination segment slots in the sparse rehash.
+    edge_capacity stratum edge-slot budget for sparse emission.
+    src_capacity  active-source compaction budget.
+
+    Density ladder: with ``ladder_tiers > 1`` (and an algorithm providing
+    ``emit_factory``) sparse strata run at ``ladder_tiers`` capacity rungs,
+    powers of ``ladder_factor`` below the configured capacities, and each
+    stratum dispatches to the SMALLEST rung whose budgets cover the exactly
+    predicted emission size; no rung fits -> the dense body.
+
+    Rehash strategy, per rung: ``"sort"`` (fused single-sort
+    ``combine_route``), ``"scatter"`` (sort-free ``combine_route_scatter``)
+    or ``"auto"``, a static cost model: sort ~ C·log₂C, scatter ~
+    ``route_scatter_weight``·(C + slab cells).  A non-composable combiner
+    always routes with the sort path.
+
+    ``use_kernels`` (default True) sends the local rehash through the CUDA
+    kernels: ``kernels/scatter_route`` for the scatter strategy, and
+    ``handlers.pre_aggregate`` then ``kernels/delta_route`` otherwise.  On
+    CPU tensors the kernels' plain versions run.  False runs the torch-op
+    functions of ``core/delta.py``.
+
+    ``backend="shard_map"`` (ROADMAP slice 3), ``tracer`` and
+    ``route_strategy="measured"`` (slice 4) are not ported yet and raise.
+    """
+
+    snapshot: PartitionSnapshot
+    seg_capacity: int
+    edge_capacity: int
+    src_capacity: int
+    backend: str = "simulated"
+    ladder_tiers: int = 1          # 1 = ladder off (single sparse rung)
+    ladder_factor: int = 4         # capacity ratio between adjacent rungs
+    ladder_src_floor: int = 64     # smallest useful src budget
+    ladder_edge_floor: int = 256   # smallest useful edge/seg budget
+    route_strategy: str = "sort"   # "sort" | "scatter" | "auto"
+    route_scatter_weight: float = 0.4  # auto model: relative cost of one
+    #                                scatter/slab element vs one sort
+    #                                compare·log₂C unit (the reference's
+    #                                calibration, kept so rungs pick the
+    #                                same routes)
+    use_kernels: bool = True
+    tracer: Optional[object] = dataclasses.field(default=None, compare=False)
+
+    # ------------------------------------------------------------------
+    # Density ladder.
+    # ------------------------------------------------------------------
+    def capacity_tiers(self, algo: DeltaAlgorithm) -> list[CapacityTier]:
+        """Ascending capacity rungs for ``algo`` (top = configured budgets)."""
+        top = CapacityTier(self.src_capacity, self.edge_capacity,
+                           self.seg_capacity)
+        if self.ladder_tiers <= 1 or algo.emit_factory is None:
+            return [top]
+        tiers: list[CapacityTier] = []
+        for i in range(self.ladder_tiers - 1, 0, -1):
+            d = self.ladder_factor ** i
+            t = CapacityTier(
+                src=min(max(self.src_capacity // d, self.ladder_src_floor),
+                        top.src),
+                edge=min(max(self.edge_capacity // d, self.ladder_edge_floor),
+                         top.edge),
+                seg=min(max(self.seg_capacity // d, self.ladder_edge_floor),
+                        top.seg))
+            if t != top and (not tiers or t != tiers[-1]):
+                tiers.append(t)
+        tiers.append(top)
+        return tiers
+
+    def _emit_fn(self, algo: DeltaAlgorithm, tier: CapacityTier) -> Callable:
+        if (algo.emit_factory is None
+                or (tier.src, tier.edge) == (self.src_capacity,
+                                             self.edge_capacity)):
+            return algo.sparse_emit
+        return algo.emit_factory(tier.src, tier.edge)
+
+    # ------------------------------------------------------------------
+    # Rehash strategy selection (per capacity rung).
+    # ------------------------------------------------------------------
+    def pick_route_strategy(self, edge_capacity: int,
+                            combiner: Optional[str]) -> str:
+        """Physical combine-route implementation for a rung whose routed
+        buffer holds ``edge_capacity`` slots."""
+        if self.route_strategy == "measured":
+            raise NotImplementedError(
+                "route_strategy='measured' needs the measured route table "
+                "of the observability port (ROADMAP queue 1, slice 4)")
+        if self.route_strategy not in ("sort", "scatter", "auto"):
+            raise ValueError(self.route_strategy)
+        if combiner is None:
+            return "sort"
+        if self.route_strategy != "auto":
+            return self.route_strategy
+        slab = self.snapshot.padded_keys
+        if self.snapshot.scheme != "block":
+            slab *= self.snapshot.num_shards
+        c = max(edge_capacity, 2)
+        sort_cost = c * math.log2(c)
+        scatter_cost = self.route_scatter_weight * (c + slab)
+        return "scatter" if scatter_cost < sort_cost else "sort"
+
+    # ------------------------------------------------------------------
+    # Sparse rehash (fused combine + route).
+    # ------------------------------------------------------------------
+    def _route_one(self, db: DeltaBuffer, seg_capacity: int,
+                   combiner: Optional[str], strategy: str = "sort"
+                   ) -> DeltaBuffer:
+        """Local half of the rehash: one shard's outgoing Δ -> per-owner
+        segments."""
+        S = self.snapshot.num_shards
+        owners = self.snapshot.owner_of(db.keys)
+        if strategy == "scatter" and combiner is not None:
+            if self.use_kernels:
+                from repro_torch.kernels.scatter_route import \
+                    scatter_route_deltas
+                return scatter_route_deltas(db, owners, S, seg_capacity,
+                                            combiner, snapshot=self.snapshot)
+            return deltamod.combine_route_scatter(
+                db, owners, S, seg_capacity, combiner,
+                snapshot=self.snapshot)
+        if self.use_kernels:
+            from repro_torch.kernels.delta_route import route_deltas
+            if combiner is not None:
+                # §5.2 pre-aggregation, then the routing kernel: equal to
+                # the fused single-sort combine_route.
+                from repro_torch.core.handlers import pre_aggregate
+                db = pre_aggregate(db, combiner)
+                owners = self.snapshot.owner_of(db.keys)
+            return route_deltas(db, owners, S, seg_capacity)
+        if combiner is not None:
+            return deltamod.combine_route(db, owners, S, seg_capacity,
+                                          combiner)
+        return deltamod.route_by_owner(db, owners, S, seg_capacity)
+
+    def rehash_sparse_simulated(self, stacked: DeltaBuffer,
+                                seg_capacity: Optional[int] = None,
+                                combiner: Optional[str] = None,
+                                strategy: str = "sort"
+                                ) -> tuple[DeltaBuffer, torch.Tensor]:
+        """stacked: [S] leading axis of per-shard outgoing Δ -> (incoming Δ
+        [S, S*cap], globally summed routed delta count).  Each source's
+        routed segments are written straight into the swapped
+        [dst, src, cap] layout, so only one shard's routed buffer is alive
+        besides the result."""
+        S = self.snapshot.num_shards
+        cap = self.seg_capacity if seg_capacity is None else seg_capacity
+        dev = stacked.keys.device
+        w = stacked.payload_width
+        keys = torch.empty((S, S, cap), dtype=torch.int32, device=dev)
+        payload = torch.empty((S, S, cap, w), dtype=stacked.payload.dtype,
+                              device=dev)
+        ann = torch.empty((S, S, cap), dtype=torch.int8, device=dev)
+        emitted = torch.zeros((), dtype=torch.int32, device=dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        for s in range(S):
+            routed = self._route_one(_take(stacked, s), cap, combiner,
+                                     strategy)
+            keys[:, s] = routed.keys.view(S, cap)
+            payload[:, s] = routed.payload.view(S, cap, w)
+            ann[:, s] = routed.ann.view(S, cap)
+            emitted += routed.count
+            overflow |= routed.overflowed
+        incoming = deltamod.recount(DeltaBuffer(
+            keys=keys.view(S, S * cap), payload=payload.view(S, S * cap, w),
+            ann=ann.view(S, S * cap), count=None,
+            overflowed=overflow.expand(S)))
+        return incoming, emitted
+
+    # ------------------------------------------------------------------
+    # Dense rehash: contribution vectors -> combined local blocks.
+    # ------------------------------------------------------------------
+    def rehash_dense_simulated(self, contrib: torch.Tensor, combiner: str
+                               ) -> torch.Tensor:
+        """contrib: [S_src, n_padded, W] -> incoming [S_dst, block, W]."""
+        S, block = self.snapshot.num_shards, self.snapshot.block_size
+        seg = contrib.reshape(S, S, block, contrib.shape[-1])
+        return _dense_combine(seg.transpose(0, 1), combiner, dim=1)
+
+    # ------------------------------------------------------------------
+    # Stratum assembly.
+    # ------------------------------------------------------------------
+    def _check_supported(self) -> None:
+        if self.backend == "shard_map":
+            raise NotImplementedError(
+                "backend='shard_map' is the torch.distributed backend of "
+                "ROADMAP queue 1, slice 3")
+        if self.backend != "simulated":
+            raise ValueError(self.backend)
+        if self.tracer is not None:
+            raise NotImplementedError(
+                "tracing is ROADMAP queue 1, slice 4 (observability)")
+
+    def run(self, algo: DeltaAlgorithm, state0, live0, immutable,
+            max_iters: int, mode: str = "delta",
+            explicit_cond: Optional[Callable] = None) -> FixpointResult:
+        """state0 / immutable carry a leading [S] shard axis."""
+        if mode not in ("delta", "nodelta"):
+            raise ValueError(mode)
+        stratum_fn = self.make_stratum_fn(algo, immutable, mode,
+                                          explicit_cond)
+        return run_strata(stratum_fn, state0, live0, max_iters)
+
+    def live_count(self, algo: DeltaAlgorithm, state, immutable
+                   ) -> torch.Tensor:
+        """Globally reduced |Δ₀| of ``state``: the seed live count for
+        :meth:`resume`."""
+        S = self.snapshot.num_shards
+        return _i32(sum(algo.active_fn(_take(state, s), _take(immutable, s))
+                        [0].to(torch.int32).sum() for s in range(S)))
+
+    def resume(self, algo: DeltaAlgorithm, warm_state, immutable,
+               max_iters: int, mode: str = "delta",
+               explicit_cond: Optional[Callable] = None) -> FixpointResult:
+        """Re-enter the fixpoint from a previously converged (then
+        repaired) state; Δ₀ is derived from ``active_fn``."""
+        live0 = self.live_count(algo, warm_state, immutable)
+        return self.run(algo, warm_state, live0, immutable, max_iters,
+                        mode=mode, explicit_cond=explicit_cond)
+
+    def make_stratum_fn(self, algo: DeltaAlgorithm, immutable,
+                        mode: str = "delta",
+                        explicit_cond: Optional[Callable] = None):
+        """One-stratum function (state, idx) -> (state', outcome), the same
+        body :meth:`run` loops over."""
+        self._check_supported()
+        fn = self._stratum_simulated(algo, immutable, mode)
+        if explicit_cond is not None:
+            fn = with_explicit_condition(fn, explicit_cond)
+        return fn
+
+    def run_resilient(self, *args, **kwargs):
+        raise NotImplementedError(
+            "run_resilient is the fault-tolerance port, ROADMAP queue 1, "
+            "slice 5")
+
+    # ---- simulated backend ------------------------------------------------
+    def _stratum_simulated(self, algo: DeltaAlgorithm, immutable, mode):
+        S = self.snapshot.num_shards
+        tiers = self.capacity_tiers(algo)
+        shards = range(S)
+        imm = [_take(immutable, s) for s in shards]
+        # Sender-side combiner (§5.2) fused into the route.
+        combiner = (algo.combiner
+                    if algo.combiner in ("add", "min", "max") else None)
+
+        def apply_all(apply_fn, partial, incoming, stratum):
+            outs = [apply_fn(_take(partial, s), _take(incoming, s), imm[s],
+                             stratum, s) for s in shards]
+            return (_stack([o[0] for o in outs]),
+                    _i32(sum(o[1] for o in outs)))
+
+        def make_sparse_body(tier: CapacityTier, tier_idx: int):
+            emit_fn = self._emit_fn(algo, tier)
+            strategy = self.pick_route_strategy(tier.edge, combiner)
+            route_code = ROUTE_SCATTER if strategy == "scatter" \
+                else ROUTE_SORT
+
+            def sparse_body(state, stratum, active):
+                parts = [emit_fn(_take(state, s), imm[s], active[s], stratum,
+                                 s) for s in shards]
+                partial = _stack([p[0] for p in parts])
+                outgoing = _stack([p[1] for p in parts])
+                del parts
+                incoming, emitted = self.rehash_sparse_simulated(
+                    outgoing, seg_capacity=tier.seg, combiner=combiner,
+                    strategy=strategy)
+                del outgoing
+                new_state, live = apply_all(algo.apply_sparse, partial,
+                                            incoming, stratum)
+                return new_state, StratumOutcome(
+                    live_count=live, used_dense=False,
+                    rehash_bytes=emitted.to(torch.float32)
+                    * algo.bytes_per_delta,
+                    emitted=emitted, tier=tier_idx, route=route_code)
+
+            return sparse_body
+
+        def dense_body(state, stratum, active):
+            parts = [algo.dense_emit(_take(state, s), imm[s], stratum, s)
+                     for s in shards]
+            partial = _stack([p[0] for p in parts])
+            contrib = torch.stack([p[1] for p in parts])
+            del parts
+            incoming = self.rehash_dense_simulated(contrib, algo.combiner)
+            n_padded = contrib.shape[1]
+            del contrib
+            new_state, live = apply_all(algo.apply_dense, partial, incoming,
+                                        stratum)
+            return new_state, StratumOutcome(
+                live_count=live, used_dense=True,
+                rehash_bytes=_f32(S * n_padded * algo.payload_width * 4),
+                emitted=_i32(active.to(torch.int32).sum()),
+                tier=-1, route=-1)
+
+        bodies = [make_sparse_body(t, i) for i, t in enumerate(tiers)]
+
+        def stratum(state, stratum_idx):
+            found = [algo.active_fn(_take(state, s), imm[s]) for s in shards]
+            active = torch.stack([f[0] for f in found])
+            if mode == "nodelta":
+                return dense_body(state, stratum_idx, active)
+            # Smallest rung whose budgets cover the exact predicted sizes;
+            # one host read of (max sources, max edges) per stratum.  The
+            # seg budget is guarded too: one shard's emission can land
+            # entirely in one destination segment.
+            max_src, max_edges = torch.stack([
+                active.to(torch.int32).sum(1).max(),
+                torch.stack([f[1] for f in found]).max().to(torch.int32),
+            ]).tolist()
+            branch = sum(1 for t in tiers
+                         if not (max_src <= t.src
+                                 and max_edges <= min(t.edge, t.seg)))
+            if branch == len(tiers):
+                return dense_body(state, stratum_idx, active)
+            return bodies[branch](state, stratum_idx, active)
+
+        return stratum
+
+
+def _f32(x) -> float:
+    """``x`` rounded to float32 (the reference keeps rehash bytes in f32)."""
+    return torch.tensor(x, dtype=torch.float32).item()

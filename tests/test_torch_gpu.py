@@ -1,0 +1,142 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA card and skips without one.  This file imports
+only the port, so it also runs where the reference's JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Integer outputs must match exactly; float adds land in atomic order, so add
+results are within 1e-5 relative.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.algorithms import pagerank
+from repro_torch.core.partition import PartitionSnapshot
+from repro_torch.data.graphs import CSRGraph, make_powerlaw_graph, shard_csr
+from repro_torch.kernels import delta_route as t_dr
+from repro_torch.kernels import delta_scatter as t_ds
+from repro_torch.kernels import edge_propagate as t_ep
+from repro_torch.kernels import scatter_route as t_sr
+from repro_torch.kernels.delta_route import ops as dr_ops
+from repro_torch.kernels.delta_scatter import ops as ds_ops
+from repro_torch.kernels.edge_propagate import ops as ep_ops
+from repro_torch.kernels.scatter_route import ops as sr_ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def t(x, device):
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def test_scatter_route(cuda):
+    rng = np.random.default_rng(0)
+    S, B, cap, c = 8, 5000, 3000, 200_000
+    keys = rng.integers(-1, S * B, size=c).astype(np.int32)
+    owners = np.where(keys >= 0, keys // B, S).astype(np.int32)
+    local = np.where(keys >= 0, keys % B, -1).astype(np.int32)
+    args = [t(x, cuda) for x in (
+        keys, rng.normal(size=(c, 1)).astype(np.float32), local, owners)]
+    before = sr_ops.launches
+    got = t_sr.scatter_route(*args, S, B, cap)
+    ref = t_sr.scatter_route_ref(*args, S, B, cap)
+    assert sr_ops.launches == before + 1
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], ref[i])
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_route_raises_outside_its_bounds(cuda):
+    x = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        t_sr.scatter_route(x, torch.zeros(4, 1, device=cuda), x, x, 2, 2, 2,
+                           combiner="min")
+
+
+def test_delta_route(cuda):
+    rng = np.random.default_rng(1)
+    S, cap, c = 8, 20_000, 300_000
+    args = [t(x, cuda) for x in (
+        rng.integers(-1, 1 << 30, size=c).astype(np.int32),
+        rng.normal(size=(c, 2)).astype(np.float32),
+        rng.integers(0, 4, c).astype(np.int8),
+        rng.integers(0, S + 1, size=c).astype(np.int32))]
+    before = dr_ops.launches
+    got = t_dr.delta_route(*args, S, cap)
+    ref = t_dr.delta_route_ref(*args, S, cap)
+    assert dr_ops.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("combiner", ["add", "min", "max"])
+def test_delta_scatter(cuda, combiner):
+    rng = np.random.default_rng(2)
+    n, c = 100_000, 400_000
+    state = t(rng.normal(size=(n, 1)).astype(np.float32), cuda)
+    idx = t(rng.integers(-1, n + 5, size=c).astype(np.int32), cuda)
+    pay = t(rng.normal(size=(c, 1)).astype(np.float32), cuda)
+    before = ds_ops.launches
+    got = t_ds.delta_scatter(state, idx, pay, combiner)
+    ref = t_ds.delta_scatter_ref(state, idx, pay, combiner)
+    assert ds_ops.launches == before + 1
+    if combiner == "add":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("combiner", ["add", "min", "max"])
+def test_edge_propagate(cuda, combiner):
+    n = 50_000
+    indptr, indices = make_powerlaw_graph(n, avg_degree=14.5, seed=0)
+    graph = CSRGraph(indptr=t(indptr.astype(np.int32), cuda),
+                     indices=t(indices, cuda),
+                     out_degree=t(np.diff(indptr).astype(np.int32), cuda))
+    csc = t_ep.build_csc(graph, n)
+    pay = t(np.random.default_rng(3).random(n).astype(np.float32), cuda)
+    before = ep_ops.launches
+    got = t_ep.edge_propagate(pay, csc, combiner)
+    ref = t_ep.edge_propagate_ref(pay, *csc, combiner)
+    assert ep_ops.launches == before + 1
+    if combiner == "add":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),
+                                        ("nodelta", "sort")])
+def test_pagerank_on_card_matches_cpu(cuda, mode, route):
+    """The kernel path on the card lands within the threshold of the
+    torch-op path on the CPU (atomics reorder float adds, so the active
+    sets may differ late in the run)."""
+    n, S = 4096, 4
+    indptr, indices = make_powerlaw_graph(n, avg_degree=8.0, seed=0)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    kw = dict(mode=mode, threshold=1e-5, max_iters=120, edge_capacity=8192,
+              src_capacity=1024, ladder_tiers=4, route_strategy=route)
+    counts = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+              ep_ops.launches)
+    pr_gpu, _ = pagerank.run(shard_csr(indptr, indices, S, device=cuda),
+                             snap, device=cuda, **kw)
+    pr_cpu, _ = pagerank.run(shard_csr(indptr, indices, S, device="cpu"),
+                             snap, device="cpu", use_kernels=False, **kw)
+    assert float((pr_gpu.cpu() - pr_cpu).abs().max()) < 5e-3
+    after = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+             ep_ops.launches)
+    ran = [a > b for a, b in zip(after, counts)]
+    expected = {("delta", "auto"): [True, False, True],
+                ("delta", "sort"): [False, True, True],
+                ("nodelta", "sort"): [False, False, False]}[(mode, route)]
+    assert ran[:3] == expected
+    assert ran[3] or mode == "delta"

@@ -1,0 +1,86 @@
+"""The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
+
+A subprocess imports ``repro_torch`` and runs a tiny PageRank on the CPU,
+then reports which modules were loaded; a source scan finds no import of
+``jax`` or ``repro``; the entry points refuse to fall back to the CPU when
+no device is named and CUDA is missing.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import json, sys
+import repro_torch
+from repro_torch.algorithms import pagerank
+from repro_torch.core.partition import PartitionSnapshot
+from repro_torch.data.graphs import load_dataset, make_powerlaw_graph, shard_csr
+import repro_torch.convert
+import repro_torch.kernels._build
+indptr, indices = make_powerlaw_graph(256, 6.0, seed=0)
+snap = PartitionSnapshot(n_keys=256, num_shards=2)
+pr, res = pagerank.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
+                       device="cpu", max_iters=5, ladder_tiers=2,
+                       route_strategy="auto", edge_capacity=512,
+                       src_capacity=128)
+print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations)}))
+"""
+
+
+def test_import_and_run_load_no_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["iters"] == 5
+    bad = [m for m in got["mods"]
+           if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+           or m == "repro"]
+    assert bad == []
+
+
+def test_sources_import_neither_jax_nor_reference():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)"
+        r"(\.|\s))", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+            for p in sorted(PKG.rglob("*.py"))
+            for m in pattern.finditer(p.read_text())]
+    assert hits == []
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert not pattern.search(smoke)
+
+
+def test_entry_points_need_cuda_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from repro_torch.algorithms import pagerank
+    from repro_torch.core.partition import PartitionSnapshot
+    from repro_torch.data import graphs
+    snap = PartitionSnapshot(n_keys=64, num_shards=2)
+    indptr, indices = graphs.make_powerlaw_graph(64, 4.0, seed=0)
+    g = graphs.shard_csr(indptr, indices, 2, device="cpu")
+    for call in (lambda: pagerank.run(g, snap),
+                 lambda: graphs.load_dataset("dbpedia-small", 2),
+                 lambda: pagerank.initial_state(snap)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
