@@ -2,29 +2,43 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--n 3300000] [--shards 8] [--seed 0]
+                          [--points 382000000]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-sm_90a, into ``build/kernels/``), then, at the paper's DBPedia scale
-(§6 "Data": 3.3 M vertices, average degree 14.5; Zipf exponent 2.1) with
-the PageRank benchmark's settings (8 shards, capacity ladder of 4 rungs,
-threshold 1e-3, at most 60 strata, edge capacity 4n, source capacity one
-block):
+sm_90a, into ``build/kernels/``), then runs the paper's three benchmark
+algorithms and connected components at the paper's sizes (§6 "Data"):
 
-1. holds each kernel against its plain torch version on the card, at the
-   inputs the main path gives it in the first stratum (the first dense
-   stratum for edge_propagate): integer outputs exactly, floats within
-   1e-5 relative (atomics reorder float adds), and times the kernel, the
-   plain version and, where one torch call computes the same function,
-   that call;
-2. drives delta-mode PageRank through ``repro_torch.algorithms.pagerank.run``
-   in three phases: ``delta_auto`` (route_strategy "auto": scatter_route +
-   delta_scatter), ``delta_sort`` (delta_route + delta_scatter) and
-   ``nodelta`` (edge_propagate); each phase runs once to warm up, then once
-   with every kernel's launch count set to 0, and fails if a kernel of the
-   phase was not launched;
-3. checks every phase's values against a float64 power iteration on the
-   card (bound 1e-2 at threshold 1e-3), delta_sort against delta_auto
-   (same bound), and delta against nodelta at threshold 1e-5 (bound 5e-3).
+* the DBPedia-shaped graph (3.3 M vertices, average degree 14.5, Zipf
+  exponent 2.1), 8 shards, capacity ladder of 4 rungs, edge capacity 4n,
+  source capacity one block (the settings of ``bench_pagerank.py`` and
+  ``bench_sssp.py``):
+  - PageRank (threshold 1e-3, at most 60 strata): ``delta_auto``
+    (scatter_route + delta_scatter, add), ``delta_sort`` (delta_route +
+    delta_scatter) and ``nodelta`` (edge_propagate), each checked against
+    a float64 power iteration on the card (bound 1e-2), delta_sort against
+    delta_auto (1e-2), and delta against nodelta at threshold 1e-5
+    (5e-3);
+  - SSSP from vertex 0 (at most 80 strata): ``sssp_auto`` (scatter_route +
+    delta_scatter, min), ``sssp_sort`` (delta_route + delta_scatter) and
+    ``sssp_nodelta`` (edge_propagate, min), each exactly equal to a
+    level-synchronous BFS on the card (``sssp.reference_sssp``);
+  - connected components: ``cc_auto`` and ``cc_nodelta``, each exactly
+    equal to a dense min-label iteration on the card
+    (``connected_components.reference_components``);
+* k-means on 382 M geo points (47.75 M a shard, 8 shards), k = 32, at most
+  60 strata (``bench_kmeans.py``'s settings at the paper's largest size):
+  ``kmeans_delta`` and ``kmeans_nodelta`` (kmeans_assign), each within
+  3e-3 (coordinates; cloud spread 3.0) of a float64 Lloyd iteration of the
+  same shape on the card, and of each other.
+
+Each kernel is held against its plain torch version on the card at the
+inputs the main path gives it: integer outputs and min results exactly,
+added floats within 1e-5 relative (atomics reorder float adds), and
+kmeans_assign's assignment exactly except at near-ties of the plain
+version (best two d² within 4 ulp of |p|² + |c|²), counted and printed.
+The kernel, its plain version and, where one torch call computes the same
+function, that call are timed.  Each phase runs with every kernel's launch
+count set to 0 and fails if a kernel of its path was not launched.
 
 Prints the card, the kernels as one JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failed check,
@@ -48,6 +62,24 @@ FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 FLOAT_RTOL = 1e-5
 ACCURACY_BOUND = 5e-3       # delta vs nodelta / vs oracle at threshold 1e-5
 PHASE_BOUND = 1e-2          # ten times the phases' threshold of 1e-3
+KMEANS_BOUND = 3e-3         # centroid coordinates, cloud spread 3.0
+KMEANS_K = 32               # centroids, and clusters of the generated cloud
+KMEANS_STRATA = 60          # cap on Lloyd strata (bench_kmeans.py's)
+KMEANS_CHUNK = 1 << 23      # points per chunk of the plain and f64 passes
+
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
+                      "src/repro/kernels/scatter_route/scatter_route.py:112"),
+    "delta_route": ("src/repro_torch/kernels/csrc/delta_route.cu",
+                    "src/repro/kernels/delta_route/delta_route.py:100"),
+    "delta_scatter": ("src/repro_torch/kernels/csrc/delta_scatter.cu",
+                      "src/repro/kernels/delta_scatter/delta_scatter.py:73"),
+    "edge_propagate": ("src/repro_torch/kernels/csrc/edge_propagate.cu",
+                       "src/repro/kernels/edge_propagate/"
+                       "edge_propagate.py:71"),
+    "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign/kmeans_assign.py:40"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -65,6 +97,11 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+    torch.cuda.synchronize()
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -93,37 +130,142 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
 
 
 def compare(name: str, got, ref, float_idx=()) -> float:
-    """Integer outputs exactly, float outputs within FLOAT_RTOL relative;
-    returns the max absolute difference over the float outputs."""
+    """Outputs in ``float_idx`` within FLOAT_RTOL relative, all others
+    exactly; returns the max absolute difference over the float outputs."""
     import torch
     err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
         check(g.shape == r.shape and g.dtype == r.dtype,
               f"{name}: output {i} is {g.dtype}{tuple(g.shape)}, plain "
               f"version {r.dtype}{tuple(r.shape)}")
+        if not g.dtype.is_floating_point:
+            check(torch.equal(g, r), f"{name}: output {i} differs")
+            continue
+        diff = torch.where(g == r, 0.0, (g - r).abs())   # inf == inf
+        if diff.numel():
+            err = max(err, float(diff.max()))
         if i in float_idx:
-            diff = (g - r).abs()
-            err = max(err, float(diff.max()) if diff.numel() else 0.0)
             ok = bool(torch.all(diff <= FLOAT_RTOL * r.abs() + 1e-30))
             check(ok, f"{name}: float output {i} off by up to {err:.3e} "
                       f"(rtol {FLOAT_RTOL})")
         else:
-            check(torch.equal(g, r), f"{name}: integer output {i} differs")
+            check(torch.equal(g, r), f"{name}: output {i} differs")
     return err
 
 
-def kernel_checks(graph, snap, ex, algo):
-    """Each kernel against its plain version at the first stratum's
-    inputs; returns the kernels' JSON rows (launches filled in later)."""
+def row(name, combiner, err, ms, plain_ms, b, library_ms, shape):
+    return dict(name=name, combiner=combiner, err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=library_ms, shape=shape)
+
+
+def print_rows(rows) -> None:
+    for r in rows:
+        lib = (f"{r['library_ms']:.3f} ms" if r["library_ms"] is not None
+               else "none")
+        print(f"kernel {r['name']} [{r['combiner']}]: {r['shape']} ok "
+              f"max_abs_err {r['err']:.3e} kernel {r['ms']:.3f} ms plain "
+              f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) library {lib}", flush=True)
+
+
+def scatter_route_row(out, snap, seg, combiner):
+    """scatter_route on one shard's outgoing deltas ``out`` at rung
+    capacity ``seg``."""
+    import torch
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.kernels import scatter_route as sr
+    S, B = snap.num_shards, snap.block_size
+    keys = out.keys
+    owners = torch.where(keys != PAD_KEY, snap.owner_of(keys), S)
+    args = (keys, out.payload, snap.local_index(keys), owners, S, B, seg,
+            combiner)
+    got = sr.scatter_route(*args)
+    ref = sr.scatter_route_ref(*args)
+    err = compare(f"scatter_route/{combiner}", got, ref,
+                  float_idx=(1,) if combiner == "add" else ())
+    # Every key is read; local, owner and payload only for live keys.
+    live = int((keys != PAD_KEY).sum())
+    W = out.payload.shape[1]
+    b = bound(keys.numel() * 4 + live * (8 + 4 * W) + nbytes(*got), live * W)
+    return row("scatter_route", combiner, err,
+               time_ms(lambda: sr.scatter_route(*args)),
+               time_ms(lambda: sr.scatter_route_ref(*args)), b, None,
+               f"C={keys.numel()} live={live} S={S} B={B} cap={seg}")
+
+
+def delta_scatter_row(state, idx, pay, combiner):
+    """delta_scatter of one shard's incoming deltas into ``state``."""
+    import torch
+    from repro_torch.kernels import delta_scatter as ds
+    B, W = state.shape
+    got = ds.delta_scatter(state, idx, pay, combiner)
+    ref = ds.delta_scatter_ref(state, idx, pay, combiner)
+    err = compare(f"delta_scatter/{combiner}", [got], [ref],
+                  float_idx=(0,) if combiner == "add" else ())
+    # Every index is read; the payload only where it is in range; the
+    # state is read and written once.
+    in_range = (idx >= 0) & (idx < B)
+    live = int(in_range.sum())
+    b = bound(nbytes(idx) + live * 4 * W + 2 * nbytes(state), live * W)
+    lib_idx = torch.where(in_range, idx, B).long()
+    if combiner == "add":
+        lib = lambda: torch.zeros((B + 1, W), device=state.device).index_add_(
+            0, lib_idx, pay)
+    else:
+        fill = float("inf") if combiner == "min" else float("-inf")
+        lib = lambda: torch.full((B + 1, W), fill, device=state.device
+                                 ).scatter_reduce_(
+            0, lib_idx[:, None].expand(-1, W), pay, "a" + combiner)
+    return row("delta_scatter", combiner, err,
+               time_ms(lambda: ds.delta_scatter(state, idx, pay, combiner)),
+               time_ms(lambda: ds.delta_scatter_ref(state, idx, pay,
+                                                    combiner)),
+               b, time_ms(lib), f"N={B} C={idx.numel()} live={live}")
+
+
+def edge_propagate_row(payload, graph0, n_pad, combiner, also=()):
+    """edge_propagate of one shard's dense stratum, timed at ``payload``
+    and held to its plain version at ``payload`` and each of ``also``."""
+    import torch
+    from repro_torch.kernels import edge_propagate as ep
+    csc = ep.build_csc(graph0, n_pad)
+    err = 0.0
+    for x in (payload, *also):
+        got = ep.edge_propagate(x, csc, combiner)
+        ref = ep.edge_propagate_ref(x, *csc, combiner)
+        err = max(err, compare(f"edge_propagate/{combiner}", [got], [ref],
+                               float_idx=(0,) if combiner == "add" else ()))
+    n_edges = csc.src.numel()
+    b = bound(nbytes(payload, *csc, got), 2 * n_edges)
+    dst = torch.repeat_interleave(
+        torch.arange(n_pad, device=payload.device),
+        (csc.indptr[1:] - csc.indptr[:-1]).long(), output_size=n_edges)
+    if combiner == "add":
+        lib = lambda: torch.zeros(n_pad, device=payload.device).index_add_(
+            0, dst, payload[csc.src] * csc.weight)
+    else:
+        lib = lambda: torch.full(
+            (n_pad,), float("inf") if combiner == "min" else float("-inf"),
+            device=payload.device).scatter_reduce_(
+            0, dst, payload[csc.src] * csc.weight, "a" + combiner)
+    return row("edge_propagate", combiner, err,
+               time_ms(lambda: ep.edge_propagate(payload, csc, combiner)),
+               time_ms(lambda: ep.edge_propagate_ref(payload, *csc,
+                                                     combiner)),
+               b, time_ms(lib), f"n_dst={n_pad} E={n_edges} "
+                                f"N_src={payload.numel()}")
+
+
+def pagerank_kernel_checks(graph, snap, ex, algo):
+    """Each PageRank kernel against its plain version at the first
+    stratum's inputs (the first dense stratum for edge_propagate)."""
     import torch
     from repro_torch.algorithms import emission, pagerank
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _stack, _take
     from repro_torch.core.handlers import pre_aggregate
     from repro_torch.kernels import delta_route as dr
-    from repro_torch.kernels import delta_scatter as ds
-    from repro_torch.kernels import edge_propagate as ep
-    from repro_torch.kernels import scatter_route as sr
 
     S, B, n_pad = snap.num_shards, snap.block_size, snap.padded_keys
     top = ex.capacity_tiers(algo)[-1]
@@ -134,27 +276,7 @@ def kernel_checks(graph, snap, ex, algo):
         active, _ = algo.active_fn(st, g)
         parts.append(algo.sparse_emit(st, g, active, 0, s)[1])
     out0 = parts[0]
-    rows = []
-
-    # scatter_route: shard 0's outgoing deltas, top rung.
-    keys = out0.keys
-    owners = torch.where(keys != PAD_KEY, snap.owner_of(keys), S)
-    local = snap.local_index(keys)
-    args = (keys, out0.payload, local, owners, S, B, top.seg)
-    got = sr.scatter_route(*args)
-    ref = sr.scatter_route_ref(*args)
-    err = compare("scatter_route", got, ref, float_idx=(1,))
-    # Every key is read; local, owner and payload only for live keys.
-    live = int((keys != PAD_KEY).sum())
-    W = out0.payload.shape[1]
-    b, by = bound(keys.numel() * 4 + live * (8 + 4 * W) + nbytes(*got),
-                  live)
-    rows.append(dict(
-        name="scatter_route", err=err, ms=time_ms(lambda: sr.scatter_route(
-            *args)), plain_ms=time_ms(lambda: sr.scatter_route_ref(*args)),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"C={keys.numel()} live={live} S={S} B={B} cap={top.seg}"))
-    del got, ref, args
+    rows = [scatter_route_row(out0, snap, top.seg, "add")]
 
     # delta_route: shard 0's pre-aggregated deltas (sort strategy).
     agg = pre_aggregate(out0, "add")
@@ -162,16 +284,16 @@ def kernel_checks(graph, snap, ex, algo):
     args = (agg.keys, agg.payload, agg.ann, owners, S, top.seg)
     got = dr.delta_route(*args)
     ref = dr.delta_route_ref(*args)
-    err = compare("delta_route", got, ref, float_idx=())
+    err = compare("delta_route", got, ref)
     # Every key is read; owner, payload and ann only for live keys.
     live = int((agg.keys != PAD_KEY).sum())
-    b, by = bound(agg.keys.numel() * 4 + live * (5 + 4 * W) + nbytes(*got),
-                  0)
-    rows.append(dict(
-        name="delta_route", err=err, ms=time_ms(lambda: dr.delta_route(
-            *args)), plain_ms=time_ms(lambda: dr.delta_route_ref(*args)),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"C={agg.keys.numel()} live={live} S={S} cap={top.seg}"))
+    W = agg.payload.shape[1]
+    b = bound(agg.keys.numel() * 4 + live * (5 + 4 * W) + nbytes(*got), 0)
+    rows.append(row("delta_route", None, err,
+                    time_ms(lambda: dr.delta_route(*args)),
+                    time_ms(lambda: dr.delta_route_ref(*args)), b, None,
+                    f"C={agg.keys.numel()} live={live} S={S} "
+                    f"cap={top.seg}"))
     del got, ref, args, agg
 
     # delta_scatter: shard 0's incoming deltas after the segment swap.
@@ -182,98 +304,223 @@ def kernel_checks(graph, snap, ex, algo):
     idx = emission.to_local_keys(in0, 0, B).contiguous()
     pay = in0.payload.contiguous()
     del incoming, in0
-    zero = torch.zeros((B, 1), device=graph.device)
-    got = ds.delta_scatter(zero, idx, pay)
-    ref = ds.delta_scatter_ref(zero, idx, pay)
-    err = compare("delta_scatter", [got], [ref], float_idx=(0,))
-    # Every index is read; the payload only where it is in range; the
-    # state is read and written once.
-    live = int(((idx >= 0) & (idx < B)).sum())
-    b, by = bound(nbytes(idx) + live * 4 * W + 2 * nbytes(zero), live * W)
-    lib_idx = torch.where((idx >= 0) & (idx < B), idx, B)
-    lib_ms = time_ms(lambda: torch.zeros((B + 1, 1), device=zero.device)
-                     .index_add_(0, lib_idx, pay))
-    rows.append(dict(
-        name="delta_scatter", err=err,
-        ms=time_ms(lambda: ds.delta_scatter(zero, idx, pay)),
-        plain_ms=time_ms(lambda: ds.delta_scatter_ref(zero, idx, pay)),
-        bound_ms=b, bound_by=by, library_ms=lib_ms,
-        shape=f"N={B} C={idx.numel()} live={live}"))
-    del got, ref, idx, pay, lib_idx
+    rows.append(delta_scatter_row(
+        torch.zeros((B, 1), device=graph.device), idx, pay, "add"))
+    del idx, pay
 
     # edge_propagate: shard 0's dense stratum from the initial state.
     g0, st0 = _take(graph, 0), _take(state, 0)
     pr = pagerank.current_pr(st0)
     payload = pr / torch.clamp(g0.out_degree, min=1).to(pr.dtype)
-    csc = ep.build_csc(g0, n_pad)
-    got = ep.edge_propagate(payload, csc)
-    ref = ep.edge_propagate_ref(payload, *csc)
-    err = compare("edge_propagate", [got], [ref], float_idx=(0,))
-    n_edges = csc.src.numel()
-    b, by = bound(nbytes(payload, *csc, got), 2 * n_edges)
-    dst = torch.repeat_interleave(
-        torch.arange(n_pad, device=payload.device),
-        (csc.indptr[1:] - csc.indptr[:-1]).long(), output_size=n_edges)
-    lib_ms = time_ms(lambda: torch.zeros(n_pad, device=payload.device)
-                     .index_add_(0, dst, payload[csc.src] * csc.weight))
-    rows.append(dict(
-        name="edge_propagate", err=err,
-        ms=time_ms(lambda: ep.edge_propagate(payload, csc)),
-        plain_ms=time_ms(lambda: ep.edge_propagate_ref(payload, *csc)),
-        bound_ms=b, bound_by=by, library_ms=lib_ms,
-        shape=f"n_dst={n_pad} E={n_edges} N_src={B}"))
-    del got, ref, dst, csc
+    rows.append(edge_propagate_row(payload, g0, n_pad, "add"))
     torch.cuda.empty_cache()
     return rows
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=3_300_000,
-                    help="vertices (default: the paper's DBPedia 3.3 M)")
-    ap.add_argument("--shards", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
+def sssp_kernel_checks(graph, snap, ex, algo, stats):
+    """The min kernels: scatter_route and delta_scatter at the widest
+    sparse stratum of ``sssp_auto`` that routed at the top rung (the
+    widest sparse one if none did), edge_propagate at ``sssp_nodelta``'s
+    first stratum, where every payload but the source's is inf, and held
+    also at that widest stratum's, where most are finite."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    from repro_torch.algorithms import pagerank
+    from repro_torch.algorithms import emission, sssp
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.engine import _stack, _take
+
+    S, B, n_pad = snap.num_shards, snap.block_size, snap.padded_keys
+    tiers = ex.capacity_tiers(algo)
+    it = int(stats.iterations)
+    tier_of = stats.tiers[:it].tolist()
+    emitted = stats.delta_counts[:it].tolist()
+    widest = max(t for t in tier_of)
+    check(widest >= 0, "sssp_auto ran no sparse stratum")
+    at = max((i for i in range(it) if tier_of[i] == widest),
+             key=lambda i: emitted[i])
+    step = ex.make_stratum_fn(algo, graph)
+    state = sssp.initial_state(snap, 0, graph.device)
+    for i in range(at):
+        state, _ = step(state, i)
+    tier = tiers[widest]
+    emit_fn = ex._emit_fn(algo, tier)
+    parts = []
+    for s in range(S):
+        st, g = _take(state, s), _take(graph, s)
+        active, _ = algo.active_fn(st, g)
+        parts.append(emit_fn(st, g, active, at, s)[1])
+    src = max(range(S), key=lambda s: int((parts[s].keys != PAD_KEY).sum()))
+    print(f"sssp min checks at stratum {at} (rung {widest}: {tier.src} src, "
+          f"{tier.edge} edge, {tier.seg} seg), source shard {src}",
+          flush=True)
+    rows = [scatter_route_row(parts[src], snap, tier.seg, "min")]
+
+    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "min",
+                                             "scatter")
+    del parts
+    dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
+                                          .sum()))
+    in_s = _take(incoming, dst)
+    idx = emission.to_local_keys(in_s, dst, B).contiguous()
+    pay = in_s.payload.contiguous()
+    dist = state.dist[dst][:, None].contiguous()
+    mid = state.dist[0]
+    del incoming, in_s, state
+    rows.append(delta_scatter_row(dist, idx, pay, "min"))
+    del idx, pay, dist
+
+    def payload_of(d):
+        return torch.where(d < float("inf"), d + 1.0, float("inf"))
+
+    d0 = sssp.initial_state(snap, 0, graph.device).dist[0]
+    print(f"edge_propagate min: finite payloads {int(torch.isfinite(d0).sum())}"
+          f" at stratum 0, {int(torch.isfinite(mid).sum())} at stratum {at} "
+          f"of {mid.numel()}", flush=True)
+    rows.append(edge_propagate_row(payload_of(d0), _take(graph, 0), n_pad,
+                                   "min", also=(payload_of(mid),)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kmeans_kernel_check(points, cents):
+    """kmeans_assign at the full shape, against its plain version run in
+    chunks (the plain [N, K] matrix would not fit)."""
+    import torch
+    from repro_torch.kernels import kmeans_assign as ka
+    N, D = points.shape
+    K = cents.shape[0]
+    got_a, got_d = ka.assign(points, cents)
+    eps = torch.finfo(torch.float32).eps
+    c2 = (cents ** 2).sum(-1)
+    n_near = n_differ = 0
+    err = 0.0
+    for lo in range(0, N, KMEANS_CHUNK):
+        p = points[lo:lo + KMEANS_CHUNK]
+        d2 = ka.kmeans_d2(p, cents)
+        top2, arg2 = d2.topk(2, largest=False)
+        ref_a = arg2[:, 0].to(torch.int32)
+        # topk and argmin agree except at exact ties; argmin takes the
+        # first index, which is the contract.
+        ref_a = torch.where(top2[:, 0] == top2[:, 1],
+                            torch.argmin(d2, -1).to(torch.int32), ref_a)
+        a, d = got_a[lo:lo + KMEANS_CHUNK], got_d[lo:lo + KMEANS_CHUNK]
+        scale = (p ** 2).sum(-1) + torch.maximum(c2[a.long()],
+                                                 c2[ref_a.long()])
+        tol = 4 * eps * scale
+        near = (top2[:, 1] - top2[:, 0]) <= tol
+        differ = a != ref_a
+        check(bool((~differ | near).all()),
+              "kmeans_assign: an assignment differs away from a near-tie")
+        n_near += int(near.sum())
+        n_differ += int(differ.sum())
+        derr = (d - top2[:, 0]).abs()
+        check(bool((derr <= tol).all()), "kmeans_assign: d2 off by more "
+                                         "than 4 ulp of |p|^2 + |c|^2")
+        err = max(err, float(derr.max()))
+        del d2, top2, arg2
+    print(f"kmeans_assign: {n_differ} assignments differ from the plain "
+          f"version, all at near-ties; {n_near} points are near-ties "
+          f"(best two d2 within 4 ulp)", flush=True)
+
+    def plain():
+        for lo in range(0, N, KMEANS_CHUNK):
+            ka.kmeans_assign_ref(points[lo:lo + KMEANS_CHUNK], cents)
+
+    b = bound(N * (4 * D + 8) + K * D * 4, N * K * (2 * D + 3))
+    out = row("kmeans_assign", None, err,
+              time_ms(lambda: ka.assign(points, cents)),
+              time_ms(plain, reps=2), b, None, f"N={N} D={D} K={K}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def lloyd_f64(points, init, max_iters):
+    """Float64 Lloyd iteration shaped like the engine's: assign from
+    ``init``, then up to ``max_iters`` rounds of centroids -> assignment,
+    stopping after a round where no point switched.  Returns (centroids,
+    rounds)."""
+    import torch
+    N = points.shape[0]
+    K = init.shape[0]
+    assign = torch.empty(N, dtype=torch.int64, device=points.device)
+
+    def step(cents):
+        """New assignment in place; returns (switched, sums, counts)."""
+        m2 = -2.0 * cents.T
+        c2 = (cents ** 2).sum(-1)
+        sums = torch.zeros_like(cents)
+        counts = torch.zeros(K, dtype=torch.float64, device=cents.device)
+        switched = torch.zeros((), dtype=torch.int64, device=cents.device)
+        for lo in range(0, N, KMEANS_CHUNK):
+            p = points[lo:lo + KMEANS_CHUNK].double()
+            a = torch.addmm(c2[None, :], p, m2).argmin(1)
+            switched += (a != assign[lo:lo + KMEANS_CHUNK]).sum()
+            assign[lo:lo + KMEANS_CHUNK] = a
+            for j in range(p.shape[1]):
+                sums[:, j] += torch.bincount(a, weights=p[:, j], minlength=K)
+            counts += torch.bincount(a, minlength=K).double()
+        return int(switched), sums, counts
+
+    assign.fill_(-1)
+    _, sums, counts = step(init.double())
+    rounds = 0
+    while rounds < max_iters:
+        switched, sums, counts = step(sums / counts.clamp(min=1)[:, None])
+        rounds += 1
+        if switched == 0:
+            break
+    return sums / counts.clamp(min=1)[:, None], rounds
+
+
+class Phases:
+    """Runs phases with launch counts reset, checks their kernels, and
+    keeps each phase's launches for the kernel rows."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.launches = []   # (combiner, {kernel: launches})
+
+    def run(self, name, combiner, needs, fn, warm_up=True):
+        import torch
+        if warm_up:
+            fn()
+            sync()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in self.counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {k: mod.launches for k, mod in self.counters.items()}
+        self.launches.append((combiner, counts))
+        for k in needs:
+            check(counts[k] > 0, f"{name}: kernel {k} was never launched")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, wall, counts, peak
+
+    def of(self, kernel, combiner) -> int:
+        """Launches of ``kernel`` over the phases of ``combiner`` (every
+        phase when the kernel has none)."""
+        return sum(c[kernel] for comb, c in self.launches
+                   if combiner is None or comb == combiner)
+
+
+def stats_line(st) -> str:
+    it = int(st.iterations)
+    return (f"iterations {it} tiers "
+            f"{dict(collections.Counter(st.tiers[:it].tolist()))} routes "
+            f"{dict(collections.Counter(st.routes[:it].tolist()))}")
+
+
+def graph_section(args, dev, phases, rows):
+    """PageRank, SSSP and CC on the DBPedia-shaped graph."""
+    import torch
+    from repro_torch.algorithms import connected_components as cc
+    from repro_torch.algorithms import pagerank, sssp
     from repro_torch.core.engine import ShardedExecutor
     from repro_torch.core.partition import PartitionSnapshot
     from repro_torch.data.graphs import make_powerlaw_graph, shard_csr
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.delta_route import ops as dr_ops
-    from repro_torch.kernels.delta_scatter import ops as ds_ops
-    from repro_torch.kernels.edge_propagate import ops as ep_ops
-    from repro_torch.kernels.scatter_route import ops as sr_ops
 
-    counters = {"scatter_route": sr_ops, "delta_route": dr_ops,
-                "delta_scatter": ds_ops, "edge_propagate": ep_ops}
-    sources = {
-        "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
-                          "src/repro/kernels/scatter_route/"
-                          "scatter_route.py:112"),
-        "delta_route": ("src/repro_torch/kernels/csrc/delta_route.cu",
-                        "src/repro/kernels/delta_route/delta_route.py:100"),
-        "delta_scatter": ("src/repro_torch/kernels/csrc/delta_scatter.cu",
-                          "src/repro/kernels/delta_scatter/"
-                          "delta_scatter.py:73"),
-        "edge_propagate": ("src/repro_torch/kernels/csrc/edge_propagate.cu",
-                           "src/repro/kernels/edge_propagate/"
-                           "edge_propagate.py:71"),
-    }
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
-
-    dev = torch.device("cuda")
     n, S = args.n, args.shards
     t0 = time.perf_counter()
     indptr, indices = make_powerlaw_graph(n, 14.5, 2.1, seed=args.seed)
@@ -286,62 +533,38 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     cap = dict(edge_capacity=4 * n, src_capacity=snap.block_size,
                ladder_tiers=4)
-    base = dict(threshold=1e-3, max_iters=60, device=dev, **cap)
-
-    # 1. Kernels against their plain versions at the main path's inputs.
-    algo = pagerank.make_algorithm(snap, 1e-3, cap["src_capacity"],
-                                   cap["edge_capacity"])
     ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
                          edge_capacity=cap["edge_capacity"],
                          src_capacity=cap["src_capacity"], ladder_tiers=4,
                          route_strategy="auto")
+
+    # PageRank.
+    base = dict(threshold=1e-3, max_iters=60, device=dev, **cap)
+    algo = pagerank.make_algorithm(snap, 1e-3, cap["src_capacity"],
+                                   cap["edge_capacity"])
     print("rungs: " + " ".join(
         f"({t.src} src, {t.edge} edge, {t.seg} seg -> "
         f"{ex.pick_route_strategy(t.edge, 'add')})"
         for t in ex.capacity_tiers(algo)))
-    rows = kernel_checks(graph, snap, ex, algo)
-    for r in rows:
-        print(f"kernel {r['name']}: {r['shape']} ok max_abs_err "
-              f"{r['err']:.3e} kernel {r['ms']:.3f} ms plain "
-              f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}) library {r['library_ms']}", flush=True)
-
-    # 2. The main path, three phases.
+    rows += pagerank_kernel_checks(graph, snap, ex, algo)
     ref = pagerank.reference_pagerank(indptr, indices, n, iters=300,
                                       device=dev)
-    phases = [("delta_auto", "delta", "auto",
-               ("scatter_route", "delta_scatter")),
-              ("delta_sort", "delta", "sort",
-               ("delta_route", "delta_scatter")),
-              ("nodelta", "nodelta", "sort", ("edge_propagate",))]
-    launches = collections.Counter()
     values = {}
-    for name, mode, route, needs in phases:
-        kw = dict(mode=mode, route_strategy=route, **base)
-        pagerank.run(graph, snap, **kw)                  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for mod in counters.values():
-            mod.launches = 0
-        t0 = time.perf_counter()
-        pr, res = pagerank.run(graph, snap, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: mod.launches for k, mod in counters.items()}
-        launches.update(counts)
-        st = res.stats
-        it = int(st.iterations)
+    for name, mode, route, needs in [
+            ("delta_auto", "delta", "auto", ("scatter_route",
+                                             "delta_scatter")),
+            ("delta_sort", "delta", "sort", ("delta_route",
+                                             "delta_scatter")),
+            ("nodelta", "nodelta", "sort", ("edge_propagate",))]:
+        (pr, res), wall, counts, peak = phases.run(
+            name, "add", needs, lambda: pagerank.run(
+                graph, snap, mode=mode, route_strategy=route, **base))
         check(pr.shape == (snap.padded_keys,), f"{name}: pr shape {pr.shape}")
         check(bool(torch.isfinite(pr).all()), f"{name}: non-finite pr")
         rel = float(((pr[:n] - ref).abs() / ref.abs().clamp(min=1)).max())
-        print(f"phase {name}: iterations {it} wall {wall:.3f} s tiers "
-              f"{dict(collections.Counter(st.tiers[:it].tolist()))} routes "
-              f"{dict(collections.Counter(st.routes[:it].tolist()))} "
-              f"launches {counts} peak_mem "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-              f"rel_err_vs_f64 {rel:.3e}", flush=True)
-        for k in needs:
-            check(counts[k] > 0, f"{name}: kernel {k} was never launched")
+        print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
+              f"launches {counts} peak_mem {peak:.2f} GiB rel_err_vs_f64 "
+              f"{rel:.3e}", flush=True)
         check(rel < PHASE_BOUND, f"{name}: rel_err_vs_f64 {rel:.3e} over "
                                  f"{PHASE_BOUND}")
         values[name] = pr
@@ -354,7 +577,7 @@ def main(argv=None) -> int:
     check(sort_vs_auto < PHASE_BOUND, "delta_sort and delta_auto disagree")
     del values
 
-    # 3. Delta against nodelta, and both against the oracle, at 1e-5.
+    # Delta against nodelta, and both against the oracle, at 1e-5.
     tight = dict(base, threshold=1e-5, max_iters=120)
     pr_d, res_d = pagerank.run(graph, snap, mode="delta",
                                route_strategy="auto", **tight)
@@ -368,10 +591,169 @@ def main(argv=None) -> int:
           f"{rel_n:.3e} (bound {ACCURACY_BOUND})", flush=True)
     check(agree < ACCURACY_BOUND, "delta and nodelta disagree")
     check(max(rel_d, rel_n) < ACCURACY_BOUND, "values off the oracle")
+    del pr_d, res_d, pr_n, res_n, ref
+    torch.cuda.empty_cache()
+
+    # SSSP from vertex 0, exactly equal to a BFS on the card.
+    t0 = time.perf_counter()
+    bfs = sssp.reference_sssp(indptr, indices, n, 0, device=dev)
+    sync()
+    print(f"sssp oracle: BFS reaches {int(torch.isfinite(bfs).sum())} of {n}"
+          f" vertices, depth {int(bfs[torch.isfinite(bfs)].max())} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    sp = dict(source=0, max_iters=80, device=dev, **cap)
+    auto_stats = None
+    for name, mode, route, needs in [
+            ("sssp_auto", "delta", "auto", ("scatter_route",
+                                            "delta_scatter")),
+            ("sssp_sort", "delta", "sort", ("delta_route", "delta_scatter")),
+            ("sssp_nodelta", "nodelta", "sort", ("edge_propagate",))]:
+        (dist, res), wall, counts, peak = phases.run(
+            name, "min", needs, lambda: sssp.run(
+                graph, snap, mode=mode, route_strategy=route, **sp))
+        exact = bool(torch.equal(dist[:n], bfs)) and bool(
+            torch.isinf(dist[n:]).all())
+        print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
+              f"launches {counts} peak_mem {peak:.2f} GiB equal_to_bfs "
+              f"{exact}", flush=True)
+        check(exact, f"{name}: distances differ from the BFS oracle")
+        if name == "sssp_auto":
+            auto_stats = res.stats
+        del dist, res
+        torch.cuda.empty_cache()
+    algo = sssp.make_algorithm(snap, cap["src_capacity"],
+                               cap["edge_capacity"])
+    rows += sssp_kernel_checks(graph, snap, ex, algo, auto_stats)
+    del bfs
+
+    # Connected components, exactly equal to a dense min-label iteration.
+    t0 = time.perf_counter()
+    labels = cc.reference_components(indptr, indices, n, device=dev)
+    sync()
+    print(f"cc oracle: {int(torch.unique(labels).numel())} distinct labels "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    for name, mode, route, needs in [
+            ("cc_auto", "delta", "auto", ("scatter_route", "delta_scatter")),
+            ("cc_nodelta", "nodelta", "sort", ("edge_propagate",))]:
+        (lab, res), wall, counts, peak = phases.run(
+            name, "min", needs, lambda: cc.run(
+                graph, snap, mode=mode, route_strategy=route, max_iters=80,
+                device=dev, **cap))
+        exact = bool(torch.equal(lab[:n], labels))
+        print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
+              f"launches {counts} peak_mem {peak:.2f} GiB "
+              f"equal_to_oracle {exact}", flush=True)
+        check(exact, f"{name}: labels differ from the oracle")
+        del lab, res
+        torch.cuda.empty_cache()
+
+
+def kmeans_section(args, dev, phases, rows):
+    """k-means at the paper's largest point set."""
+    import torch
+    from repro_torch.algorithms import kmeans
+    from repro_torch.data.points import (make_geo_points,
+                                         sample_initial_centroids)
+
+    S, k, n = args.shards, KMEANS_K, args.points
+    check(n % S == 0, f"--points {n} is not a multiple of {S} shards")
+    t0 = time.perf_counter()
+    points = make_geo_points(n, n_true_clusters=k, seed=0, device=dev)
+    init = sample_initial_centroids(points, k, seed=1)
+    sync()
+    print(f"points: n={n} ({n // S} a shard, {S} shards) k={k} "
+          f"({time.perf_counter() - t0:.1f} s to make on the host and move)",
+          flush=True)
+    sharded = points.view(S, n // S, 2)
+    # Warm-up at a small size (cuBLAS, allocator, kernel load).
+    kmeans.run(sharded[:, :1 << 20].contiguous(), init, max_iters=3,
+               device=dev)
+    sync()
+    rows.append(kmeans_kernel_check(points, init))
+
+    t0 = time.perf_counter()
+    ref, rounds = lloyd_f64(points, init, KMEANS_STRATA)
+    sync()
+    print(f"kmeans oracle: float64 Lloyd, {rounds} rounds "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    cents = {}
+    for name, mode in [("kmeans_delta", "delta"),
+                       ("kmeans_nodelta", "nodelta")]:
+        (c, res), wall, counts, peak = phases.run(
+            name, None, ("kmeans_assign",), lambda: kmeans.run(
+                sharded, init, mode=mode, max_iters=KMEANS_STRATA,
+                device=dev), warm_up=False)
+        it = int(res.stats.iterations)
+        check(c.shape == (k, 2) and bool(torch.isfinite(c).all()),
+              f"{name}: centroids {tuple(c.shape)} not finite")
+        check(counts["kmeans_assign"] == it + 1,
+              f"{name}: {counts['kmeans_assign']} kmeans_assign launches "
+              f"for {it} strata")
+        err = float((c.double() - ref).abs().max())
+        sw = res.stats.delta_counts[:it].tolist()
+        print(f"phase {name}: iterations {it} switched first {sw[:3]} last "
+              f"{sw[-3:]} wall {wall:.3f} s launches {counts} peak_mem "
+              f"{peak:.2f} GiB max|c - c_f64| {err:.3e} (bound "
+              f"{KMEANS_BOUND})", flush=True)
+        check(err < KMEANS_BOUND, f"{name}: centroids off the float64 "
+                                  f"oracle by {err:.3e}")
+        cents[name] = c
+        del res
+        torch.cuda.empty_cache()
+    agree = float((cents["kmeans_delta"] - cents["kmeans_nodelta"])
+                  .abs().max())
+    print(f"max|kmeans_delta - kmeans_nodelta| {agree:.3e} (bound "
+          f"{KMEANS_BOUND})", flush=True)
+    check(agree < KMEANS_BOUND, "kmeans delta and nodelta disagree")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=3_300_000,
+                    help="vertices (default: the paper's DBPedia 3.3 M)")
+    ap.add_argument("--shards", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--points", type=int, default=382_000_000,
+                    help="k-means points (default: the paper's 382 M)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.delta_route import ops as dr_ops
+    from repro_torch.kernels.delta_scatter import ops as ds_ops
+    from repro_torch.kernels.edge_propagate import ops as ep_ops
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    from repro_torch.kernels.scatter_route import ops as sr_ops
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t_start = t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
+
+    dev = torch.device("cuda")
+    phases = Phases({"scatter_route": sr_ops, "delta_route": dr_ops,
+                     "delta_scatter": ds_ops, "edge_propagate": ep_ops,
+                     "kmeans_assign": ka_ops})
+    rows: list = []
+    graph_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    kmeans_section(args, dev, phases, rows)
+    print_rows(rows)
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [dict(
-        name=r["name"], route="cuda", source=sources[r["name"]][0],
-        replaces=sources[r["name"]][1], launches=launches[r["name"]],
+        name=r["name"] if r["combiner"] in (None, "add")
+        else f"{r['name']}/{r['combiner']}",
+        route="cuda", source=KERNELS[r["name"]][0],
+        replaces=KERNELS[r["name"]][1],
+        launches=phases.of(r["name"], r["combiner"]),
         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"]) for r in rows]}))

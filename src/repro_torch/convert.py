@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.algorithms.kmeans import KMState
 from repro_torch.algorithms.pagerank import PRState
 from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
@@ -27,6 +28,8 @@ DTYPES = {
                   "ann": torch.int8, "count": torch.int32,
                   "overflowed": torch.bool},
     PRState: {"acc": torch.float32, "sent": torch.float32},
+    KMState: {"assign": torch.int32, "sums": torch.float32,
+              "counts": torch.float32},
 }
 
 
@@ -35,7 +38,7 @@ def _field(src, name: str):
 
 
 def to_torch(cls, src, device=None):
-    """Build a ``cls`` (CSRGraph, DeltaBuffer or PRState) from ``src``'s
+    """Build a ``cls`` (a key of ``DTYPES``) from ``src``'s
     same-named fields (an object or a dict), pinned types, on ``device``."""
     dev = resolve_device(device)
     fields = {name: torch.from_numpy(np.array(_field(src, name))).to(
@@ -44,8 +47,8 @@ def to_torch(cls, src, device=None):
 
 
 def to_numpy(obj) -> dict:
-    """The port's CSRGraph / DeltaBuffer / PRState as a dict of numpy
-    arrays, by field name."""
+    """One of the port's ``DTYPES`` types as a dict of numpy arrays, by
+    field name."""
     names = (obj._fields if hasattr(obj, "_fields")
              else [f.name for f in dataclasses.fields(obj)])
     return {n: getattr(obj, n).detach().cpu().numpy() for n in names}

@@ -5,10 +5,16 @@ tensor or raises, runs the plain version on a CPU tensor, and counts its
 launches in ``ops.launches``), ``ref.py`` (the plain torch version) and a
 source under ``csrc/``:
 
-  scatter_route   sort-free combine-route (slab + per-owner scan)
+  scatter_route   sort-free combine-route, add/min/max (slab + per-owner
+                  scan)
   delta_route     stable per-owner bucketing (tile histograms + scan)
   delta_scatter   delta buffer -> dense keyed state (atomics)
   edge_propagate  pull over a ragged destination-grouped CSC (warp per row)
+  kmeans_assign   nearest centroid per point (thread per point, centroids
+                  in shared memory)
+
+``csrc/common.cuh`` holds what several sources share: the integer-punned
+float min/max atomics, the block scan and the segment clearing.
 
 ``_build.py`` compiles every source with nvcc into one library on first use.
 """

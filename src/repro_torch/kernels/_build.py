@@ -36,11 +36,11 @@ build_seconds = 0.0
 P, I64 = ctypes.c_void_p, ctypes.c_longlong
 # C signatures: name -> argtypes (all return int = cudaError_t).
 SIGNATURES = {
-    # keys, payload, local, owners, C, W, S, B, cap,
+    # keys, payload, local, owners, C, W, S, B, cap, op,
     # slab, occ, tile_cnt, tile_off, out_keys, out_payload, out_ann,
     # per_owner, stream
-    "scatter_route_add": [P, P, P, P, I64, I64, I64, I64, I64,
-                          P, P, P, P, P, P, P, P, P],
+    "scatter_route": [P, P, P, P, I64, I64, I64, I64, I64, I64,
+                      P, P, P, P, P, P, P, P, P],
     # keys, payload, ann, owners, C, W, S, cap,
     # tile_hist, tile_off, out_keys, out_payload, out_ann, per_owner, stream
     "delta_route": [P, P, P, P, I64, I64, I64, I64,
@@ -49,6 +49,8 @@ SIGNATURES = {
     "delta_scatter": [P, P, P, I64, I64, I64, I64, P],
     # payload, indptr, src, weight, n_dst, op, out, stream
     "edge_propagate": [P, P, P, P, I64, I64, P, P],
+    # points, centroids, N, D, K, assign, dist, stream
+    "kmeans_assign": [P, P, I64, I64, I64, P, P, P],
 }
 
 

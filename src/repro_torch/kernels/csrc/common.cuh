@@ -1,6 +1,6 @@
-// Shared device helpers for the port's kernels: a block-wide exclusive
-// scan, the per-owner scan of tile counts, and the clearing of routed
-// segments.
+// Shared device helpers for the port's kernels: order-exact float min/max
+// atomics, a block-wide exclusive scan, the per-owner scan of tile counts,
+// and the clearing of routed segments.
 // Everything is in an anonymous namespace so each translation unit keeps
 // its own copy and the objects link into one library without clashes.
 #pragma once
@@ -19,6 +19,35 @@ inline int grid_for(long long n, int threads) {
   if (blocks < 1) blocks = 1;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond this
   return (int)blocks;
+}
+
+// Float min/max as integer atomics.  A non-negative float orders like its
+// bits read as a signed int, a negative one inversely to its bits read as
+// unsigned; so atomicMin on int for v >= 0 and atomicMax on unsigned for
+// v < 0 (and the mirror for max) order floats exactly, whatever the order
+// in which the atomics land.
+__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
+  if (!signbit(v))
+    atomicMin((int*)addr, __float_as_int(v));
+  else
+    atomicMax((unsigned int*)addr, __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  if (!signbit(v))
+    atomicMax((int*)addr, __float_as_int(v));
+  else
+    atomicMin((unsigned int*)addr, __float_as_uint(v));
+}
+
+// Combiner codes shared by the C entry points: 0 add, 1 min, 2 max.
+__device__ __forceinline__ void atomic_combine(float* addr, float v, int op) {
+  if (op == 0)
+    atomicAdd(addr, v);
+  else if (op == 1)
+    atomic_min_float(addr, v);
+  else
+    atomic_max_float(addr, v);
 }
 
 // Exclusive scan of one int per thread over the whole block (blockDim.x a

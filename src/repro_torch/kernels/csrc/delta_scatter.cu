@@ -12,27 +12,12 @@
 // more.  The TPU kernel replaces the scatter with a
 // one-hot (TILE_N x CHUNK) contraction on the MXU, O(N*C) work; on Hopper
 // the scatter is direct: one thread per (delta, column) and an atomic in
-// L2.  Min/max use the integer-punned float atomics (atomicMin on int for
-// non-negative values, atomicMax on unsigned for negative ones, and the
-// mirror for max), which order floats exactly.  Add atomics land in any
-// order, so add results match the plain version to rounding.
+// L2.  Min/max use the integer-punned float atomics of common.cuh, which
+// order floats exactly.  Add atomics land in any order, so add results
+// match the plain version to rounding.
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
-  if (!signbit(v))
-    atomicMin((int*)addr, __float_as_int(v));
-  else
-    atomicMax((unsigned int*)addr, __float_as_uint(v));
-}
-
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (!signbit(v))
-    atomicMax((int*)addr, __float_as_int(v));
-  else
-    atomicMin((unsigned int*)addr, __float_as_uint(v));
-}
 
 __global__ void ds_kernel(float* __restrict__ out, const int* __restrict__ idx,
                           const float* __restrict__ payload, long long N,
@@ -43,14 +28,7 @@ __global__ void ds_kernel(float* __restrict__ out, const int* __restrict__ idx,
     const long long i = W == 1 ? e : e / W;  // skip the 64-bit divide
     const int d = idx[i];
     if (d < 0 || d >= N) continue;
-    float* dst = &out[(long long)d * W + (e - i * W)];
-    const float v = payload[e];
-    if (op == 0)
-      atomicAdd(dst, v);
-    else if (op == 1)
-      atomic_min_float(dst, v);
-    else
-      atomic_max_float(dst, v);
+    atomic_combine(&out[(long long)d * W + (e - i * W)], payload[e], op);
   }
 }
 

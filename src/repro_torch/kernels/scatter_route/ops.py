@@ -4,7 +4,9 @@ On a CUDA tensor :func:`scatter_route` launches the kernel
 (``csrc/scatter_route.cu``) or raises; on a CPU tensor it runs the plain
 version (``ref.py``).  :func:`scatter_route_deltas` wraps it for a
 ``DeltaBuffer`` and matches ``core.delta.combine_route_scatter`` slot for
-slot (add-merged payloads to rounding).
+slot (add-merged payloads to rounding, min/max exactly).  The kernel
+combines with add, min and max; ``replace`` and the hash scheme raise on
+the card.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from repro_torch.core.delta import PAD_KEY, DeltaBuffer, _segmented
 from repro_torch.kernels.scatter_route.ref import scatter_route_ref
 
 TILE = 1024          # cells per scan tile (csrc/scatter_route.cu kTile)
+OPS = {"add": 0, "min": 1, "max": 2}
 
 launches = 0         # kernel launches since the last reset
 
@@ -28,10 +31,10 @@ def scatter_route(keys: torch.Tensor, payload: torch.Tensor,
     if not keys.is_cuda:
         return scatter_route_ref(keys, payload, local, owners, num_shards,
                                  block_size, per_shard_capacity, combiner)
-    if combiner != "add":
+    if combiner not in OPS:
         raise NotImplementedError(
-            f"scatter_route kernel implements the add combiner, not "
-            f"{combiner!r} (min/max are ROADMAP queue 2)")
+            f"scatter_route kernel combines with add, min and max, not "
+            f"{combiner!r}")
     from repro_torch.kernels import _build
     global launches
     lib = _build.library()
@@ -49,10 +52,10 @@ def scatter_route(keys: torch.Tensor, payload: torch.Tensor,
     out_ann = torch.empty((S * cap,), dtype=torch.int8, device=dev)
     per_owner = torch.empty((S,), **i32)
     p = _build.ptr
-    err = lib.scatter_route_add(
+    err = lib.scatter_route(
         p(keys, torch.int32, "keys"), p(payload, torch.float32, "payload"),
         p(local, torch.int32, "local"), p(owners, torch.int32, "owners"),
-        C, W, S, B, cap, slab.data_ptr(), occ.data_ptr(),
+        C, W, S, B, cap, OPS[combiner], slab.data_ptr(), occ.data_ptr(),
         tile_cnt.data_ptr(), tile_off.data_ptr(), out_keys.data_ptr(),
         out_payload.data_ptr(), out_ann.data_ptr(), per_owner.data_ptr(),
         _build.stream_of(keys))

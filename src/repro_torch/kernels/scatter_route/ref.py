@@ -1,8 +1,8 @@
 """Plain torch version of the scatter_route kernel.
 
 Same raw-tensor contract as ``ops.scatter_route`` but supporting every
-combiner (add/min/max/replace); the CUDA kernel implements "add".  The
-work is ``core.delta.scatter_segments``, the function behind
+combiner (add/min/max/replace); the CUDA kernel implements add, min and
+max.  The work is ``core.delta.scatter_segments``, the function behind
 ``combine_route_scatter``.
 """
 from __future__ import annotations

@@ -5,23 +5,30 @@ only the port, so it also runs where the reference's JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Integer outputs must match exactly; float adds land in atomic order, so add
-results are within 1e-5 relative.
+Integer outputs and min/max results must match exactly; float adds land
+in atomic order, so add results are within 1e-5 relative.  kmeans_assign's
+d² may differ from the plain version's product by rounding, so an
+assignment may differ only where the plain version's best two d² lie
+within 4 ulp of |p|² + |c|².
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.algorithms import pagerank
+from repro_torch.algorithms import connected_components as cc
+from repro_torch.algorithms import kmeans, pagerank, sssp
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph, make_powerlaw_graph, shard_csr
+from repro_torch.data.points import make_geo_points, sample_initial_centroids
 from repro_torch.kernels import delta_route as t_dr
 from repro_torch.kernels import delta_scatter as t_ds
 from repro_torch.kernels import edge_propagate as t_ep
+from repro_torch.kernels import kmeans_assign as t_ka
 from repro_torch.kernels import scatter_route as t_sr
 from repro_torch.kernels.delta_route import ops as dr_ops
 from repro_torch.kernels.delta_scatter import ops as ds_ops
 from repro_torch.kernels.edge_propagate import ops as ep_ops
+from repro_torch.kernels.kmeans_assign import ops as ka_ops
 from repro_torch.kernels.scatter_route import ops as sr_ops
 
 pytestmark = pytest.mark.gpu
@@ -38,28 +45,79 @@ def t(x, device):
     return torch.from_numpy(np.array(x)).to(device)
 
 
-def test_scatter_route(cuda):
+@pytest.mark.parametrize("combiner,w", [("add", 1), ("min", 1),
+                                        ("max", 1), ("min", 3)])
+def test_scatter_route(cuda, combiner, w):
     rng = np.random.default_rng(0)
     S, B, cap, c = 8, 5000, 3000, 200_000
     keys = rng.integers(-1, S * B, size=c).astype(np.int32)
     owners = np.where(keys >= 0, keys // B, S).astype(np.int32)
     local = np.where(keys >= 0, keys % B, -1).astype(np.int32)
     args = [t(x, cuda) for x in (
-        keys, rng.normal(size=(c, 1)).astype(np.float32), local, owners)]
+        keys, rng.normal(size=(c, w)).astype(np.float32), local, owners)]
     before = sr_ops.launches
-    got = t_sr.scatter_route(*args, S, B, cap)
-    ref = t_sr.scatter_route_ref(*args, S, B, cap)
+    got = t_sr.scatter_route(*args, S, B, cap, combiner)
+    ref = t_sr.scatter_route_ref(*args, S, B, cap, combiner)
     assert sr_ops.launches == before + 1
     for i in (0, 2, 3):
         assert torch.equal(got[i], ref[i])
-    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-6)
+    if combiner == "add":
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got[1], ref[1])
 
 
 def test_scatter_route_raises_outside_its_bounds(cuda):
     x = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(NotImplementedError, match="replace"):
         t_sr.scatter_route(x, torch.zeros(4, 1, device=cuda), x, x, 2, 2, 2,
-                           combiner="min")
+                           combiner="replace")
+
+
+def near_tie_ok(points, cents, got, ref):
+    """Assignments equal except where the plain version's best two d² lie
+    within 4 ulp of |p|² + |c|²; returns the count of such points."""
+    if cents.shape[0] < 2:
+        assert torch.equal(got, ref)
+        return 0
+    top2 = t_ka.kmeans_d2(points, cents).topk(2, largest=False).values
+    c2 = (cents ** 2).sum(-1)
+    scale = (points ** 2).sum(-1) + torch.maximum(c2[got.long()],
+                                                  c2[ref.long()])
+    tol = 4 * torch.finfo(torch.float32).eps * scale
+    near = (top2[:, 1] - top2[:, 0]) <= tol
+    assert bool(((got == ref) | near).all())
+    return int(near.sum())
+
+
+@pytest.mark.parametrize("n,k,d", [(1_000_003, 32, 2), (77_777, 8, 5),
+                                   (20_000, 5000, 3), (4096, 1, 2)])
+def test_kmeans_assign(cuda, n, k, d):
+    rng = np.random.default_rng(n + k)
+    pts = (rng.normal(size=(n, d)) * 40).astype(np.float32)
+    cents = (rng.normal(size=(k, d)) * 40).astype(np.float32)
+    if k > 1:
+        cents[k // 2] = cents[0]       # an exact tie: both pick 0
+        pts[:100] = cents[0]
+    pts, cents = t(pts, cuda), t(cents, cuda)
+    before = ka_ops.launches
+    a, d2 = t_ka.assign(pts, cents)
+    assert ka_ops.launches == before + 1
+    a_ref, d2_ref = t_ka.kmeans_assign_ref(pts, cents)
+    assert a.dtype == torch.int32 and d2.dtype == torch.float32
+    near_tie_ok(pts, cents, a, a_ref)
+    assert bool((a[:100] == 0).all())
+    scale = (pts ** 2).sum(-1) + (cents ** 2).sum(-1).max()
+    assert bool(((d2 - d2_ref).abs()
+                 <= 4 * torch.finfo(torch.float32).eps * scale).all())
+
+
+def test_kmeans_assign_raises_outside_its_bounds(cuda):
+    pts = torch.zeros(8, 2, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_ka.assign(pts, torch.zeros(20_000, 2, device=cuda))
+    with pytest.raises(ValueError, match="D="):
+        t_ka.assign(pts, torch.zeros(4, 3, device=cuda))
 
 
 def test_delta_route(cuda):
@@ -140,3 +198,51 @@ def test_pagerank_on_card_matches_cpu(cuda, mode, route):
                 ("nodelta", "sort"): [False, False, False]}[(mode, route)]
     assert ran[:3] == expected
     assert ran[3] or mode == "delta"
+
+
+@pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),
+                                        ("nodelta", "sort")])
+@pytest.mark.parametrize("algo", ["sssp", "cc"])
+def test_min_algorithms_on_card_equal_cpu(cuda, algo, mode, route):
+    """Min is order-free: the kernel path on the card equals the torch-op
+    path on the CPU exactly, stats included."""
+    n, S = 4096, 4
+    indptr, indices = make_powerlaw_graph(n, avg_degree=14.5, alpha=2.1,
+                                          seed=0)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    mod = sssp if algo == "sssp" else cc
+    kw = dict(mode=mode, max_iters=80, edge_capacity=8192, src_capacity=1024,
+              ladder_tiers=4, route_strategy=route)
+    counts = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+              ep_ops.launches)
+    v_gpu, r_gpu = mod.run(shard_csr(indptr, indices, S, device=cuda), snap,
+                           device=cuda, **kw)
+    v_cpu, r_cpu = mod.run(shard_csr(indptr, indices, S, device="cpu"),
+                           snap, device="cpu", use_kernels=False, **kw)
+    assert torch.equal(v_gpu.cpu(), v_cpu)
+    for f in r_cpu.stats._fields:
+        assert torch.equal(getattr(r_gpu.stats, f), getattr(r_cpu.stats, f))
+    after = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+             ep_ops.launches)
+    ran = [a > b for a, b in zip(after, counts)]
+    used_dense = bool(r_cpu.stats.used_dense.any())
+    expected = {("delta", "auto"): [True, False, True, used_dense],
+                ("delta", "sort"): [False, True, True, used_dense],
+                ("nodelta", "sort"): [False, False, False, True]}
+    assert ran == expected[(mode, route)]
+
+
+@pytest.mark.parametrize("mode", ["delta", "nodelta"])
+def test_kmeans_on_card_matches_cpu(cuda, mode):
+    """Atomic float sums reorder the centroid sums, so the card's run is
+    held to the CPU's within 1e-3 (coordinates of +-95)."""
+    S, block, k = 4, 4096, 16
+    pts = make_geo_points(S * block, k, seed=0, device="cpu")
+    init = sample_initial_centroids(pts, k, seed=1)
+    before = ka_ops.launches
+    c_gpu, r_gpu = kmeans.run(pts.reshape(S, block, 2), init, mode=mode,
+                              device=cuda)
+    c_cpu, r_cpu = kmeans.run(pts.reshape(S, block, 2), init, mode=mode,
+                              device="cpu", use_kernels=False)
+    assert ka_ops.launches == before + 1 + int(r_gpu.stats.iterations)
+    assert float((c_gpu.cpu() - c_cpu).abs().max()) < 1e-3
