@@ -29,13 +29,32 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   60 strata (``bench_kmeans.py``'s settings at the paper's largest size):
   ``kmeans_delta`` and ``kmeans_nodelta`` (kmeans_assign), each within
   3e-3 (coordinates; cloud spread 3.0) of a float64 Lloyd iteration of the
-  same shape on the card, and of each other.
+  same shape on the card, and of each other;
+* the dense LM serving path at Llama-3-8B's full width and depth (32
+  layers, d 4096, GQA 32/8 heads of 128, d_ff 14,336, vocab 128,256, bf16
+  weights from the port's seeded init), tokens from ``TokenPipeline``:
+  - ``lm_forward``: the full-sequence forward at 2 x 4096 tokens
+    (``train_4k``'s sequence, its batch of 256 cut to 2), 32
+    flash_attention launches, its logits against the plain attention
+    path (``use_kernel=False``) within 5e-2 of the largest logit; and
+    at full width, 4 layers, float32 (TF32 off) within 1e-4, as are 8
+    teacher-forced decode steps after a prefill against that forward;
+  - ``lm_serve``: ``launch/serve.py``'s ``serve`` on 8 requests of 2048
+    prompt tokens and 64 greedy new tokens (32 flash_attention launches,
+    all in the prefill), the prefill's last-position logits against the
+    forward's (within one bf16 ulp of the largest logit) and against the
+    prefill's plain attention path (``use_kernel=False``, 5e-2), and 8
+    teacher-forced decode steps against a forward over the extended
+    sequence (5e-2); each bound's reason is stated beside it below.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
 added floats within 1e-5 relative (atomics reorder float adds), and
 kmeans_assign's assignment exactly except at near-ties of the plain
-version (best two d² within 4 ulp of |p|² + |c|²), counted and printed.
+version (best two d² within 4 ulp of |p|² + |c|²), counted and printed,
+and flash_attention within 2e-4 abs + 2e-4 rel (the reference's
+kernel-vs-oracle bound) at the forward's and the prefill's shapes (inputs
+of layer 0), a ragged causal shape and a non-causal one.
 The kernel, its plain version and, where one torch call computes the same
 function, that call are timed.  Each phase runs with every kernel's launch
 count set to 0 and fails if a kernel of its path was not launched.
@@ -66,6 +85,28 @@ KMEANS_BOUND = 3e-3         # centroid coordinates, cloud spread 3.0
 KMEANS_K = 32               # centroids, and clusters of the generated cloud
 KMEANS_STRATA = 60          # cap on Lloyd strata (bench_kmeans.py's)
 KMEANS_CHUNK = 1 << 23      # points per chunk of the plain and f64 passes
+FLASH_TOL = 2e-4            # abs and rel, tests/test_kernels.py's bound
+LM_ARCH = "llama3-8b"
+# The LM phases' shapes: the forward at train_4k's sequence with its batch
+# cut to 2; serving 8 prompts of 2048 tokens, 64 new tokens; the float32
+# check at 4 layers; 8 teacher-forced decode steps.
+LM_SHAPES = dict(fwd_batch=2, fwd_seq=4096, serve_batch=8, prompt=2048,
+                 new=64, tight_layers=4, decode_steps=8)
+# Logit errors as max |diff| / max |logit|.  Float32: the kernel and the
+# plain version differ by ~1e-6, which 4 layers carry to ~4e-6.  Bf16 at
+# full depth: a last-bit difference in an attention output flips a bf16
+# rounding of the residual stream, and 32 layers carry it; two readings of
+# the kernel path against the plain path, 1.531e-2 and 1.653e-2, and of
+# teacher-forced decode against the forward, 1.534e-2 and 1.581e-2, set
+# these bounds at about 3x the worst.  The prefill's last-position logits
+# equal the forward's (two readings of 0); the bound is one bf16 ulp of
+# the largest logit, the most that rounding the head product for one row
+# in another order than for all rows could move them.
+LM_TIGHT_BOUND = 1e-4       # float32, 4 layers
+LM_BF16_BOUND = 5e-2        # bf16, kernel vs plain path, full depth
+LM_DECODE_BOUND = 5e-2      # bf16, teacher-forced decode vs the forward
+LM_PREFILL_BOUND = 2 ** -8  # bf16, prefill vs the forward (one ulp)
+OFF_PATH = "off_path"       # flash rows at shapes no LM phase runs
 
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
@@ -79,6 +120,9 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                        "edge_propagate.py:71"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign/kmeans_assign.py:40"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:80"),
 }
 
 
@@ -153,17 +197,32 @@ def compare(name: str, got, ref, float_idx=()) -> float:
     return err
 
 
-def row(name, combiner, err, ms, plain_ms, b, library_ms, shape):
+def row(name, combiner, err, ms, plain_ms, b, library_ms, shape,
+        label=None):
+    """One kernel check.  ``combiner`` groups the phases whose launches
+    the row reports: a combiner, or an LM phase's name (None: every
+    phase); ``label`` names the row when it is not the kernel's name with
+    its combiner."""
     return dict(name=name, combiner=combiner, err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                library_ms=library_ms, shape=shape)
+                library_ms=library_ms, shape=shape, label=label)
+
+
+def row_name(r) -> str:
+    """The row's name in the kernels JSON line."""
+    if r["label"]:
+        return r["label"]
+    if r["combiner"] in (None, "add"):
+        return r["name"]
+    return f"{r['name']}/{r['combiner']}"
 
 
 def print_rows(rows) -> None:
     for r in rows:
         lib = (f"{r['library_ms']:.3f} ms" if r["library_ms"] is not None
                else "none")
-        print(f"kernel {r['name']} [{r['combiner']}]: {r['shape']} ok "
+        name = r["label"] or f"{r['name']} [{r['combiner']}]"
+        print(f"kernel {name}: {r['shape']} ok "
               f"max_abs_err {r['err']:.3e} kernel {r['ms']:.3f} ms plain "
               f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) library {lib}", flush=True)
@@ -477,7 +536,7 @@ class Phases:
 
     def __init__(self, counters):
         self.counters = counters
-        self.launches = []   # (combiner, {kernel: launches})
+        self.launches = []   # (combiner or LM phase, {kernel: launches})
 
     def run(self, name, combiner, needs, fn, warm_up=True):
         import torch
@@ -707,6 +766,216 @@ def kmeans_section(args, dev, phases, rows):
     check(agree < KMEANS_BOUND, "kmeans delta and nodelta disagree")
 
 
+def flash_row(label, phase, q, k, v, causal):
+    """flash_attention at q [B, H, T, D], k/v [B, H_kv, S, D] against its
+    plain version, timed beside it and beside the library's
+    ``scaled_dot_product_attention`` in float32.  The row reports the
+    launches of the LM phase ``phase`` runs at this shape (OFF_PATH: a
+    check at a shape the path does not run, 0 launches)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.attention(q, k, v, causal=causal)
+    ref = fa.attention_ref(q, k, v, causal=causal)
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    ok = bool((diff <= FLASH_TOL + FLASH_TOL * ref.abs()).all())
+    check(ok and bool(torch.isfinite(got).all()),
+          f"flash_attention/{label}: off its plain version by up to "
+          f"{err:.3e} (tolerance {FLASH_TOL} abs + rel)")
+    del got, ref, diff
+    b, h, t, d = q.shape
+    h_kv, s = k.shape[1], k.shape[2]
+    # Score pairs the function needs: s <= t when causal (T == S).
+    pairs = t * (t + 1) // 2 if causal else t * s
+    bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * d * b * h * pairs)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=h != h_kv)
+    return row("flash_attention", phase, err,
+               time_ms(lambda: fa.attention(q, k, v, causal=causal)),
+               time_ms(lambda: fa.attention_ref(q, k, v, causal=causal),
+                       reps=2), bnd, time_ms(lib),
+               f"B={b} H={h} H_kv={h_kv} T={t} S={s} D={d} "
+               f"{'causal' if causal else 'non-causal'}"
+               f"{' (off the path)' if phase == OFF_PATH else ''}",
+               label=f"flash_attention/{label}")
+
+
+def layer0_qkv(cfg, params, tokens):
+    """Layer 0's attention inputs on ``tokens``, as the forward gives them
+    to the kernel: float32, contiguous, q and k rotated."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_norm
+    layer = params.layers[0]
+    x = apply_norm(cfg.norm_kind, layer.ln1, params.embed[tokens.long()])
+    b, t = tokens.shape
+    pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    return [a.float().contiguous()
+            for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|: the error against the logits'
+    scale."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def teacher_forced(cfg, params, tokens, start, steps):
+    """Prefill ``tokens[:, :start]`` into a cache of ``start + steps``
+    slots, then decode ``tokens[:, start + i]`` at position ``start + i``;
+    returns the decode logits f32[B, steps, V]."""
+    import torch
+    from repro_torch.models import transformer
+    _, cache = transformer.prefill_forward(cfg, params,
+                                           tokens[:, :start].contiguous(),
+                                           start + steps)
+    out = []
+    for i in range(steps):
+        logits, cache = transformer.decode_step(
+            cfg, params, tokens[:, start + i:start + i + 1], cache,
+            torch.tensor(start + i, dtype=torch.int32, device=tokens.device))
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
+    """The dense LM serving path at Llama-3-8B's full width and depth
+    (``cfg`` and ``shapes`` shrink it for a rehearsal on the CPU)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    sync()
+    print(f"lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} {cfg.dtype}: "
+          f"{transformer.param_count(params)} parameters "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+
+    # lm_forward: the full-sequence forward through the kernel.
+    B, T = sh["fwd_batch"], sh["fwd_seq"]
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
+                           device=dev).batch_at(0)["tokens"]
+    (logits, _), wall, counts, peak = phases.run(
+        "lm_forward", "lm_forward", ("flash_attention",),
+        lambda: transformer.forward(cfg, params, tokens))
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"lm_forward: {counts['flash_attention']} flash_attention "
+          f"launches for {cfg.n_layers} layers")
+    check(logits.shape == (B, T, cfg.vocab) and logits.dtype ==
+          torch.float32 and bool(torch.isfinite(logits).all()),
+          f"lm_forward: logits {logits.dtype}{tuple(logits.shape)} not "
+          f"finite")
+    plain, _ = transformer.forward(cfg, params, tokens, use_kernel=False)
+    err = rel_err(logits, plain)
+    same = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    del plain, logits
+    print(f"phase lm_forward: [{B}x{T}] wall {wall:.3f} s "
+          f"{B * T / wall:.0f} tok/s launches {counts} peak_mem "
+          f"{peak:.2f} GiB max|kernel - plain| / max|logit| {err:.3e} "
+          f"(bound {LM_BF16_BOUND}), argmax agreement {same:.5f}",
+          flush=True)
+    check(err <= LM_BF16_BOUND, f"lm_forward: kernel path off the plain "
+                                f"path by {err:.3e} of the logits' scale")
+    rows.append(flash_row("forward", "lm_forward",
+                          *layer0_qkv(cfg, params, tokens), True))
+    torch.cuda.empty_cache()
+
+    # Full width, 4 layers, float32: the kernel path against the plain
+    # path, and teacher-forced decode against that forward.
+    cfg32 = dataclasses.replace(cfg, n_layers=sh["tight_layers"],
+                                dtype="float32")
+    p32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    f32, _ = transformer.forward(cfg32, p32, tokens)
+    plain32, _ = transformer.forward(cfg32, p32, tokens, use_kernel=False)
+    err32 = rel_err(f32, plain32)
+    del plain32
+    n = sh["decode_steps"]
+    dec32 = teacher_forced(cfg32, p32, tokens, T - n, n)
+    err_dec32 = rel_err(dec32, f32[:, T - n:])
+    del p32, f32, dec32
+    print(f"lm float32 at {cfg32.n_layers} layers, full width: "
+          f"max|kernel - plain| / max|logit| {err32:.3e}, teacher-forced "
+          f"decode ({n} steps) vs forward {err_dec32:.3e} (bound "
+          f"{LM_TIGHT_BOUND})", flush=True)
+    check(err32 <= LM_TIGHT_BOUND, "lm float32: kernel path off the plain "
+                                   "path")
+    check(err_dec32 <= LM_TIGHT_BOUND, "lm float32: decode off the forward")
+    del tokens
+    torch.cuda.empty_cache()
+
+    # lm_serve: launch/serve.py's prefill + greedy decode.
+    B, P, new = sh["serve_batch"], sh["prompt"], sh["new"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 1,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    res, wall, counts, peak = phases.run(
+        "lm_serve", "lm_serve", ("flash_attention",),
+        lambda: serve(cfg, params, prompt, new))
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"lm_serve: {counts['flash_attention']} flash_attention launches "
+          f"for a prefill of {cfg.n_layers} layers")
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"lm_serve: tokens {toks.dtype}{tuple(toks.shape)} out of range")
+    full, _ = transformer.forward(cfg, params, prompt)
+    last = full[:, -1:].clone()
+    del full
+    err_prefill = rel_err(res.prefill_logits, last)
+    plain, _ = transformer.prefill_forward(cfg, params, prompt, P + new,
+                                           use_kernel=False)
+    err_prefill_plain = rel_err(res.prefill_logits, plain)
+    del plain
+    full, _ = transformer.forward(cfg, params, ext)
+    tail = full[:, P:].clone()
+    del full
+    err_dec = rel_err(teacher_forced(cfg, params, ext, P, n), tail)
+    del tail, last
+    print(f"phase lm_serve: [{B}x{P} + {new}] wall {wall:.3f} s prefill "
+          f"{res.prefill_s:.3f} s ({B * P / res.prefill_s:.0f} tok/s) "
+          f"decode {res.decode_steps} steps {res.decode_s:.3f} s "
+          f"({B * res.decode_steps / res.decode_s:.1f} tok/s) launches "
+          f"{counts} peak_mem {peak:.2f} GiB; prefill last logits vs "
+          f"forward {err_prefill:.3e} (bound {LM_PREFILL_BOUND:.3e}), vs "
+          f"the plain prefill {err_prefill_plain:.3e} (bound "
+          f"{LM_BF16_BOUND}), "
+          f"teacher-forced decode ({n} steps) vs forward {err_dec:.3e} "
+          f"(bound {LM_DECODE_BOUND}); sample {toks[0, :8].tolist()}",
+          flush=True)
+    check(err_prefill <= LM_PREFILL_BOUND, "lm_serve: prefill logits off "
+                                           "the forward")
+    check(err_prefill_plain <= LM_BF16_BOUND, "lm_serve: prefill off the "
+                                              "plain prefill")
+    check(err_dec <= LM_DECODE_BOUND, "lm_serve: decode off the forward")
+    rows.append(flash_row("prefill", "lm_serve",
+                          *layer0_qkv(cfg, params, prompt), True))
+    del params, res, ext, prompt
+    torch.cuda.empty_cache()
+
+    # The kernel at a ragged causal shape and a non-causal one.
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    for label, (b, h, h_kv, t, s, d), causal in [
+            ("ragged", (2, 32, 8, 1000, 1000, 128), True),
+            ("noncausal", (2, 16, 16, 512, 768, 64), False)]:
+        q = torch.randn(b, h, t, d, generator=g, device=dev)
+        k = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+        v = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+        rows.append(flash_row(label, OFF_PATH, q, k, v, causal))
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -725,6 +994,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.delta_route import ops as dr_ops
     from repro_torch.kernels.delta_scatter import ops as ds_ops
     from repro_torch.kernels.edge_propagate import ops as ep_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_assign import ops as ka_ops
     from repro_torch.kernels.scatter_route import ops as sr_ops
 
@@ -740,18 +1010,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     phases = Phases({"scatter_route": sr_ops, "delta_route": dr_ops,
                      "delta_scatter": ds_ops, "edge_propagate": ep_ops,
-                     "kmeans_assign": ka_ops})
+                     "kmeans_assign": ka_ops,
+                     "flash_attention": fa_ops})
     rows: list = []
     graph_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     kmeans_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    lm_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [dict(
-        name=r["name"] if r["combiner"] in (None, "add")
-        else f"{r['name']}/{r['combiner']}",
-        route="cuda", source=KERNELS[r["name"]][0],
+        name=row_name(r), route="cuda", source=KERNELS[r["name"]][0],
         replaces=KERNELS[r["name"]][1],
         launches=phases.of(r["name"], r["combiner"]),
         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],

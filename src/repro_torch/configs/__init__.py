@@ -1,0 +1,6 @@
+"""Architecture configs: the reference's dense LMs (``configs/base.py``)."""
+from repro_torch.configs.base import (PENDING, SHAPES, ArchConfig, Shape,
+                                      all_archs, get_arch, register)
+
+__all__ = ["PENDING", "SHAPES", "ArchConfig", "Shape", "all_archs",
+           "get_arch", "register"]

@@ -5,6 +5,9 @@ dataclasses and NamedTuples can be passed as they are: fields are read by
 name).  They become the port's tensors, with the port's pinned types, on a
 given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
+
+``lm_params_from_jax`` carries the reference's dense-LM parameter tree
+into a ``models.transformer.DenseLM``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import DenseLM
 
 # Field -> pinned dtype, per port type.
 DTYPES = {
@@ -65,3 +69,57 @@ def snapshot(src) -> PartitionSnapshot:
 def snapshot_fields(snap: PartitionSnapshot) -> dict:
     """Back: the snapshot's fields as a dict."""
     return dataclasses.asdict(snap)
+
+
+def _array_to_torch(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr`` (anything ``numpy.asarray`` reads).  A
+    bfloat16 array (ml_dtypes' type, which ``torch.from_numpy`` refuses)
+    is carried by its bits, recognised by dtype name."""
+    arr = np.array(arr)          # a contiguous, writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_jax(cfg, params, device=None) -> DenseLM:
+    """A ``DenseLM`` on ``device`` holding the reference's parameters
+    ``params`` (its ``transformer.init_params`` tree; the per-layer arrays
+    are stacked under ``units/b0_dense`` with a leading layer axis).
+    Names, shapes and types must match exactly."""
+    model = DenseLM(cfg, resolve_device(device))
+
+    def put(dst, src, name):
+        t = _array_to_torch(src)
+        if t.shape != dst.shape or t.dtype != dst.dtype:
+            raise ValueError(f"{name}: reference has {t.dtype}"
+                             f"{tuple(t.shape)}, port {dst.dtype}"
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t)
+
+    def leaf(tree, name):
+        for part in name.split("."):
+            tree = tree[part]
+        return tree
+
+    n_leaves = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("layers."):
+                _, u, rest = name.split(".", 2)
+                stacked = np.asarray(leaf(params["units"]["b0_dense"], rest))
+                put(p, stacked[int(u)], name)
+                n_leaves += int(u) == 0
+            else:
+                put(p, leaf(params, name), name)
+                n_leaves += 1
+    want = sum(len(_leaves(params[k])) for k in params)
+    if n_leaves != want:
+        raise ValueError(f"the reference tree has {want} leaves, the port "
+                         f"filled {n_leaves}")
+    return model
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

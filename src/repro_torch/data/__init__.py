@@ -1,1 +1,2 @@
-"""Datasets: synthetic power-law graphs shaped like the paper's."""
+"""Datasets: synthetic power-law graphs shaped like the paper's, k-means
+point sets, and the synthetic LM token stream."""

@@ -12,6 +12,9 @@ source under ``csrc/``:
   edge_propagate  pull over a ragged destination-grouped CSC (warp per row)
   kmeans_assign   nearest centroid per point (thread per point, centroids
                   in shared memory)
+  flash_attention blocked online-softmax attention, GQA, causal or not
+                  (block per query tile, K/V tiles in shared memory, float32
+                  FMA)
 
 ``csrc/common.cuh`` holds what several sources share: the integer-punned
 float min/max atomics, the block scan and the segment clearing.

@@ -51,6 +51,8 @@ SIGNATURES = {
     "edge_propagate": [P, P, P, P, I64, I64, P, P],
     # points, centroids, N, D, K, assign, dist, stream
     "kmeans_assign": [P, P, I64, I64, I64, P, P, P],
+    # q, k, v, B, H, H_kv, T, S, D, causal, out, stream
+    "flash_attention": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P, P],
 }
 
 

@@ -1,0 +1,1 @@
+"""Drivers: the LM serving driver (``python -m repro_torch.launch.serve``)."""

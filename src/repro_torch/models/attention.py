@@ -1,0 +1,201 @@
+"""Grouped-query attention with its full-sequence, prefill and single-token
+decode paths (the GQA part of the reference's ``models/attention.py``).
+
+The full-sequence forward and the prefill call the flash_attention op
+(``kernels/flash_attention``) when ``use_kernel`` is set, the default: on
+a CUDA tensor that is the CUDA kernel, at every T; on the CPU its plain
+version.  ``use_kernel=False`` calls ``attention_ref`` on any device, as
+the reference's default does.
+
+Decode keeps a full cache per layer: k/v [B, H_kv, slots, Dh] plus the
+global position held by each slot (−1 = empty); a token at position p
+goes to slot ``p % slots``.  The port writes the new token into the cache
+in place (the reference returns a new cache): the returned dict is the one
+passed in.
+
+Not ported here, each raising ``NotImplementedError`` with its ROADMAP
+slice (queue 1): sliding windows (9c/9g), M-RoPE (9e), ``flash=True``
+decode, which is the reference's ``shard_map`` flash-decoding (slice 3),
+MLA with ``blocked_attention`` (9d) and cross-attention (9f).  The
+reference's prefill switches to ``blocked_attention`` above
+T·T = 4096·8192 so its [T, S] scores fit; the CUDA kernel never
+materialises them, so the port's prefill needs no such switch.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import attention as flash_attn_op
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import _param, apply_rope, dtype_of, normal_
+
+
+def _not_ported(what: str, slice_: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue 1, {slice_}")
+
+
+def _check_cfg(cfg) -> None:
+    if cfg.window:
+        raise _not_ported("sliding-window attention",
+                          "slice 9c/9g (mixtral, recurrentgemma)")
+    if cfg.rope_kind != "rope":
+        raise _not_ported(f"rope_kind={cfg.rope_kind!r}",
+                          "slice 9e (M-RoPE)" if cfg.rope_kind == "mrope"
+                          else "slice 9g (sinusoid positions)")
+
+
+class GQA(nn.Module):
+    """wq [D, H·Dh], wk/wv [D, H_kv·Dh], wo [H·Dh, D] in the config dtype."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.hd, dtype_of(cfg.dtype)
+        self.wq = _param(d, cfg.n_heads * hd, dtype=dt, device=device)
+        self.wk = _param(d, cfg.n_kv_heads * hd, dtype=dt, device=device)
+        self.wv = _param(d, cfg.n_kv_heads * hd, dtype=dt, device=device)
+        self.wo = _param(cfg.n_heads * hd, d, dtype=dt, device=device)
+
+
+def init_gqa(attn: GQA, cfg, gen: torch.Generator) -> None:
+    s = cfg.d_model ** -0.5
+    normal_(attn.wq, s, gen)
+    normal_(attn.wk, s, gen)
+    normal_(attn.wv, s, gen)
+    normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, hd).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * hd)
+
+
+def _positions_rope(cfg, q, k, positions):
+    _check_cfg(cfg)
+    return apply_rope(q, positions), apply_rope(k, positions)
+
+
+def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B, T, D] -> q [B, H, T, Dh], k and v [B, H_kv, T, Dh], q and k
+    rotated, all in x's dtype."""
+    hd = cfg.hd
+    q = _split_heads(x @ params.wq, cfg.n_heads, hd)
+    k = _split_heads(x @ params.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(x @ params.wv, cfg.n_kv_heads, hd)
+    q, k = _positions_rope(cfg, q, k, positions)
+    return q, k, v
+
+
+def _attend(q, k, v, causal: bool, use_kernel: bool) -> torch.Tensor:
+    """Attention in float32 (contiguous [B, H, T, Dh] operands), back in
+    q's dtype."""
+    args = [t.float().contiguous() for t in (q, k, v)]
+    if use_kernel:
+        out = flash_attn_op(*args, causal=causal)
+    else:
+        out = attention_ref(*args, causal=causal)
+    return out.to(q.dtype)
+
+
+def gqa_train(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
+              causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
+    """x [B, T, D]; positions [B, T]."""
+    q, k, v = gqa_qkv(cfg, params, x, positions)
+    out = _attend(q, k, v, causal, use_kernel)
+    return _merge_heads(out) @ params.wo
+
+
+# ---- decode -----------------------------------------------------------
+
+def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device=None
+                   ) -> dict:
+    """Full cache of ``max_len`` slots, empty (pos −1)."""
+    _check_cfg(cfg)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def gqa_decode(cfg, params: GQA, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor, flash: bool = False
+               ) -> tuple[torch.Tensor, dict]:
+    """x [B, 1, D]; pos int32[] — global index of the new token.  Writes
+    the token's k/v and position into ``cache`` in place."""
+    if flash:
+        raise _not_ported("flash decoding over a sequence-sharded cache",
+                          "slice 3 (multi-device backend)")
+    b = x.shape[0]
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q, k_new, v_new = gqa_qkv(cfg, params, x, posb)
+    slots = cache["k"].shape[2]
+    slot = (pos % slots).reshape(1).long()
+    cache["k"].index_copy_(2, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slot, v_new.to(cache["v"].dtype))
+    cache["pos"].index_copy_(1, slot, posb.to(torch.int32))
+    out = _full_decode_attention(cfg, q, cache["k"], cache["v"],
+                                 cache["pos"], pos)
+    return _merge_heads(out) @ params.wo, cache
+
+
+def _full_decode_attention(cfg, q, k, v, slot_pos, pos):
+    hd = cfg.hd
+    group = cfg.n_heads // cfg.n_kv_heads
+    kx = torch.repeat_interleave(k, group, dim=1)
+    vx = torch.repeat_interleave(v, group, dim=1)
+    scores = torch.einsum("bhqd,bhsd->bhqs", q.float(),
+                          kx.float()) / (hd ** 0.5)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bhsd->bhqd", probs, vx.float()).to(q.dtype)
+
+
+def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
+                max_len: int, unroll: bool = False, use_kernel: bool = True
+                ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also builds the decode cache: k/v and
+    positions of the last ``max_len`` tokens of the prompt (all of them
+    when it is shorter), each in its ring slot ``pos % max_len``.
+    ``unroll`` is accepted and ignored (eager PyTorch has no scan)."""
+    hd = cfg.hd
+    b, t, _ = x.shape
+    q, k, v = gqa_qkv(cfg, params, x, positions)
+    out = _attend(q, k, v, True, use_kernel)
+    y = _merge_heads(out) @ params.wo
+
+    slots = max_len
+    if t >= slots:          # keep the last ``slots`` positions (ring order)
+        k_keep, v_keep = k[:, :, t - slots:], v[:, :, t - slots:]
+        pos_keep = positions[:, t - slots:]
+    else:
+        pad = slots - t
+        k_keep = nn.functional.pad(k, (0, 0, 0, pad))
+        v_keep = nn.functional.pad(v, (0, 0, 0, pad))
+        pos_keep = nn.functional.pad(positions, (0, pad), value=-1)
+    # Ring slot per kept position; padding slots (-1) fall back to their own
+    # index (no collision: live slots occupy pos % slots, and when padding
+    # exists t < slots so live ring values are the identity on [0, t)).
+    own = torch.arange(slots, dtype=torch.int64, device=x.device)[None, :]
+    ring_safe = torch.where(pos_keep >= 0, pos_keep.long() % slots, own)
+    bidx = torch.arange(b, device=x.device)[:, None]
+    cache_k = torch.zeros((b, cfg.n_kv_heads, slots, hd), dtype=x.dtype,
+                          device=x.device)
+    cache_v = torch.zeros_like(cache_k)
+    cache_k[bidx, :, ring_safe] = k_keep.transpose(1, 2).to(x.dtype)
+    cache_v[bidx, :, ring_safe] = v_keep.transpose(1, 2).to(x.dtype)
+    cache_pos = torch.full((b, slots), -1, dtype=torch.int32,
+                           device=x.device)
+    cache_pos[bidx, ring_safe] = torch.where(
+        pos_keep >= 0, pos_keep, -1).to(torch.int32)
+    return y, {"k": cache_k, "v": cache_v, "pos": cache_pos}

@@ -1,0 +1,152 @@
+"""Shared model primitives: norms, rotary embeddings, gated MLP (the
+reference's ``models/layers.py``).
+
+``init_*`` fill a given parameter from a ``torch.Generator``; ``apply_*``
+take (params, x) and compute in the reference's order and types.  Norm
+scales and biases are float32, weights are in the config dtype.
+
+The reference defines these functions, not the published models: RoPE
+rotates *interleaved* pairs (``x[..., ::2]``, ``x[..., 1::2]``) with
+θ = 10,000 for every config, and the norms use eps = 1e-6 with the
+population variance.  The port keeps all three (ROADMAP queue 3).
+
+``apply_mrope`` waits for the vision slice (ROADMAP queue 1, slice 9e).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """Fill ``t`` in place with N(0, std²) drawn in float32 from ``gen``
+    (on ``t``'s device) and rounded once to ``t``'s dtype."""
+    t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
+                        dtype=torch.float32) * std)
+
+
+def _param(*shape, dtype, device) -> nn.Parameter:
+    # Serving only: the flash kernel has no backward yet (training is
+    # ROADMAP queue 1, slice 9b), so no parameter asks for a gradient.
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """``scale`` (rmsnorm, layernorm) and ``bias`` (layernorm), float32;
+    none for olmo's non-parametric LayerNorm."""
+
+    def __init__(self, kind: str, d: int, device=None):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm", "nonparam_ln"):
+            raise ValueError(kind)
+        if kind in ("rmsnorm", "layernorm"):
+            self.scale = _param(d, dtype=torch.float32, device=device)
+        if kind == "layernorm":
+            self.bias = _param(d, dtype=torch.float32, device=device)
+
+
+def init_norm(norm: Norm) -> None:
+    """Scale 1, bias 0 (the reference's init)."""
+    if hasattr(norm, "scale"):
+        norm.scale.fill_(1.0)
+    if hasattr(norm, "bias"):
+        norm.bias.zero_()
+
+
+def apply_norm(kind: str, params: Norm, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        out = xf / rms * params.scale
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        if kind == "layernorm":
+            out = out * params.scale + params.bias
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings.
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float = 10_000.0, device=None
+               ) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x [..., T, D]; positions int32[..., T] (broadcastable).  Rotates the
+    interleaved pairs (x[2i], x[2i+1]) by ``positions · θ^(-2i/D)``."""
+    d = x.shape[-1]
+    while positions.dim() < x.dim() - 1:      # insert head axes before T
+        positions = positions[..., None, :]
+    freqs = rope_freqs(d, theta, x.device)                  # [D/2]
+    angles = positions[..., None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)         # [..., T, D/2]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x1 * sin + x2 * cos
+    return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU) and linear layers.
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dtype, device=None):
+        super().__init__()
+        self.w_gate = _param(d_model, d_ff, dtype=dtype, device=device)
+        self.w_up = _param(d_model, d_ff, dtype=dtype, device=device)
+        self.w_down = _param(d_ff, d_model, dtype=dtype, device=device)
+
+
+def init_mlp(mlp: MLP, gen: torch.Generator) -> None:
+    d_model, d_ff = mlp.w_gate.shape
+    normal_(mlp.w_gate, d_model ** -0.5, gen)
+    normal_(mlp.w_up, d_model ** -0.5, gen)
+    normal_(mlp.w_down, d_ff ** -0.5, gen)
+
+
+def apply_mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(x @ params.w_gate)
+    return (gate * (x @ params.w_up)) @ params.w_down
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, dtype, device=None,
+                 bias: bool = False):
+        super().__init__()
+        self.w = _param(d_in, d_out, dtype=dtype, device=device)
+        if bias:
+            self.b = _param(d_out, dtype=dtype, device=device)
+
+
+def init_linear(lin: Linear, gen: torch.Generator) -> None:
+    normal_(lin.w, lin.w.shape[0] ** -0.5, gen)
+    if hasattr(lin, "b"):
+        lin.b.zero_()
+
+
+def apply_linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params.w
+    if hasattr(params, "b"):
+        y = y + params.b
+    return y

@@ -1,0 +1,81 @@
+"""The port's flash_attention op against the reference's.
+
+On the CPU the port's ``ops.attention`` runs its plain version
+(``ref.py``).  It is held against the reference's Pallas kernel
+``flash_attention`` run in interpret mode, within 2e-4 abs + 2e-4 rel (the
+bound of the reference's own kernel-vs-oracle test,
+``tests/test_kernels.py``: the kernel adds blocks in another order), and
+against the reference's plain ``attention_ref`` within 1e-5 abs + 1e-5 rel
+(both materialise the scores; einsum and softmax round differently in XLA
+and torch).  Inputs are made with numpy from a seed.  Shapes: those of
+``tests/test_kernels.py`` plus GQA group 4 and D = 16; causal only at
+T == S, where the Pallas kernel (diagonal top-left) and the plain
+versions (bottom-right) agree.
+
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import attention_ref as j_attention_ref
+from repro.kernels.flash_attention import flash_attention as j_flash
+
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+SHAPES = [(2, 4, 2, 256, 256, 64), (1, 8, 8, 128, 128, 32),
+          (2, 4, 1, 256, 384, 64), (1, 2, 2, 384, 128, 128),
+          (1, 8, 2, 256, 256, 128), (2, 4, 4, 128, 256, 16)]
+
+
+def _inputs(b, h, hkv, t, s, d):
+    rng = np.random.default_rng(t + s + 7 * d + h)
+    return (rng.normal(size=(b, h, t, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+
+
+# Causal only at T == S (the kernel contract).
+CASES = [(*shape, causal) for shape in SHAPES for causal in (True, False)
+         if shape[3] == shape[4] or not causal]
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", CASES)
+def test_matches_reference(b, h, hkv, t, s, d, causal):
+    q, k, v = _inputs(b, h, hkv, t, s, d)
+    before = fa_ops.launches
+    got = t_fa.attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert fa_ops.launches == before      # CPU tensors: the plain version
+    assert got.dtype == torch.float32 and got.shape == (b, h, t, d)
+    got = got.numpy()
+    pallas = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=causal))
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+    oracle = np.asarray(j_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                        causal=causal))
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+
+
+def test_plain_version_is_the_ops_result_on_cpu():
+    q, k, v = map(torch.from_numpy, _inputs(1, 8, 2, 100, 100, 32))
+    for causal in (True, False):
+        assert torch.equal(t_fa.attention(q, k, v, causal=causal),
+                           t_fa.attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal,match", [
+    ((1, 2, 128, 64), (1, 2, 256, 64), True, "T == S"),
+    ((1, 2, 64, 48), (1, 2, 64, 48), False, "head dims"),
+    ((1, 2, 64, 256), (1, 2, 64, 256), True, "head dims"),
+    ((1, 6, 64, 32), (1, 4, 64, 32), False, "multiple of H_kv"),
+    ((2, 2, 64, 32), (1, 2, 64, 32), False, "q is"),
+])
+def test_raises_outside_the_kernel_contract(shape_q, shape_kv, causal,
+                                            match):
+    q = torch.zeros(shape_q)
+    kv = torch.zeros(shape_kv)
+    with pytest.raises(ValueError, match=match):
+        t_fa.attention(q, kv, kv, causal=causal)

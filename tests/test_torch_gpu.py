@@ -9,13 +9,19 @@ Integer outputs and min/max results must match exactly; float adds land
 in atomic order, so add results are within 1e-5 relative.  kmeans_assign's
 d² may differ from the plain version's product by rounding, so an
 assignment may differ only where the plain version's best two d² lie
-within 4 ulp of |p|² + |c|².
+within 4 ulp of |p|² + |c|².  flash_attention is within 2e-4 abs + 2e-4
+rel of its plain version (the reference's kernel-vs-oracle bound), and a
+2-layer full-width Llama-3 forward through it within 1e-4 of the plain
+path relative to the largest logit (float32, TF32 off).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.algorithms import connected_components as cc
+from repro_torch.configs import get_arch
 from repro_torch.algorithms import kmeans, pagerank, sssp
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph, make_powerlaw_graph, shard_csr
@@ -23,13 +29,16 @@ from repro_torch.data.points import make_geo_points, sample_initial_centroids
 from repro_torch.kernels import delta_route as t_dr
 from repro_torch.kernels import delta_scatter as t_ds
 from repro_torch.kernels import edge_propagate as t_ep
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import kmeans_assign as t_ka
 from repro_torch.kernels import scatter_route as t_sr
 from repro_torch.kernels.delta_route import ops as dr_ops
 from repro_torch.kernels.delta_scatter import ops as ds_ops
 from repro_torch.kernels.edge_propagate import ops as ep_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.kmeans_assign import ops as ka_ops
 from repro_torch.kernels.scatter_route import ops as sr_ops
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.gpu
 
@@ -246,3 +255,76 @@ def test_kmeans_on_card_matches_cpu(cuda, mode):
                               device="cpu", use_kernels=False)
     assert ka_ops.launches == before + 1 + int(r_gpu.stats.iterations)
     assert float((c_gpu.cpu() - c_cpu).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", [
+    (2, 4, 4, 200, 200, 16, True), (1, 8, 2, 333, 333, 32, True),
+    (2, 8, 2, 257, 257, 64, True), (2, 32, 8, 1000, 1000, 128, True),
+    (1, 4, 1, 130, 517, 16, False), (2, 8, 8, 64, 100, 32, False),
+    (2, 16, 16, 512, 768, 64, False), (1, 8, 2, 1, 300, 128, False)])
+def test_flash_attention(cuda, b, h, hkv, t, s, d, causal):
+    g = torch.Generator(device=cuda).manual_seed(t * 7 + s + d)
+    q = torch.randn(b, h, t, d, device=cuda, generator=g)
+    k = torch.randn(b, hkv, s, d, device=cuda, generator=g)
+    v = torch.randn(b, hkv, s, d, device=cuda, generator=g)
+    before = fa_ops.launches
+    got = t_fa.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    ref = t_fa.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_raises_outside_its_contract(cuda):
+    q = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_fa.attention(q.transpose(2, 3), q, q, causal=False)
+    with pytest.raises(ValueError, match="float32"):
+        t_fa.attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(1, 2, 64, 80, device=cuda)
+        t_fa.attention(x, x, x)
+
+
+def test_llama3_full_width_two_layers_kernel_matches_plain(cuda):
+    """Llama-3-8B's widths (d 4096, 32/8 heads of 128, d_ff 14336, vocab
+    128256) at 2 layers in float32: the forward through the kernel against
+    the plain path on the card."""
+    cfg = dataclasses.replace(get_arch("llama3-8b"), n_layers=2,
+                              dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab, (1, 1000), device=cuda,
+                           dtype=torch.int32)
+    before = fa_ops.launches
+    got, _ = transformer.forward(cfg, params, tokens)
+    assert fa_ops.launches == before + 2
+    ref, _ = transformer.forward(cfg, params, tokens, use_kernel=False)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-4, rel
+
+
+def test_llama3_full_width_two_layers_prefill_kernel_matches_plain(cuda):
+    """The prefill at Llama-3-8B's widths, 2 layers, float32: logits and
+    caches through the kernel against the plain path on the card."""
+    cfg = dataclasses.replace(get_arch("llama3-8b"), n_layers=2,
+                              dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 1000), device=cuda,
+                           dtype=torch.int32)
+    before = fa_ops.launches
+    got, cache = transformer.prefill_forward(cfg, params, tokens, 1008)
+    assert fa_ops.launches == before + 2
+    ref, ref_cache = transformer.prefill_forward(cfg, params, tokens, 1008,
+                                                 use_kernel=False)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-4, rel
+    for a, b in zip(cache["layers"], ref_cache["layers"]):
+        assert torch.equal(a["attn"]["pos"], b["attn"]["pos"])
+        for key in ("k", "v"):
+            scale = float(b["attn"][key].abs().max())
+            assert float((a["attn"][key] - b["attn"][key]).abs().max()) \
+                <= 1e-4 * scale

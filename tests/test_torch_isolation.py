@@ -26,13 +26,24 @@ from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import load_dataset, make_powerlaw_graph, shard_csr
 import repro_torch.convert
 import repro_torch.kernels._build
+import repro_torch.launch.serve
+import repro_torch.models.transformer
+import repro_torch.serve.serve_step
 indptr, indices = make_powerlaw_graph(256, 6.0, seed=0)
 snap = PartitionSnapshot(n_keys=256, num_shards=2)
 pr, res = pagerank.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
                        device="cpu", max_iters=5, ladder_tiers=2,
                        route_strategy="auto", edge_capacity=512,
                        src_capacity=128)
-print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations)}))
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.models import transformer
+cfg = get_arch("llama3-8b").reduced()
+lm = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+toks = repro_torch.serve.serve_step.generate(
+    cfg, lm, torch.zeros((1, 4), dtype=torch.int32), 2, 6)
+print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
+                  "lm": list(toks.shape)}))
 """
 
 
@@ -43,16 +54,17 @@ def test_import_and_run_load_no_jax_or_reference():
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["iters"] == 5
+    assert got["lm"] == [1, 6]
     bad = [m for m in got["mods"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
-           or m == "repro"]
+           or m in ("repro", "ml_dtypes")]
     assert bad == []
 
 
 def test_sources_import_neither_jax_nor_reference():
     pattern = re.compile(
-        r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)"
-        r"(\.|\s))", re.M)
+        r"^\s*(import\s+(jax|jaxlib|repro|ml_dtypes)\b|"
+        r"from\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s))", re.M)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in sorted(PKG.rglob("*.py"))
             for m in pattern.finditer(p.read_text())]
@@ -65,14 +77,23 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
     from repro_torch.algorithms import pagerank
+    from repro_torch.configs import get_arch
     from repro_torch.core.partition import PartitionSnapshot
     from repro_torch.data import graphs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
     snap = PartitionSnapshot(n_keys=64, num_shards=2)
     indptr, indices = graphs.make_powerlaw_graph(64, 4.0, seed=0)
     g = graphs.shard_csr(indptr, indices, 2, device="cpu")
     for call in (lambda: pagerank.run(g, snap),
                  lambda: graphs.load_dataset("dbpedia-small", 2),
-                 lambda: pagerank.initial_state(snap)):
+                 lambda: pagerank.initial_state(snap),
+                 lambda: transformer.init_params(get_arch("olmo-1b").reduced()),
+                 lambda: transformer.init_cache(
+                     get_arch("olmo-1b").reduced(), 1, 4),
+                 lambda: TokenPipeline(256, 8, 1).batch_at(0),
+                 lambda: serve.main(["--reduced"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
