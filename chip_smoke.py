@@ -55,9 +55,13 @@ version (best two d² within 4 ulp of |p|² + |c|²), counted and printed,
 and flash_attention within 2e-4 abs + 2e-4 rel (the reference's
 kernel-vs-oracle bound) at the forward's and the prefill's shapes (inputs
 of layer 0), a ragged causal shape and a non-causal one.
+edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
+and the heavy rows' edges) are printed beside its checks.
 The kernel, its plain version and, where one torch call computes the same
-function, that call are timed.  Each phase runs with every kernel's launch
-count set to 0 and fails if a kernel of its path was not launched.
+function, that call are timed (CUDA events around at least 5 calls, or 2
+for the slowest plain versions, and at least 20 ms).  Each phase runs
+with every kernel's launch count set to 0 and fails if a kernel of its
+path was not launched.
 
 Prints the card, the kernels as one JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failed check,
@@ -68,6 +72,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -78,6 +83,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+TIME_MIN_MS = 20.0          # least event-timed span of a kernel row
 FLOAT_RTOL = 1e-5
 ACCURACY_BOUND = 5e-3       # delta vs nodelta / vs oracle at threshold 1e-5
 PHASE_BOUND = 1e-2          # ten times the phases' threshold of 1e-3
@@ -107,6 +113,32 @@ LM_BF16_BOUND = 5e-2        # bf16, kernel vs plain path, full depth
 LM_DECODE_BOUND = 5e-2      # bf16, teacher-forced decode vs the forward
 LM_PREFILL_BOUND = 2 ** -8  # bf16, prefill vs the forward (one ulp)
 OFF_PATH = "off_path"       # flash rows at shapes no LM phase runs
+# The flash rows at shapes no LM phase runs: label -> ((B, H, H_kv, T, S,
+# D), causal).
+FLASH_OFF_PATH = {"ragged": ((2, 32, 8, 1000, 1000, 128), True),
+                  "noncausal": ((2, 16, 16, 512, 768, 64), False)}
+# The graph phases: name -> (algorithm module, mode, route, combiner,
+# kernels its path must launch), run at RUN_SETTINGS (bench_pagerank.py's
+# and bench_sssp.py's).
+GRAPH_PHASES = {
+    "delta_auto": ("pagerank", "delta", "auto", "add",
+                   ("scatter_route", "delta_scatter")),
+    "delta_sort": ("pagerank", "delta", "sort", "add",
+                   ("delta_route", "delta_scatter")),
+    "nodelta": ("pagerank", "nodelta", "sort", "add", ("edge_propagate",)),
+    "sssp_auto": ("sssp", "delta", "auto", "min",
+                  ("scatter_route", "delta_scatter")),
+    "sssp_sort": ("sssp", "delta", "sort", "min",
+                  ("delta_route", "delta_scatter")),
+    "sssp_nodelta": ("sssp", "nodelta", "sort", "min", ("edge_propagate",)),
+    "cc_auto": ("connected_components", "delta", "auto", "min",
+                ("scatter_route", "delta_scatter")),
+    "cc_nodelta": ("connected_components", "nodelta", "sort", "min",
+                   ("edge_propagate",)),
+}
+RUN_SETTINGS = {"pagerank": dict(threshold=1e-3, max_iters=60),
+                "sssp": dict(source=0, max_iters=80),
+                "connected_components": dict(max_iters=80)}
 
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
@@ -149,17 +181,29 @@ def sync() -> None:
 
 
 def time_ms(fn, reps: int = 5) -> float:
+    """Milliseconds a call: CUDA events around ``reps`` calls after one
+    warm-up, and again around enough calls to fill TIME_MIN_MS when the
+    first ``reps`` took less (a kernel of microseconds timed over a few
+    calls reads the card's clocks still rising)."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def timed(n):
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    ms = timed(reps)
+    if ms < TIME_MIN_MS:
+        reps = math.ceil(reps * TIME_MIN_MS / max(ms, 1e-3))
+        ms = timed(reps)
+    return ms / reps
 
 
 def nbytes(*tensors) -> int:
@@ -283,20 +327,34 @@ def delta_scatter_row(state, idx, pay, combiner):
                b, time_ms(lib), f"N={B} C={idx.numel()} live={live}")
 
 
-def edge_propagate_row(payload, graph0, n_pad, combiner, also=()):
-    """edge_propagate of one shard's dense stratum, timed at ``payload``
-    and held to its plain version at ``payload`` and each of ``also``."""
+def edge_propagate_bins(csc, label) -> None:
+    """Prints the CSC's row bins: light rows, heavy rows, heavy edges."""
+    from repro_torch.kernels import edge_propagate as ep
+    heavy = csc.heavy.long()
+    n_dst = csc.indptr.numel() - 1
+    heavy_edges = int((csc.indptr[heavy + 1] - csc.indptr[heavy]).sum())
+    print(f"{label} bins: light rows {n_dst - heavy.numel()}, heavy rows "
+          f"{heavy.numel()} (> {ep.HEAVY_EDGES} edges), heavy edges "
+          f"{heavy_edges} of {csc.src.numel()}", flush=True)
+
+
+def edge_propagate_row(payload, csc, combiner, also=()):
+    """edge_propagate of one shard's dense stratum over ``csc``, timed at
+    ``payload`` and held to its plain version at ``payload`` and each of
+    ``also``."""
     import torch
     from repro_torch.kernels import edge_propagate as ep
-    csc = ep.build_csc(graph0, n_pad)
+    plain_csc = (csc.indptr, csc.src, csc.weight)
+    n_pad = csc.indptr.numel() - 1
     err = 0.0
     for x in (payload, *also):
         got = ep.edge_propagate(x, csc, combiner)
-        ref = ep.edge_propagate_ref(x, *csc, combiner)
+        ref = ep.edge_propagate_ref(x, *plain_csc, combiner)
         err = max(err, compare(f"edge_propagate/{combiner}", [got], [ref],
                                float_idx=(0,) if combiner == "add" else ()))
     n_edges = csc.src.numel()
-    b = bound(nbytes(payload, *csc, got), 2 * n_edges)
+    # The function's bytes: the heavy list is the layout's, not the work's.
+    b = bound(nbytes(payload, *plain_csc, got), 2 * n_edges)
     dst = torch.repeat_interleave(
         torch.arange(n_pad, device=payload.device),
         (csc.indptr[1:] - csc.indptr[:-1]).long(), output_size=n_edges)
@@ -310,10 +368,46 @@ def edge_propagate_row(payload, graph0, n_pad, combiner, also=()):
             0, dst, payload[csc.src] * csc.weight, "a" + combiner)
     return row("edge_propagate", combiner, err,
                time_ms(lambda: ep.edge_propagate(payload, csc, combiner)),
-               time_ms(lambda: ep.edge_propagate_ref(payload, *csc,
+               time_ms(lambda: ep.edge_propagate_ref(payload, *plain_csc,
                                                      combiner)),
                b, time_ms(lib), f"n_dst={n_pad} E={n_edges} "
                                 f"N_src={payload.numel()}")
+
+
+def pagerank_edge_row(graph, snap, csc):
+    """edge_propagate (add) over shard 0's ``csc`` at the first dense
+    stratum from PageRank's initial state."""
+    import torch
+    from repro_torch.algorithms import pagerank
+    from repro_torch.core.engine import _take
+    g0 = _take(graph, 0)
+    pr = pagerank.current_pr(_take(pagerank.initial_state(snap,
+                                                          graph.device), 0))
+    payload = pr / torch.clamp(g0.out_degree, min=1).to(pr.dtype)
+    return edge_propagate_row(payload, csc, "add")
+
+
+def sssp_edge_row(graph, snap, csc, also=()):
+    """edge_propagate (min) over shard 0's ``csc`` at ``sssp_nodelta``'s
+    first stratum, where every payload but the source's is inf; held also
+    at the payloads of the distances ``also``."""
+    import torch
+    from repro_torch.algorithms import sssp
+
+    def payload_of(d):
+        return torch.where(d < float("inf"), d + 1.0, float("inf"))
+
+    d0 = sssp.initial_state(snap, 0, graph.device).dist[0]
+    return edge_propagate_row(payload_of(d0), csc, "min",
+                              also=tuple(payload_of(d) for d in also))
+
+
+def shard0_csc(graph, snap):
+    """Shard 0's ragged CSC over every padded destination, as the nodelta
+    phases build it."""
+    from repro_torch.core.engine import _take
+    from repro_torch.kernels import edge_propagate as ep
+    return ep.build_csc(_take(graph, 0), snap.padded_keys)
 
 
 def pagerank_kernel_checks(graph, snap, ex, algo):
@@ -326,7 +420,7 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     from repro_torch.core.handlers import pre_aggregate
     from repro_torch.kernels import delta_route as dr
 
-    S, B, n_pad = snap.num_shards, snap.block_size, snap.padded_keys
+    S, B = snap.num_shards, snap.block_size
     top = ex.capacity_tiers(algo)[-1]
     state = pagerank.initial_state(snap, graph.device)
     parts = []
@@ -368,10 +462,9 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     del idx, pay
 
     # edge_propagate: shard 0's dense stratum from the initial state.
-    g0, st0 = _take(graph, 0), _take(state, 0)
-    pr = pagerank.current_pr(st0)
-    payload = pr / torch.clamp(g0.out_degree, min=1).to(pr.dtype)
-    rows.append(edge_propagate_row(payload, g0, n_pad, "add"))
+    csc = shard0_csc(graph, snap)
+    edge_propagate_bins(csc, "edge_propagate/add")
+    rows.append(pagerank_edge_row(graph, snap, csc))
     torch.cuda.empty_cache()
     return rows
 
@@ -387,7 +480,7 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _stack, _take
 
-    S, B, n_pad = snap.num_shards, snap.block_size, snap.padded_keys
+    S, B = snap.num_shards, snap.block_size
     tiers = ex.capacity_tiers(algo)
     it = int(stats.iterations)
     tier_of = stats.tiers[:it].tolist()
@@ -427,15 +520,13 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     rows.append(delta_scatter_row(dist, idx, pay, "min"))
     del idx, pay, dist
 
-    def payload_of(d):
-        return torch.where(d < float("inf"), d + 1.0, float("inf"))
-
     d0 = sssp.initial_state(snap, 0, graph.device).dist[0]
     print(f"edge_propagate min: finite payloads {int(torch.isfinite(d0).sum())}"
           f" at stratum 0, {int(torch.isfinite(mid).sum())} at stratum {at} "
           f"of {mid.numel()}", flush=True)
-    rows.append(edge_propagate_row(payload_of(d0), _take(graph, 0), n_pad,
-                                   "min", also=(payload_of(mid),)))
+    csc = shard0_csc(graph, snap)
+    edge_propagate_bins(csc, "edge_propagate/min")
+    rows.append(sssp_edge_row(graph, snap, csc, also=(mid,)))
     torch.cuda.empty_cache()
     return rows
 
@@ -571,36 +662,61 @@ def stats_line(st) -> str:
             f"{dict(collections.Counter(st.routes[:it].tolist()))}")
 
 
+def make_graph(n, shards, seed, dev):
+    """The DBPedia-shaped graph of ``n`` vertices (average degree 14.5,
+    Zipf exponent 2.1) in ``shards`` shards: (indptr, indices, graph,
+    snap)."""
+    from repro_torch.core.partition import PartitionSnapshot
+    from repro_torch.data.graphs import make_powerlaw_graph, shard_csr
+    indptr, indices = make_powerlaw_graph(n, 14.5, 2.1, seed=seed)
+    graph = shard_csr(indptr, indices, shards, device=dev)
+    return indptr, indices, graph, PartitionSnapshot(n_keys=n,
+                                                     num_shards=shards)
+
+
+def capacities(snap) -> dict:
+    """The engine's capacities: a ladder of 4 rungs, edge capacity 4n,
+    source capacity one block."""
+    return dict(edge_capacity=4 * snap.n_keys, src_capacity=snap.block_size,
+                ladder_tiers=4)
+
+
+def graph_phase(name, graph, snap, dev):
+    """Phase ``name`` of GRAPH_PHASES at RUN_SETTINGS: (combiner, kernels
+    its path must launch, a function that runs it)."""
+    import importlib
+    algo, mode, route, combiner, needs = GRAPH_PHASES[name]
+    mod = importlib.import_module(f"repro_torch.algorithms.{algo}")
+    kw = dict(RUN_SETTINGS[algo], device=dev, **capacities(snap))
+    return combiner, needs, lambda: mod.run(graph, snap, mode=mode,
+                                            route_strategy=route, **kw)
+
+
 def graph_section(args, dev, phases, rows):
     """PageRank, SSSP and CC on the DBPedia-shaped graph."""
     import torch
     from repro_torch.algorithms import connected_components as cc
     from repro_torch.algorithms import pagerank, sssp
     from repro_torch.core.engine import ShardedExecutor
-    from repro_torch.core.partition import PartitionSnapshot
-    from repro_torch.data.graphs import make_powerlaw_graph, shard_csr
 
     n, S = args.n, args.shards
     t0 = time.perf_counter()
-    indptr, indices = make_powerlaw_graph(n, 14.5, 2.1, seed=args.seed)
-    graph = shard_csr(indptr, indices, S, device=dev)
-    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    indptr, indices, graph, snap = make_graph(n, S, args.seed, dev)
     per_shard = graph.out_degree.sum(1).tolist()
     print(f"graph: n={n} edges={len(indices)} shards={S} block="
           f"{snap.block_size} edges/shard {min(per_shard)}..{max(per_shard)}"
           f" max out-degree {int(graph.out_degree.max())} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    cap = dict(edge_capacity=4 * n, src_capacity=snap.block_size,
-               ladder_tiers=4)
+    cap = capacities(snap)
     ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
                          edge_capacity=cap["edge_capacity"],
                          src_capacity=cap["src_capacity"], ladder_tiers=4,
                          route_strategy="auto")
 
     # PageRank.
-    base = dict(threshold=1e-3, max_iters=60, device=dev, **cap)
-    algo = pagerank.make_algorithm(snap, 1e-3, cap["src_capacity"],
-                                   cap["edge_capacity"])
+    algo = pagerank.make_algorithm(
+        snap, RUN_SETTINGS["pagerank"]["threshold"], cap["src_capacity"],
+        cap["edge_capacity"])
     print("rungs: " + " ".join(
         f"({t.src} src, {t.edge} edge, {t.seg} seg -> "
         f"{ex.pick_route_strategy(t.edge, 'add')})"
@@ -609,15 +725,9 @@ def graph_section(args, dev, phases, rows):
     ref = pagerank.reference_pagerank(indptr, indices, n, iters=300,
                                       device=dev)
     values = {}
-    for name, mode, route, needs in [
-            ("delta_auto", "delta", "auto", ("scatter_route",
-                                             "delta_scatter")),
-            ("delta_sort", "delta", "sort", ("delta_route",
-                                             "delta_scatter")),
-            ("nodelta", "nodelta", "sort", ("edge_propagate",))]:
+    for name in ("delta_auto", "delta_sort", "nodelta"):
         (pr, res), wall, counts, peak = phases.run(
-            name, "add", needs, lambda: pagerank.run(
-                graph, snap, mode=mode, route_strategy=route, **base))
+            name, *graph_phase(name, graph, snap, dev))
         check(pr.shape == (snap.padded_keys,), f"{name}: pr shape {pr.shape}")
         check(bool(torch.isfinite(pr).all()), f"{name}: non-finite pr")
         rel = float(((pr[:n] - ref).abs() / ref.abs().clamp(min=1)).max())
@@ -637,7 +747,8 @@ def graph_section(args, dev, phases, rows):
     del values
 
     # Delta against nodelta, and both against the oracle, at 1e-5.
-    tight = dict(base, threshold=1e-5, max_iters=120)
+    tight = dict(RUN_SETTINGS["pagerank"], threshold=1e-5, max_iters=120,
+                 device=dev, **cap)
     pr_d, res_d = pagerank.run(graph, snap, mode="delta",
                                route_strategy="auto", **tight)
     pr_n, res_n = pagerank.run(graph, snap, mode="nodelta", **tight)
@@ -655,21 +766,16 @@ def graph_section(args, dev, phases, rows):
 
     # SSSP from vertex 0, exactly equal to a BFS on the card.
     t0 = time.perf_counter()
-    bfs = sssp.reference_sssp(indptr, indices, n, 0, device=dev)
+    bfs = sssp.reference_sssp(indptr, indices, n,
+                              RUN_SETTINGS["sssp"]["source"], device=dev)
     sync()
     print(f"sssp oracle: BFS reaches {int(torch.isfinite(bfs).sum())} of {n}"
           f" vertices, depth {int(bfs[torch.isfinite(bfs)].max())} "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    sp = dict(source=0, max_iters=80, device=dev, **cap)
     auto_stats = None
-    for name, mode, route, needs in [
-            ("sssp_auto", "delta", "auto", ("scatter_route",
-                                            "delta_scatter")),
-            ("sssp_sort", "delta", "sort", ("delta_route", "delta_scatter")),
-            ("sssp_nodelta", "nodelta", "sort", ("edge_propagate",))]:
+    for name in ("sssp_auto", "sssp_sort", "sssp_nodelta"):
         (dist, res), wall, counts, peak = phases.run(
-            name, "min", needs, lambda: sssp.run(
-                graph, snap, mode=mode, route_strategy=route, **sp))
+            name, *graph_phase(name, graph, snap, dev))
         exact = bool(torch.equal(dist[:n], bfs)) and bool(
             torch.isinf(dist[n:]).all())
         print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
@@ -691,13 +797,9 @@ def graph_section(args, dev, phases, rows):
     sync()
     print(f"cc oracle: {int(torch.unique(labels).numel())} distinct labels "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    for name, mode, route, needs in [
-            ("cc_auto", "delta", "auto", ("scatter_route", "delta_scatter")),
-            ("cc_nodelta", "nodelta", "sort", ("edge_propagate",))]:
+    for name in ("cc_auto", "cc_nodelta"):
         (lab, res), wall, counts, peak = phases.run(
-            name, "min", needs, lambda: cc.run(
-                graph, snap, mode=mode, route_strategy=route, max_iters=80,
-                device=dev, **cap))
+            name, *graph_phase(name, graph, snap, dev))
         exact = bool(torch.equal(lab[:n], labels))
         print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
               f"launches {counts} peak_mem {peak:.2f} GiB "
@@ -707,22 +809,40 @@ def graph_section(args, dev, phases, rows):
         torch.cuda.empty_cache()
 
 
+def make_points(n, dev):
+    """``n`` geo points in KMEANS_K clouds and KMEANS_K initial centroids
+    (``bench_kmeans.py``'s data): (points, init)."""
+    from repro_torch.data.points import (make_geo_points,
+                                         sample_initial_centroids)
+    points = make_geo_points(n, n_true_clusters=KMEANS_K, seed=0,
+                             device=dev)
+    return points, sample_initial_centroids(points, KMEANS_K, seed=1)
+
+
+def kmeans_phase(mode, sharded, init, dev):
+    """A function that runs k-means in ``mode`` for up to KMEANS_STRATA
+    strata."""
+    from repro_torch.algorithms import kmeans
+    return lambda: kmeans.run(sharded, init, mode=mode,
+                              max_iters=KMEANS_STRATA, device=dev)
+
+
 def kmeans_section(args, dev, phases, rows):
     """k-means at the paper's largest point set."""
     import torch
     from repro_torch.algorithms import kmeans
-    from repro_torch.data.points import (make_geo_points,
-                                         sample_initial_centroids)
+    from repro_torch.kernels import kmeans_assign as ka
 
     S, k, n = args.shards, KMEANS_K, args.points
     check(n % S == 0, f"--points {n} is not a multiple of {S} shards")
     t0 = time.perf_counter()
-    points = make_geo_points(n, n_true_clusters=k, seed=0, device=dev)
-    init = sample_initial_centroids(points, k, seed=1)
+    points, init = make_points(n, dev)
     sync()
     print(f"points: n={n} ({n // S} a shard, {S} shards) k={k} "
-          f"({time.perf_counter() - t0:.1f} s to make on the host and move)",
-          flush=True)
+          f"({time.perf_counter() - t0:.1f} s to make on the host and move)"
+          f"; kmeans_assign runs its "
+          f"{'constant-table' if ka.uses_table(k, 2) else 'shared-memory'}"
+          f" kernel", flush=True)
     sharded = points.view(S, n // S, 2)
     # Warm-up at a small size (cuBLAS, allocator, kernel load).
     kmeans.run(sharded[:, :1 << 20].contiguous(), init, max_iters=3,
@@ -739,9 +859,8 @@ def kmeans_section(args, dev, phases, rows):
     for name, mode in [("kmeans_delta", "delta"),
                        ("kmeans_nodelta", "nodelta")]:
         (c, res), wall, counts, peak = phases.run(
-            name, None, ("kmeans_assign",), lambda: kmeans.run(
-                sharded, init, mode=mode, max_iters=KMEANS_STRATA,
-                device=dev), warm_up=False)
+            name, None, ("kmeans_assign",),
+            kmeans_phase(mode, sharded, init, dev), warm_up=False)
         it = int(res.stats.iterations)
         check(c.shape == (k, 2) and bool(torch.isfinite(c).all()),
               f"{name}: centroids {tuple(c.shape)} not finite")
@@ -798,6 +917,17 @@ def flash_row(label, phase, q, k, v, causal):
                f"{'causal' if causal else 'non-causal'}"
                f"{' (off the path)' if phase == OFF_PATH else ''}",
                label=f"flash_attention/{label}")
+
+
+def random_qkv(shape, generator):
+    """Standard normal float32 q [B, H, T, D], k and v [B, H_kv, S, D] on
+    ``generator``'s device."""
+    import torch
+    b, h, h_kv, t, s, d = shape
+    dev = generator.device
+    return (torch.randn(b, h, t, d, generator=generator, device=dev),
+            torch.randn(b, h_kv, s, d, generator=generator, device=dev),
+            torch.randn(b, h_kv, s, d, generator=generator, device=dev))
 
 
 def layer0_qkv(cfg, params, tokens):
@@ -966,17 +1096,13 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
 
     # The kernel at a ragged causal shape and a non-causal one.
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    for label, (b, h, h_kv, t, s, d), causal in [
-            ("ragged", (2, 32, 8, 1000, 1000, 128), True),
-            ("noncausal", (2, 16, 16, 512, 768, 64), False)]:
-        q = torch.randn(b, h, t, d, generator=g, device=dev)
-        k = torch.randn(b, h_kv, s, d, generator=g, device=dev)
-        v = torch.randn(b, h_kv, s, d, generator=g, device=dev)
-        rows.append(flash_row(label, OFF_PATH, q, k, v, causal))
+    for label, (shape, causal) in FLASH_OFF_PATH.items():
+        rows.append(flash_row(label, OFF_PATH, *random_qkv(shape, g),
+                              causal))
     torch.cuda.empty_cache()
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
                     help="vertices (default: the paper's DBPedia 3.3 M)")
@@ -984,7 +1110,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--points", type=int, default=382_000_000,
                     help="k-means points (default: the paper's 382 M)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():

@@ -9,9 +9,11 @@ source under ``csrc/``:
                   scan)
   delta_route     stable per-owner bucketing (tile histograms + scan)
   delta_scatter   delta buffer -> dense keyed state (atomics)
-  edge_propagate  pull over a ragged destination-grouped CSC (warp per row)
-  kmeans_assign   nearest centroid per point (thread per point, centroids
-                  in shared memory)
+  edge_propagate  pull over a ragged destination-grouped CSC (rows binned
+                  once: a thread per light row, a warp per heavy row)
+  kmeans_assign   nearest centroid per point (thread per point; centroids
+                  in constant memory at D = 2, K <= 32, else in shared
+                  memory)
   flash_attention blocked online-softmax attention, GQA, causal or not
                   (block per query tile, K/V tiles in shared memory, float32
                   FMA)

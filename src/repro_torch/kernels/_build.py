@@ -47,10 +47,12 @@ SIGNATURES = {
                     P, P, P, P, P, P, P],
     # out (state copy, updated in place), idx, payload, N, W, C, op, stream
     "delta_scatter": [P, P, P, I64, I64, I64, I64, P],
-    # payload, indptr, src, weight, n_dst, op, out, stream
-    "edge_propagate": [P, P, P, P, I64, I64, P, P],
-    # points, centroids, N, D, K, assign, dist, stream
-    "kmeans_assign": [P, P, I64, I64, I64, P, P, P],
+    # payload, indptr, src, weight, heavy, n_dst, n_heavy, heavy_edges, op,
+    # out, stream
+    "edge_propagate": [P, P, P, P, P, I64, I64, I64, I64, P, P],
+    # points, centroids, N, D, K, table (NULL: shared-memory kernel),
+    # assign, dist, stream
+    "kmeans_assign": [P, P, I64, I64, I64, P, P, P, P],
     # q, k, v, B, H, H_kv, T, S, D, causal, out, stream
     "flash_attention": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P, P],
 }

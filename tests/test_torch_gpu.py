@@ -100,7 +100,8 @@ def near_tie_ok(points, cents, got, ref):
 
 
 @pytest.mark.parametrize("n,k,d", [(1_000_003, 32, 2), (77_777, 8, 5),
-                                   (20_000, 5000, 3), (4096, 1, 2)])
+                                   (20_000, 5000, 3), (4096, 1, 2),
+                                   (100_003, 9, 2), (100_003, 20, 2)])
 def test_kmeans_assign(cuda, n, k, d):
     rng = np.random.default_rng(n + k)
     pts = (rng.normal(size=(n, d)) * 40).astype(np.float32)
@@ -121,12 +122,94 @@ def test_kmeans_assign(cuda, n, k, d):
                  <= 4 * torch.finfo(torch.float32).eps * scale).all())
 
 
+@pytest.mark.parametrize("k,d", [(32, 2), (20, 2), (5000, 3)])
+def test_kmeans_assign_ties_go_to_the_first_index(cuda, k, d):
+    """Both kernels (the constant table at D = 2, K = 32 and K = 20, whose
+    table is padded; shared memory at K = 5000, D = 3) on small integer
+    inputs, where every d² is exact: points equidistant from two distinct
+    centroids, and points on a duplicated centroid, take the lower index;
+    one launch a call."""
+    rng = np.random.default_rng(k)
+    cents = rng.integers(20, 60, size=(k, d)).astype(np.float32)
+    lo, hi = 5, k - 1
+    cents[lo] = 0.0
+    cents[hi] = 0.0
+    cents[lo, 0], cents[hi, 0] = 1.0, -1.0     # +-e_0
+    cents[k - 2] = cents[2]                     # a duplicate of centroid 2
+    n = 3000
+    pts = np.zeros((n, d), np.float32)
+    if d > 1:
+        pts[:1000, 1] = rng.integers(-3, 4, 1000)   # d² = y² + 1 to both
+    pts[1000:2000] = cents[2]
+    pts[2000:] = rng.integers(-80, 80, size=(1000, d))
+    pts, cents_t = t(pts, cuda), t(cents, cuda)
+    assert t_ka.uses_table(k, d) == (d == 2)
+    before = ka_ops.launches
+    a, d2 = t_ka.assign(pts, cents_t)
+    assert ka_ops.launches == before + 1
+    a_ref, d2_ref = t_ka.kmeans_assign_ref(pts, cents_t)
+    assert bool((a[:1000] == lo).all()) and bool((a[1000:2000] == 2).all())
+    assert torch.equal(a, a_ref) and torch.equal(d2, d2_ref)
+
+
 def test_kmeans_assign_raises_outside_its_bounds(cuda):
     pts = torch.zeros(8, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         t_ka.assign(pts, torch.zeros(20_000, 2, device=cuda))
     with pytest.raises(ValueError, match="D="):
         t_ka.assign(pts, torch.zeros(4, 3, device=cuda))
+
+
+def test_kmeans_assign_threads_keep_their_own_table(cuda):
+    """Threads (more than cores) on the default stream, each with its own
+    centroids, switching often: every call's result is its own table's,
+    so no call read another's constant table."""
+    import os
+    import sys
+    import threading
+    pts = torch.randn(200_000, 2, device=cuda) * 40
+    tables = [torch.randn(32 - i, 2, device=cuda) * 40 for i in range(8)]
+    want = [t_ka.assign(pts, c) for c in tables]
+    bad = []
+
+    def worker(i):
+        for _ in range(20):
+            a, d2 = t_ka.assign(pts, tables[i])
+            if not (torch.equal(a, want[i][0])
+                    and torch.equal(d2, want[i][1])):
+                bad.append(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i % 8,))
+                   for i in range(max(16, 2 * (os.cpu_count() or 1)))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert bad == []
+
+
+def test_kmeans_assign_table_runs_on_the_default_stream_only(cuda):
+    """The constant table is one per process: the table kernel raises on a
+    side stream and launches nothing; the shared-memory kernel runs
+    there."""
+    pts = torch.randn(4096, 2, device=cuda)
+    side = torch.cuda.Stream()
+    before = ka_ops.launches
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="default stream"):
+            t_ka.assign(pts, pts[:32].clone())
+        assert ka_ops.launches == before
+        p3 = torch.randn(4096, 3, device=cuda)
+        a, _ = t_ka.assign(p3, p3[:40].clone())
+    side.synchronize()
+    assert ka_ops.launches == before + 1
+    assert torch.equal(a, t_ka.kmeans_assign_ref(p3, p3[:40].clone())[0])
 
 
 def test_delta_route(cuda):
@@ -173,12 +256,84 @@ def test_edge_propagate(cuda, combiner):
     pay = t(np.random.default_rng(3).random(n).astype(np.float32), cuda)
     before = ep_ops.launches
     got = t_ep.edge_propagate(pay, csc, combiner)
-    ref = t_ep.edge_propagate_ref(pay, *csc, combiner)
+    ref = t_ep.edge_propagate_ref(pay, csc.indptr, csc.src, csc.weight,
+                                  combiner)
     assert ep_ops.launches == before + 1
     if combiner == "add":
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     else:
         assert torch.equal(got, ref)
+
+
+def binned_graph(seed=0):
+    """Destinations of every bin: empty rows, light rows of 1-32 edges (32
+    itself included), heavy rows of 33-98 edges and one of 100,000 edges,
+    from 5000 sources with weights; (CSRGraph on the CPU, n_dst, per-slot
+    weights)."""
+    rng = np.random.default_rng(seed)
+    n_src, n_dst = 5000, 20_000
+    deg = np.zeros(n_dst, np.int64)
+    deg[0] = 100_000
+    deg[1:300] = rng.integers(33, 99, 299)
+    deg[300] = 32
+    deg[301] = 33
+    live = rng.random(n_dst - 302) < 0.7       # the rest stay empty
+    deg[302:] = np.where(live, rng.integers(1, 11, n_dst - 302), 0)
+    dst = np.repeat(np.arange(n_dst, dtype=np.int32), deg)
+    src = rng.integers(0, n_src, dst.size)
+    order = np.argsort(src, kind="stable")
+    indptr = np.zeros(n_src + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n_src), out=indptr[1:])
+    graph = CSRGraph(indptr=torch.from_numpy(indptr.astype(np.int32)),
+                     indices=torch.from_numpy(dst[order]),
+                     out_degree=torch.from_numpy(np.diff(indptr).astype(
+                         np.int32)))
+    weights = torch.from_numpy((rng.random(dst.size) + 0.5).astype(
+        np.float32))
+    return graph, n_dst, weights
+
+
+@pytest.mark.parametrize("combiner", ["add", "min", "max"])
+def test_edge_propagate_bins(cuda, combiner):
+    """Every row of every bin is written once, and two launches agree bit
+    for bit.  Min and max equal the plain version exactly; add rows are
+    within the rounding bound of their summation order (a thread sums a
+    light row in edge order, so light rows equal the plain version on the
+    CPU bit for bit; a heavy row's lanes each sum ceil(deg/32) edges, then
+    5 shuffle steps)."""
+    graph, n_dst, weights = binned_graph()
+    rng = np.random.default_rng(7)
+    n_src = graph.n_src
+    pay = (rng.random(n_src) if combiner == "add"
+           else rng.normal(size=n_src)).astype(np.float32)
+    cpu = t_ep.build_csc(graph, n_dst, weights)
+    deg = (cpu.indptr[1:] - cpu.indptr[:-1]).long()
+    assert int((deg == 0).sum()) > 0 and int(deg.max()) == 100_000
+    assert cpu.heavy.tolist() == list(range(300)) + [301]
+    csc = t_ep.build_csc(graph.to(cuda), n_dst, weights.to(cuda))
+    assert torch.equal(csc.heavy.cpu(), cpu.heavy)
+    x = t(pay, cuda)
+    before = ep_ops.launches
+    got = t_ep.edge_propagate(x, csc, combiner)
+    again = t_ep.edge_propagate(x, csc, combiner)
+    assert ep_ops.launches == before + 2
+    assert torch.equal(got, again)
+    plain = (csc.indptr, csc.src, csc.weight)
+    if combiner != "add":
+        assert torch.equal(got, t_ep.edge_propagate_ref(x, *plain, combiner))
+        return
+    got = got.cpu()
+    ref_cpu = t_ep.edge_propagate_ref(torch.from_numpy(pay), cpu.indptr,
+                                      cpu.src, cpu.weight, combiner)
+    light = deg <= t_ep.HEAVY_EDGES
+    assert torch.equal(got[light], ref_cpu[light])
+    exact = t_ep.edge_propagate_ref(torch.from_numpy(pay).double(),
+                                    cpu.indptr, cpu.src,
+                                    cpu.weight.double())
+    # |error| <= (1 product + ceil(deg/32) adds + 5 tree steps) u sum|terms|
+    steps = 1 + (deg + 31) // 32 + 5
+    bound = steps.double() * 2.0 ** -24 * exact
+    assert bool(((got.double() - exact).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),

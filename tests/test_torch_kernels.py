@@ -297,15 +297,18 @@ class TestEdgePropagate:
                          indices=t(indices),
                          out_degree=t(np.diff(indptr).astype(np.int32)))
         csc = t_ep.build_csc(graph, n)
-        out_t = t_ep.edge_propagate_ref(t(payload), *csc, combiner).numpy()
+        plain_csc = (csc.indptr, csc.src, csc.weight)
+        out_t = t_ep.edge_propagate_ref(t(payload), *plain_csc,
+                                        combiner).numpy()
         plain = np.asarray(j_edge_propagate_ref(jnp.asarray(payload), src_j,
                                                 dstl_j, w_j, n_pad,
                                                 combiner))[:n]
         np.testing.assert_array_equal(plain, out_t)
         if combiner == "add":
-            terms = t_ep.edge_propagate_ref(torch.ones(n).double(), *csc)
+            terms = t_ep.edge_propagate_ref(torch.ones(n).double(),
+                                            *plain_csc)
             abs_sum = t_ep.edge_propagate_ref(t(np.abs(payload)).double(),
-                                              *csc)
+                                              *plain_csc)
             assert_reordered_sum(out_t, out_j, terms, abs_sum)
         else:
             np.testing.assert_array_equal(out_j, out_t)
@@ -319,6 +322,55 @@ class TestEdgePropagate:
         assert csc.indptr.tolist() == [0, 1, 1, 4, 4]
         assert csc.src.tolist() == [0, 0, 1, 2]      # CSR order per dst
         assert csc.weight.tolist() == [1.0] * 4
+        assert csc.heavy.dtype == torch.int32 and csc.heavy.tolist() == []
+
+    @pytest.mark.parametrize("graph", ["toy_boundary", "powerlaw"])
+    def test_csc_heavy_list_is_the_rows_past_a_warp(self, graph):
+        """build_csc's heavy list holds, in order, exactly the destinations
+        of more than HEAVY_EDGES (32) edges: at the 32/33 boundary, and on
+        a 50,000-vertex power-law graph whose head rows cross it."""
+        if graph == "toy_boundary":
+            # Destinations 1, 3 and 4 get 33, 32 and 34 edges from 3
+            # sources; 0 and 2 get one each; padding slots are dropped.
+            dst = [1] * 33 + [3] * 32 + [4] * 34 + [0, 2, -1, -1]
+            indices = np.array(dst, np.int32)
+            indptr = np.array([0, 40, 80, len(dst)], np.int64)
+            n = 5
+        else:
+            n = 50_000
+            indptr, indices = make_powerlaw_graph(n, avg_degree=14.5,
+                                                  seed=0)
+        g = CSRGraph(indptr=t(indptr.astype(np.int32)), indices=t(indices),
+                     out_degree=t(np.diff(indptr).astype(np.int32)))
+        csc = t_ep.build_csc(g, n)
+        in_deg = np.bincount(indices[indices >= 0], minlength=n)
+        want = np.flatnonzero(in_deg > t_ep.HEAVY_EDGES)
+        assert t_ep.HEAVY_EDGES == 32
+        assert csc.heavy.dtype == torch.int32
+        np.testing.assert_array_equal(csc.heavy.numpy(), want)
+        np.testing.assert_array_equal(np.diff(csc.indptr.numpy()), in_deg)
+        if graph == "toy_boundary":
+            assert csc.heavy.tolist() == [1, 4]
+        else:
+            assert 0 < len(want) < n // 10   # the head rows, not the tail
+
+    def test_heavy_list_is_derived_from_indptr(self):
+        """A RaggedCSC's heavy list is made from its indptr and cannot be
+        set: not by the constructor, not by assignment, and
+        dataclasses.replace derives it again from the new indptr."""
+        import dataclasses
+        indptr = t(np.array([0, 40, 41, 41, 75], np.int32))
+        src = torch.zeros(75, dtype=torch.int32)
+        csc = t_ep.RaggedCSC(indptr, src, torch.ones(75))
+        assert csc.heavy.dtype == torch.int32
+        assert csc.heavy.tolist() == [0, 3]
+        with pytest.raises(TypeError):
+            t_ep.RaggedCSC(indptr, src, torch.ones(75), heavy=csc.heavy)
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            csc.heavy = csc.heavy[:0]
+        light = dataclasses.replace(
+            csc, indptr=t(np.array([0, 20, 41, 41, 75], np.int32)))
+        assert light.heavy.tolist() == [3]
 
     def test_wrapper_cpu_equals_dense_push_scatter(self):
         """edge_propagate over the ragged CSC == the reference's dense body

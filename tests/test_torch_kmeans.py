@@ -284,3 +284,13 @@ def test_types_are_pinned():
     assert res.state.assign.dtype == torch.int32
     assert res.stats.delta_counts.dtype == torch.int32
     assert res.stats.rehash_bytes.dtype == torch.float32
+
+
+@pytest.mark.parametrize("k,d,table", [(32, 2, True), (16, 2, True),
+                                       (33, 2, False), (32, 3, False),
+                                       (5000, 3, False), (1, 2, True)])
+def test_kernel_choice_is_by_shape(k, d, table):
+    """The constant-table kernel runs at D = 2 with at most 32 centroids
+    (its table's rows); every other shape runs the shared-memory
+    kernel."""
+    assert t_ka.uses_table(k, d) is table
