@@ -34,27 +34,35 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   layers, d 4096, GQA 32/8 heads of 128, d_ff 14,336, vocab 128,256, bf16
   weights from the port's seeded init), tokens from ``TokenPipeline``:
   - ``lm_forward``: the full-sequence forward at 2 x 4096 tokens
-    (``train_4k``'s sequence, its batch of 256 cut to 2), 32
-    flash_attention launches, its logits against the plain attention
-    path (``use_kernel=False``) within 5e-2 of the largest logit; and
-    at full width, 4 layers, float32 (TF32 off) within 1e-4, as are 8
-    teacher-forced decode steps after a prefill against that forward;
+    (``train_4k``'s sequence, its batch of 256 cut to 2), 32 launches of
+    the bf16 flash_attention kernel and none of the float32 one, its
+    logits against the plain attention path (``use_kernel=False``)
+    within 5e-2 of the largest logit; and at full width, 4 layers,
+    float32 (TF32 off; 4 launches of the float32 kernel) within 1e-4, as
+    are 8 teacher-forced decode steps after a prefill against that
+    forward;
   - ``lm_serve``: ``launch/serve.py``'s ``serve`` on 8 requests of 2048
-    prompt tokens and 64 greedy new tokens (32 flash_attention launches,
-    all in the prefill), the prefill's last-position logits against the
-    forward's (within one bf16 ulp of the largest logit) and against the
-    prefill's plain attention path (``use_kernel=False``, 5e-2), and 8
-    teacher-forced decode steps against a forward over the extended
-    sequence (5e-2); each bound's reason is stated beside it below.
+    prompt tokens and 64 greedy new tokens (32 bf16 flash_attention
+    launches, all in the prefill, no float32 ones), the prefill's
+    last-position logits against the forward's (within one bf16 ulp of
+    the largest logit) and against the prefill's plain attention path
+    (``use_kernel=False``, 5e-2), and 8 teacher-forced decode steps
+    against a forward over the extended sequence (5e-2); each bound's
+    reason is stated beside it below.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
 added floats within 1e-5 relative (atomics reorder float adds), and
 kmeans_assign's assignment exactly except at near-ties of the plain
 version (best two d² within 4 ulp of |p|² + |c|²), counted and printed,
-and flash_attention within 2e-4 abs + 2e-4 rel (the reference's
-kernel-vs-oracle bound) at the forward's and the prefill's shapes (inputs
-of layer 0), a ragged causal shape and a non-causal one.
+the bf16 flash_attention kernel within 2^-8 max|v| + 2^-8 |ref| of the
+float32 plain version on the same bf16 values (the reason is stated at
+FLASH_BF16_TOL) at the forward's and the prefill's shapes (layer 0's
+inputs), and the float32 kernel within 2e-4 abs + 2e-4 rel (the
+reference's kernel-vs-oracle bound) at the forward's shape (layer 0's
+inputs in float32, a shape no LM phase runs it at); each also at a
+ragged causal shape and a non-causal one.  Bounds count float32
+operations at 67 TFLOP/s, bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
 The kernel, its plain version and, where one torch call computes the same
@@ -83,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
 TIME_MIN_MS = 20.0          # least event-timed span of a kernel row
 FLOAT_RTOL = 1e-5
 ACCURACY_BOUND = 5e-3       # delta vs nodelta / vs oracle at threshold 1e-5
@@ -92,6 +101,13 @@ KMEANS_K = 32               # centroids, and clusters of the generated cloud
 KMEANS_STRATA = 60          # cap on Lloyd strata (bench_kmeans.py's)
 KMEANS_CHUNK = 1 << 23      # points per chunk of the plain and f64 passes
 FLASH_TOL = 2e-4            # abs and rel, tests/test_kernels.py's bound
+# The bf16 kernel against the float32 plain version on the same bf16
+# values: |got - ref| <= 2^-8 max|v| + 2^-8 |ref|.  bf16 keeps 8
+# significant bits, so rounding P moves each weight by at most 2^-8
+# relative (2^-8 max|v| on o, a bound the random signs of the errors keep
+# far from) and rounding the output costs at most 2^-8 |o|; the bound is
+# their sum, and the float32 sum order is far below either.
+FLASH_BF16_TOL = 2 ** -8
 LM_ARCH = "llama3-8b"
 # The LM phases' shapes: the forward at train_4k's sequence with its batch
 # cut to 2; serving 8 prompts of 2048 tokens, 64 new tokens; the float32
@@ -114,9 +130,13 @@ LM_DECODE_BOUND = 5e-2      # bf16, teacher-forced decode vs the forward
 LM_PREFILL_BOUND = 2 ** -8  # bf16, prefill vs the forward (one ulp)
 OFF_PATH = "off_path"       # flash rows at shapes no LM phase runs
 # The flash rows at shapes no LM phase runs: label -> ((B, H, H_kv, T, S,
-# D), causal).
-FLASH_OFF_PATH = {"ragged": ((2, 32, 8, 1000, 1000, 128), True),
-                  "noncausal": ((2, 16, 16, 512, 768, 64), False)}
+# D), causal, dtype), float32 for the float32 kernel, bfloat16 for the bf16
+# one.
+FLASH_OFF_PATH = {
+    "ragged": ((2, 32, 8, 1000, 1000, 128), True, "float32"),
+    "noncausal": ((2, 16, 16, 512, 768, 64), False, "float32"),
+    "ragged_bf16": ((2, 32, 8, 1000, 1000, 128), True, "bfloat16"),
+    "noncausal_bf16": ((2, 16, 16, 512, 768, 128), False, "bfloat16")}
 # The graph phases: name -> (algorithm module, mode, route, combiner,
 # kernels its path must launch), run at RUN_SETTINGS (bench_pagerank.py's
 # and bench_sssp.py's).
@@ -155,6 +175,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:80"),
+    "flash_attention_bf16": ("src/repro_torch/kernels/csrc/"
+                             "flash_attention_bf16.cu",
+                             "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:80"),
 }
 
 
@@ -210,9 +234,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """The least milliseconds: bytes over HBM_BYTES_PER_S or ``ops`` at
+    ``ops_per_s``, the larger, and which of the two it is."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -623,11 +650,16 @@ def lloyd_f64(points, init, max_iters):
 
 class Phases:
     """Runs phases with launch counts reset, checks their kernels, and
-    keeps each phase's launches for the kernel rows."""
+    keeps each phase's launches for the kernel rows.  ``counters`` maps a
+    kernel to (its ops module, the name of its launch counter there)."""
 
     def __init__(self, counters):
         self.counters = counters
         self.launches = []   # (combiner or LM phase, {kernel: launches})
+
+    def counts(self) -> dict:
+        return {k: getattr(mod, attr)
+                for k, (mod, attr) in self.counters.items()}
 
     def run(self, name, combiner, needs, fn, warm_up=True):
         import torch
@@ -635,13 +667,13 @@ class Phases:
             fn()
             sync()
         torch.cuda.reset_peak_memory_stats()
-        for mod in self.counters.values():
-            mod.launches = 0
+        for mod, attr in self.counters.values():
+            setattr(mod, attr, 0)
         t0 = time.perf_counter()
         out = fn()
         sync()
         wall = time.perf_counter() - t0
-        counts = {k: mod.launches for k, mod in self.counters.items()}
+        counts = self.counts()
         self.launches.append((combiner, counts))
         for k in needs:
             check(counts[k] > 0, f"{name}: kernel {k} was never launched")
@@ -885,54 +917,103 @@ def kmeans_section(args, dev, phases, rows):
     check(agree < KMEANS_BOUND, "kmeans delta and nodelta disagree")
 
 
+def sdpa_call(q, k, v, causal):
+    """The one torch call that computes the same attention, for the
+    library column: ``scaled_dot_product_attention`` with ``enable_gqa``
+    where H != H_kv, PyTorch choosing the backend."""
+    import torch
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def sdpa_backends(q, k, v, causal) -> str:
+    """:func:`sdpa_call` timed under each fused backend alone (cuDNN,
+    flash), to name the one PyTorch chose; "refused" where a backend does
+    not take the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    call = sdpa_call(q, k, v, causal)
+
+    def under(backend):
+        def fn():
+            with sdpa_kernel([backend]):
+                return call()
+        return fn
+
+    out = []
+    for name, backend in (("cuDNN", SDPBackend.CUDNN_ATTENTION),
+                          ("flash", SDPBackend.FLASH_ATTENTION)):
+        try:
+            out.append(f"{name} {time_ms(under(backend)):.3f} ms")
+        except RuntimeError:
+            out.append(f"{name} refused")
+    return ", ".join(out)
+
+
 def flash_row(label, phase, q, k, v, causal):
-    """flash_attention at q [B, H, T, D], k/v [B, H_kv, S, D] against its
-    plain version, timed beside it and beside the library's
-    ``scaled_dot_product_attention`` in float32.  The row reports the
-    launches of the LM phase ``phase`` runs at this shape (OFF_PATH: a
-    check at a shape the path does not run, 0 launches)."""
+    """The flash_attention kernel of q's dtype at q [B, H, T, D], k/v
+    [B, H_kv, S, D] against its plain version (for bf16 the float32 plain
+    version on the same values, rounded to bf16), timed beside it and
+    beside :func:`sdpa_call`.  The row reports the launches of the LM
+    phase ``phase`` runs at this shape (OFF_PATH: a check at a shape the
+    path does not run, 0 launches)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
     got = fa.attention(q, k, v, causal=causal)
-    ref = fa.attention_ref(q, k, v, causal=causal)
-    diff = (got - ref).abs()
+    if bf16:
+        ref = fa.attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal)
+        tol = FLASH_BF16_TOL * (float(v.float().abs().max()) + ref.abs())
+        what = "2^-8 max|v| + 2^-8 |ref|"
+        plain = lambda: fa.attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal).to(torch.bfloat16)
+    else:
+        ref = fa.attention_ref(q, k, v, causal=causal)
+        tol = FLASH_TOL + FLASH_TOL * ref.abs()
+        what = f"{FLASH_TOL} abs + rel"
+        plain = lambda: fa.attention_ref(q, k, v, causal=causal)
+    diff = (got.float() - ref).abs()
     err = float(diff.max())
-    ok = bool((diff <= FLASH_TOL + FLASH_TOL * ref.abs()).all())
-    check(ok and bool(torch.isfinite(got).all()),
-          f"flash_attention/{label}: off its plain version by up to "
-          f"{err:.3e} (tolerance {FLASH_TOL} abs + rel)")
-    del got, ref, diff
+    worst = float((diff / tol).max()) if diff.numel() else 0.0
+    check(bool((diff <= tol).all()) and bool(torch.isfinite(got).all()),
+          f"{name}/{label}: off its plain version by up to {err:.3e} "
+          f"(tolerance {what})")
+    del got, ref, diff, tol
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     # Score pairs the function needs: s <= t when causal (T == S).
     pairs = t * (t + 1) // 2 if causal else t * s
-    bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * d * b * h * pairs)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=h != h_kv)
-    return row("flash_attention", phase, err,
+    bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * d * b * h * pairs,
+                BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+    lib = f"{'bf16' if bf16 else 'float32'} SDPA"
+    if bf16 and phase != OFF_PATH:
+        lib += f" ({sdpa_backends(q, k, v, causal)})"
+    return row(name, phase, err,
                time_ms(lambda: fa.attention(q, k, v, causal=causal)),
-               time_ms(lambda: fa.attention_ref(q, k, v, causal=causal),
-                       reps=2), bnd, time_ms(lib),
-               f"B={b} H={h} H_kv={h_kv} T={t} S={s} D={d} "
+               time_ms(plain, reps=2), bnd, time_ms(sdpa_call(q, k, v,
+                                                              causal)),
+               f"B={b} H={h} H_kv={h_kv} T={t} S={s} D={d} {q.dtype} "
                f"{'causal' if causal else 'non-causal'}"
-               f"{' (off the path)' if phase == OFF_PATH else ''}",
-               label=f"flash_attention/{label}")
+               f"{' (off the path)' if phase == OFF_PATH else ''}; error "
+               f"at {worst:.3f} of its tolerance; library: {lib}",
+               label=f"{name}/{label}")
 
 
-def random_qkv(shape, generator):
-    """Standard normal float32 q [B, H, T, D], k and v [B, H_kv, S, D] on
-    ``generator``'s device."""
+def random_qkv(shape, generator, dtype="float32"):
+    """Standard normal q [B, H, T, D], k and v [B, H_kv, S, D] in
+    ``dtype`` on ``generator``'s device."""
     import torch
     b, h, h_kv, t, s, d = shape
     dev = generator.device
-    return (torch.randn(b, h, t, d, generator=generator, device=dev),
-            torch.randn(b, h_kv, s, d, generator=generator, device=dev),
-            torch.randn(b, h_kv, s, d, generator=generator, device=dev))
+    return tuple(torch.randn(*sh, generator=generator, device=dev).to(
+        getattr(torch, dtype)) for sh in ((b, h, t, d), (b, h_kv, s, d),
+                                          (b, h_kv, s, d)))
 
 
 def layer0_qkv(cfg, params, tokens):
     """Layer 0's attention inputs on ``tokens``, as the forward gives them
-    to the kernel: float32, contiguous, q and k rotated."""
+    to the kernel: in the model's dtype, contiguous, q and k rotated."""
     import torch
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import apply_norm
@@ -940,8 +1021,7 @@ def layer0_qkv(cfg, params, tokens):
     x = apply_norm(cfg.norm_kind, layer.ln1, params.embed[tokens.long()])
     b, t = tokens.shape
     pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
-    return [a.float().contiguous()
-            for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
+    return [a.contiguous() for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
 
 
 def rel_err(got, ref) -> float:
@@ -997,11 +1077,13 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
                            device=dev).batch_at(0)["tokens"]
     (logits, _), wall, counts, peak = phases.run(
-        "lm_forward", "lm_forward", ("flash_attention",),
+        "lm_forward", "lm_forward", ("flash_attention_bf16",),
         lambda: transformer.forward(cfg, params, tokens))
-    check(counts["flash_attention"] == cfg.n_layers,
-          f"lm_forward: {counts['flash_attention']} flash_attention "
-          f"launches for {cfg.n_layers} layers")
+    check(counts["flash_attention_bf16"] == cfg.n_layers and
+          counts["flash_attention"] == 0,
+          f"lm_forward: {counts['flash_attention_bf16']} bf16 and "
+          f"{counts['flash_attention']} float32 flash_attention launches "
+          f"for {cfg.n_layers} layers")
     check(logits.shape == (B, T, cfg.vocab) and logits.dtype ==
           torch.float32 and bool(torch.isfinite(logits).all()),
           f"lm_forward: logits {logits.dtype}{tuple(logits.shape)} not "
@@ -1017,8 +1099,12 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
           flush=True)
     check(err <= LM_BF16_BOUND, f"lm_forward: kernel path off the plain "
                                 f"path by {err:.3e} of the logits' scale")
-    rows.append(flash_row("forward", "lm_forward",
-                          *layer0_qkv(cfg, params, tokens), True))
+    qkv = layer0_qkv(cfg, params, tokens)
+    rows.append(flash_row("forward", "lm_forward", *qkv, True))
+    # The float32 kernel at the same shape; no LM phase runs it.
+    rows.append(flash_row("forward", OFF_PATH, *(a.float() for a in qkv),
+                          True))
+    del qkv
     torch.cuda.empty_cache()
 
     # Full width, 4 layers, float32: the kernel path against the plain
@@ -1027,7 +1113,14 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
                                 dtype="float32")
     p32 = transformer.init_params(
         cfg32, torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    before = phases.counts()
     f32, _ = transformer.forward(cfg32, p32, tokens)
+    after = phases.counts()
+    check(after["flash_attention"] - before["flash_attention"] ==
+          cfg32.n_layers and after["flash_attention_bf16"] ==
+          before["flash_attention_bf16"],
+          "lm float32: the forward did not go through the float32 kernel "
+          "alone")
     plain32, _ = transformer.forward(cfg32, p32, tokens, use_kernel=False)
     err32 = rel_err(f32, plain32)
     del plain32
@@ -1051,10 +1144,12 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
                         device=dev).batch_at(0)["tokens"]
     prompt = ext[:, :P].contiguous()
     res, wall, counts, peak = phases.run(
-        "lm_serve", "lm_serve", ("flash_attention",),
+        "lm_serve", "lm_serve", ("flash_attention_bf16",),
         lambda: serve(cfg, params, prompt, new))
-    check(counts["flash_attention"] == cfg.n_layers,
-          f"lm_serve: {counts['flash_attention']} flash_attention launches "
+    check(counts["flash_attention_bf16"] == cfg.n_layers and
+          counts["flash_attention"] == 0,
+          f"lm_serve: {counts['flash_attention_bf16']} bf16 and "
+          f"{counts['flash_attention']} float32 flash_attention launches "
           f"for a prefill of {cfg.n_layers} layers")
     toks = res.tokens
     check(toks.shape == (B, new) and toks.dtype == torch.int32 and
@@ -1094,10 +1189,10 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     del params, res, ext, prompt
     torch.cuda.empty_cache()
 
-    # The kernel at a ragged causal shape and a non-causal one.
+    # Each kernel at a ragged causal shape and a non-causal one.
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    for label, (shape, causal) in FLASH_OFF_PATH.items():
-        rows.append(flash_row(label, OFF_PATH, *random_qkv(shape, g),
+    for label, (shape, causal, dtype) in FLASH_OFF_PATH.items():
+        rows.append(flash_row(label, OFF_PATH, *random_qkv(shape, g, dtype),
                               causal))
     torch.cuda.empty_cache()
 
@@ -1138,10 +1233,11 @@ def main(argv=None) -> int:
           f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
 
     dev = torch.device("cuda")
-    phases = Phases({"scatter_route": sr_ops, "delta_route": dr_ops,
-                     "delta_scatter": ds_ops, "edge_propagate": ep_ops,
-                     "kmeans_assign": ka_ops,
-                     "flash_attention": fa_ops})
+    phases = Phases({name: (mod, "launches") for name, mod in (
+        ("scatter_route", sr_ops), ("delta_route", dr_ops),
+        ("delta_scatter", ds_ops), ("edge_propagate", ep_ops),
+        ("kmeans_assign", ka_ops), ("flash_attention", fa_ops))})
+    phases.counters["flash_attention_bf16"] = (fa_ops, "launches_bf16")
     rows: list = []
     graph_section(args, dev, phases, rows)
     torch.cuda.empty_cache()

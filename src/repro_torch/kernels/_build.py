@@ -55,6 +55,8 @@ SIGNATURES = {
     "kmeans_assign": [P, P, I64, I64, I64, P, P, P, P],
     # q, k, v, B, H, H_kv, T, S, D, causal, out, stream
     "flash_attention": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P, P],
+    "flash_attention_bf16": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P,
+                             P],
 }
 
 

@@ -1,12 +1,18 @@
-"""Public op: attention through the flash_attention kernel.
+"""Public op: attention through the flash_attention kernels.
 
-On a CUDA tensor :func:`attention` launches the kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs the plain
-version (``ref.py``).  On either device it takes the kernel's contract:
-D in {16, 32, 64, 128}, H a multiple of H_kv, and T = S when causal (the
-kernel aligns the diagonal top-left, the plain version bottom-right; they
-agree only at T = S).  Any T and S otherwise: the kernel masks its ragged
-edges, so there is no block-multiple condition.
+Two kernels, chosen by dtype.  float32 q, k, v launch
+``csrc/flash_attention.cu`` (float32 FMA on the CUDA cores, D in {16, 32,
+64, 128}); bfloat16 ones launch ``csrc/flash_attention_bf16.cu`` (bf16
+``wgmma`` with float32 sums, P rounded to bf16 before P·V as the Pallas
+kernel rounds it, a bf16 output; D = 128).  Any other dtype raises.
+On a CUDA tensor :func:`attention` launches the kernel or raises; on a CPU
+tensor it runs the plain version (``ref.py``), for bf16 in float32 on
+``.float()`` copies, rounded back to bf16.  On either device it takes the
+kernels' contract: the head dims of the dtype, H a multiple of H_kv, and
+T = S when causal (the kernels align the diagonal top-left, the plain
+version bottom-right; they agree only at T = S).  Any T and S otherwise:
+the kernels mask their ragged edges, so there is no block-multiple
+condition.
 """
 from __future__ import annotations
 
@@ -14,10 +20,11 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
-TILE = 64              # query rows of one block
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (128,)}
+TILE = {torch.float32: 64, torch.bfloat16: 128}   # query rows of one block
 
-launches = 0           # kernel launches since the last reset
+launches = 0           # float32 kernel launches since the last reset
+launches_bf16 = 0      # bf16 kernel launches since the last reset
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -25,13 +32,17 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"attention takes q [B, H, T, D] and k, v "
                          f"[B, H_kv, S, D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in HEAD_DIMS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, "
+                         f"v of one dtype; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     b, h, t, d = q.shape
     bk, h_kv, s, dk = k.shape
     if bk != b or dk != d:
         raise ValueError(f"q is {tuple(q.shape)} but k is {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got D={d}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention takes head dims "
+                         f"{HEAD_DIMS[q.dtype]} in {q.dtype}, got D={d}")
     if h_kv < 1 or h % h_kv:
         raise ValueError(f"H={h} must be a multiple of H_kv={h_kv} (GQA)")
     if causal and t != s:
@@ -40,23 +51,39 @@ def _check_shapes(q, k, v, causal: bool) -> None:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
-    """q f32[B, H, T, D]; k/v f32[B, H_kv, S, D] -> f32[B, H, T, D]."""
+    """q [B, H, T, D]; k/v [B, H_kv, S, D], all float32 or all bfloat16
+    -> [B, H, T, D] in that dtype."""
     _check_shapes(q, k, v, causal)
+    bf16 = q.dtype == torch.bfloat16
     if not q.is_cuda:
+        if bf16:
+            return attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal).to(torch.bfloat16)
         return attention_ref(q, k, v, causal=causal)
     b, h, t, d = q.shape
     _, h_kv, s, _ = k.shape
-    if b * h >= 2 ** 31 or -(-t // TILE) >= 2 ** 16:
+    if b * h >= 2 ** 31 or -(-t // TILE[q.dtype]) >= 2 ** 16:
         raise ValueError(f"grid too large: B*H={b * h}, T={t}")
     from repro_torch.kernels import _build
-    global launches
+    global launches, launches_bf16
     lib = _build.library()
     out = torch.empty_like(q)
     p = _build.ptr
-    err = lib.flash_attention(
-        p(q, torch.float32, "q"), p(k, torch.float32, "k"),
-        p(v, torch.float32, "v"), b, h, h_kv, t, s, d, int(causal),
-        out.data_ptr(), _build.stream_of(q))
-    _build.check(err, "flash_attention")
-    launches += 1
+    args = (p(q, q.dtype, "q"), p(k, q.dtype, "k"), p(v, q.dtype, "v"))
+    if bf16:
+        # TMA reads the tensors through descriptors that need 16-byte
+        # aligned bases.
+        if any(a % 16 for a in args):
+            raise ValueError("flash_attention_bf16 needs 16-byte aligned "
+                             "q, k, v")
+        err = lib.flash_attention_bf16(*args, b, h, h_kv, t, s, d,
+                                       int(causal), out.data_ptr(),
+                                       _build.stream_of(q))
+        _build.check(err, "flash_attention_bf16")
+        launches_bf16 += 1
+    else:
+        err = lib.flash_attention(*args, b, h, h_kv, t, s, d, int(causal),
+                                  out.data_ptr(), _build.stream_of(q))
+        _build.check(err, "flash_attention")
+        launches += 1
     return out

@@ -3,9 +3,10 @@ decode paths (the GQA part of the reference's ``models/attention.py``).
 
 The full-sequence forward and the prefill call the flash_attention op
 (``kernels/flash_attention``) when ``use_kernel`` is set, the default: on
-a CUDA tensor that is the CUDA kernel, at every T; on the CPU its plain
-version.  ``use_kernel=False`` calls ``attention_ref`` on any device, as
-the reference's default does.
+a CUDA tensor that is a CUDA kernel, at every T (the bf16 one for bf16
+models at head dim 128, the float32 one otherwise); on the CPU its
+plain version.  ``use_kernel=False`` calls ``attention_ref`` in float32
+on any device, as the reference's default does.
 
 Decode keeps a full cache per layer: k/v [B, H_kv, slots, Dh] plus the
 global position held by each slot (−1 = empty); a token at position p
@@ -26,6 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as \
+    FLASH_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import attention as flash_attn_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import _param, apply_rope, dtype_of, normal_
@@ -94,8 +97,15 @@ def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor
 
 
 def _attend(q, k, v, causal: bool, use_kernel: bool) -> torch.Tensor:
-    """Attention in float32 (contiguous [B, H, T, Dh] operands), back in
-    q's dtype."""
+    """Attention on contiguous [B, H, T, Dh] operands, back in q's dtype.
+    The op takes bf16 operands as they are where its bf16 kernel takes the
+    head dim (it computes in float32 with P rounded to bf16, as the
+    reference's Pallas kernel does on bf16); everything else, and the plain
+    path, runs in float32."""
+    if use_kernel and q.dtype == torch.bfloat16 and \
+            q.shape[-1] in FLASH_HEAD_DIMS[torch.bfloat16]:
+        return flash_attn_op(*(t.contiguous() for t in (q, k, v)),
+                             causal=causal)
     args = [t.float().contiguous() for t in (q, k, v)]
     if use_kernel:
         out = flash_attn_op(*args, causal=causal)

@@ -12,8 +12,20 @@ and torch).  Inputs are made with numpy from a seed.  Shapes: those of
 T == S, where the Pallas kernel (diagonal top-left) and the plain
 versions (bottom-right) agree.
 
-The CUDA kernel itself is held against the plain version on the card by
-``tests/test_torch_gpu.py``.
+bfloat16: the op on bf16 CPU tensors is the float32 plain version on the
+same values rounded to bf16, bit for bit, and lies within
+2^-8 max|v| + 2^-8 |ref| of the Pallas kernel run in interpret mode on the
+same bf16 values (which feeds its products bf16 operands, rounds P to
+bf16 before P.V and returns bf16).  The bound: bf16 keeps 8 significant
+bits, so rounding P moves each weight by at most 2^-8 relative, 2^-8
+max|v| on the output (the errors' random signs keep the sum far below
+that), and rounding the output costs at most 2^-8 |o|; the float32 sum
+order is far below either.  It is the bound the bf16 CUDA kernel is held
+to on the card; here both sides round the output, and the cases read
+0.11-0.63 of it.
+
+The CUDA kernels themselves are held against the plain version on the card
+by ``tests/test_torch_gpu.py``.
 """
 import numpy as np
 import pytest
@@ -79,3 +91,53 @@ def test_raises_outside_the_kernel_contract(shape_q, shape_kv, causal,
     kv = torch.zeros(shape_kv)
     with pytest.raises(ValueError, match=match):
         t_fa.attention(q, kv, kv, causal=causal)
+
+
+BF16_TOL = 2 ** -8
+BF16_CASES = [(1, 8, 2, 256, 256, 128, True), (2, 4, 1, 256, 384, 128, False),
+              (2, 4, 2, 128, 128, 128, True)]
+
+
+def _bf16(arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", BF16_CASES + [
+    (1, 4, 2, 100, 100, 128, True), (2, 2, 1, 1, 37, 128, False)])
+def test_bf16_is_the_float32_plain_version_rounded(b, h, hkv, t, s, d,
+                                                   causal):
+    q, k, v = _bf16(_inputs(b, h, hkv, t, s, d))
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    got = t_fa.attention(q, k, v, causal=causal)
+    assert (fa_ops.launches, fa_ops.launches_bf16) == before
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, t, d)
+    want = t_fa.attention_ref(q.float(), k.float(), v.float(),
+                              causal=causal).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", BF16_CASES)
+def test_bf16_within_bound_of_pallas_kernel(b, h, hkv, t, s, d, causal):
+    q, k, v = _bf16(_inputs(b, h, hkv, t, s, d))
+    got = t_fa.attention(q, k, v, causal=causal).float().numpy()
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                  for x in (q, k, v))
+    pallas = j_flash(jq, jk, jv, causal=causal)
+    assert pallas.dtype == jnp.bfloat16
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    bound = BF16_TOL * float(v.float().abs().max()) + BF16_TOL * np.abs(
+        pallas)
+    assert np.all(np.abs(got - pallas) <= bound), \
+        float(np.max(np.abs(got - pallas) / bound))
+
+
+@pytest.mark.parametrize("dtypes,d,match", [
+    ((torch.bfloat16,) * 3, 64, "head dims"),
+    ((torch.bfloat16,) * 3, 16, "head dims"),
+    ((torch.float16,) * 3, 64, "float32 or bfloat16"),
+    ((torch.bfloat16, torch.float32, torch.float32), 64, "one dtype"),
+])
+def test_bf16_contract_is_checked_on_the_cpu(dtypes, d, match):
+    q, k, v = (torch.zeros(1, 2, 64, d, dtype=dt) for dt in dtypes)
+    with pytest.raises(ValueError, match=match):
+        t_fa.attention(q, k, v, causal=True)

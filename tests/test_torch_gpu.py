@@ -9,10 +9,20 @@ Integer outputs and min/max results must match exactly; float adds land
 in atomic order, so add results are within 1e-5 relative.  kmeans_assign's
 d² may differ from the plain version's product by rounding, so an
 assignment may differ only where the plain version's best two d² lie
-within 4 ulp of |p|² + |c|².  flash_attention is within 2e-4 abs + 2e-4
-rel of its plain version (the reference's kernel-vs-oracle bound), and a
-2-layer full-width Llama-3 forward through it within 1e-4 of the plain
-path relative to the largest logit (float32, TF32 off).
+within 4 ulp of |p|² + |c|².  The float32 flash_attention kernel is
+within 2e-4 abs + 2e-4 rel of its plain version (the reference's
+kernel-vs-oracle bound), and a 2-layer full-width Llama-3 forward through
+it within 1e-4 of the plain path relative to the largest logit (float32,
+TF32 off).  The bf16 kernel is within 2^-8 max|v| + 2^-8 |ref| of the
+float32 plain version on the same bf16 values: bf16 keeps 8 significant
+bits, so rounding P moves each weight by at most 2^-8 relative (2^-8
+max|v| on the output) and rounding the output costs at most 2^-8 |o|;
+the bound is their sum, and the float32 sum order is far below either.
+A 2-layer full-width bf16
+Llama-3 forward through it is within 5e-2 of the plain path relative to
+the largest logit, chip_smoke.py's bound for the bf16 model at full depth
+(a last-bit difference in an attention output flips a bf16 rounding of
+the residual stream).
 """
 import dataclasses
 
@@ -439,6 +449,88 @@ def test_flash_attention_raises_outside_its_contract(cuda):
     with pytest.raises(ValueError, match="head dims"):
         x = torch.zeros(1, 2, 64, 80, device=cuda)
         t_fa.attention(x, x, x)
+
+
+BF16_TOL = 2 ** -8
+
+
+def bf16_qkv(device, b, h, hkv, t, s, d):
+    g = torch.Generator(device=device).manual_seed(t * 7 + s + d)
+    return tuple(torch.randn(*shape, device=device, generator=g).bfloat16()
+                 for shape in ((b, h, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", [
+    (2, 4, 4, 200, 200, 128, True), (1, 8, 2, 333, 333, 128, True),
+    (2, 8, 2, 257, 257, 128, True), (2, 32, 8, 1000, 1000, 128, True),
+    (1, 4, 1, 130, 517, 128, False), (2, 8, 8, 64, 100, 128, False),
+    (2, 16, 16, 512, 768, 128, False), (1, 8, 2, 1, 300, 128, False),
+    (1, 2, 1, 128, 128, 128, True)])
+def test_flash_attention_bf16(cuda, b, h, hkv, t, s, d, causal):
+    q, k, v = bf16_qkv(cuda, b, h, hkv, t, s, d)
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    got = t_fa.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    ref = t_fa.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    bound = BF16_TOL * float(v.float().abs().max()) + BF16_TOL * ref.abs()
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= bound).all()), float((diff / bound).max())
+    assert torch.equal(t_fa.attention(q, k, v, causal=causal), got)
+
+
+def test_flash_attention_bf16_rows_do_not_depend_on_the_batch(cuda):
+    q, k, v = bf16_qkv(cuda, 8, 32, 8, 1000, 1000, 128)
+    got = t_fa.attention(q, k, v)
+    one = t_fa.attention(q[:1].contiguous(), k[:1].contiguous(),
+                         v[:1].contiguous())
+    assert torch.equal(one, got[:1])
+
+
+def test_flash_attention_bf16_without_keys_is_zero(cuda):
+    q, k, v = bf16_qkv(cuda, 1, 4, 2, 5, 0, 128)
+    got = t_fa.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(q))
+    assert torch.equal(got, t_fa.attention_ref(
+        q.float(), k.float(), v.float(), causal=False).bfloat16())
+
+
+def test_flash_attention_bf16_raises_outside_its_contract(cuda):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_fa.attention(q.transpose(2, 3), q, q, causal=False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_fa.attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+        t_fa.attention(x, x, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(2 * 128 * 128 + 1, device=cuda,
+                           dtype=torch.bfloat16)
+        x = flat[1:].view(1, 2, 128, 128)
+        t_fa.attention(x, x, x)
+
+
+def test_llama3_full_width_two_layers_bf16_kernel_matches_plain(cuda):
+    """Llama-3-8B's widths at 2 layers in bf16, the model's own dtype: the
+    forward through the bf16 kernel (and not the float32 one) against the
+    plain path on the card."""
+    cfg = dataclasses.replace(get_arch("llama3-8b"), n_layers=2)
+    assert cfg.dtype == "bfloat16"
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(2), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 1000), device=cuda,
+                           dtype=torch.int32)
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    got, _ = transformer.forward(cfg, params, tokens)
+    assert (fa_ops.launches, fa_ops.launches_bf16) == (before[0],
+                                                       before[1] + 2)
+    ref, _ = transformer.forward(cfg, params, tokens, use_kernel=False)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= 5e-2, rel
 
 
 def test_llama3_full_width_two_layers_kernel_matches_plain(cuda):

@@ -320,6 +320,33 @@ def test_bf16_forward_within_bf16_rounding():
     _close(got, want, atol=BF16_ATOL, rtol=0.0)
 
 
+def test_bf16_head_dim_128_takes_the_bf16_op(monkeypatch):
+    """bf16 at head dim 128 (the dense configs' own) hands the op bf16
+    operands, which on the CPU is the float32 plain version rounded to
+    bf16: the kernel path equals the plain path bit for bit, and the
+    forward stays within bf16 rounding of the reference's, whose Pallas
+    kernel (interpret mode, T % 128 == 0) rounds P to bf16."""
+    cfg_j, cfg = _cfgs("llama3-8b", dtype="bfloat16", d_model=256,
+                       head_dim=128)
+    seen = []
+
+    def op(q, k, v, causal):
+        seen.append((q.dtype, k.dtype, v.dtype, q.shape[-1]))
+        return fa_ops.attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(attn, "flash_attn_op", op)
+    params_j = jt.init_params(cfg_j, jax.random.PRNGKey(4))
+    params = convert.lm_params_from_jax(cfg, params_j, "cpu")
+    tokens = model("llama3-8b").tokens
+    got, _ = tt.forward(cfg, params, tokens)
+    assert seen == [(torch.bfloat16,) * 3 + (128,)] * cfg.n_layers
+    plain, _ = tt.forward(cfg, params, tokens, use_kernel=False)
+    assert torch.equal(got, plain)
+    want = jax.jit(lambda p, t: jt.forward(cfg_j, p, t, use_kernel=True)[0])(
+        params_j, jnp.asarray(tokens.numpy()))
+    _close(got, want, atol=BF16_ATOL, rtol=0.0)
+
+
 # ---------------------------------------------------------------------------
 # What the slice leaves out raises.
 # ---------------------------------------------------------------------------

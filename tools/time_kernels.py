@@ -6,7 +6,8 @@ rows do, for any tree.
 
 ``--src`` is the directory holding the ``repro_torch`` package to time
 (default: this checkout's ``src``), so that two versions of the kernels can
-be timed on one card in one call, each in a process of its own.  The rows,
+be timed on one card in one call, each in a process of its own; its
+flash_attention op must take bfloat16 (the bf16 rows).  The rows,
 their inputs and the phases are chip_smoke.py's own, imported from this
 checkout, on its graph and its points:
 
@@ -15,9 +16,11 @@ checkout, on its graph and its points:
 * kmeans_assign on the 382 M points and their initial centroids; the SM
   clock and the power draw are read from ``nvidia-smi`` while a queue of
   calls runs;
-* flash_attention at the four shapes of chip_smoke.py's flash rows, on
+* flash_attention at the shapes of chip_smoke.py's flash rows, on
   standard normal inputs (chip_smoke.py's forward and prefill rows take
-  layer 0's q, k and v of the model instead).
+  layer 0's q, k and v of the model instead): the bf16 kernel at the
+  forward's and the prefill's shapes, the float32 kernel at the
+  forward's, and both at the ragged and the non-causal shapes.
 
 Each row is held to its plain version, and timed beside it and beside the
 one torch call where there is one, by chip_smoke.py's ``time_ms`` (CUDA
@@ -25,7 +28,9 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
 
 * ``--sass``: the instructions of the constant-table kmeans kernel at
   K = 32 (``cuobjdump -sass`` on the built library), by opcode, and per
-  (point, centroid) pair.
+  (point, centroid) pair; and those of the bf16 flash_attention kernel at
+  D = 128, by opcode (HGMMA: the tensor-core products, UTMALDG: the TMA
+  loads, MUFU: the exponentials), with its registers and stack.
 * ``--phases``: three walls each of the phases these kernels carry
   (``nodelta``, ``sssp_nodelta``, ``cc_nodelta``, ``kmeans_delta``,
   ``kmeans_nodelta``) at chip_smoke.py's settings, after one untimed run;
@@ -48,29 +53,40 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PHASE_RUNS = 3
 SASS_KERNEL = "ka_table_kernelILi32E"   # ka_table_kernel<32>, mangled
+FLASH_SASS_KERNEL = "fa_bf16_kernel"
 PAIR_OPS = ("FMUL", "FFMA", "FADD", "FSETP", "FSEL", "FMNMX", "SEL")
 
 
-def sass_counts(lib: Path, csrc: Path, k: int) -> dict:
-    """Opcodes of SASS_KERNEL in ``lib``: the total, the counts of
-    PAIR_OPS and of loads, and both over the pairs of one thread (``k``
-    times the source's ``kTablePoints``)."""
-    per = re.search(r"constexpr int kTablePoints = (\d+);",
-                    (csrc / "kmeans_assign.cu").read_text())
-    pairs = k * (int(per.group(1)) if per else 1)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+def opcodes(sass: str, kernel: str) -> collections.Counter:
+    """Opcode counts (NOP left out) of the function of ``sass`` whose
+    mangled name holds ``kernel``."""
     ops: collections.Counter = collections.Counter()
     inside = False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = SASS_KERNEL in line
+            inside = kernel in line
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                      r"([A-Z][A-Z0-9_]*)", line)
         if inside and m and m.group(1) != "NOP":
             ops[m.group(1)] += 1
+    return ops
+
+
+def library_sass(lib: Path) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_counts(sass: str, csrc: Path, k: int) -> dict:
+    """Opcodes of SASS_KERNEL: the total, the counts of PAIR_OPS and of
+    loads, and both over the pairs of one thread (``k`` times the source's
+    ``kTablePoints``)."""
+    per = re.search(r"constexpr int kTablePoints = (\d+);",
+                    (csrc / "kmeans_assign.cu").read_text())
+    pairs = k * (int(per.group(1)) if per else 1)
+    ops = opcodes(sass, SASS_KERNEL)
     if not ops:
         return {"kernel": SASS_KERNEL, "found": False}
     total = sum(ops.values())
@@ -82,6 +98,25 @@ def sass_counts(lib: Path, csrc: Path, k: int) -> dict:
             "loads": {o: ops[o] for o in ("LDG", "LDS", "LDC", "ULDC")
                       if ops[o]},
             "ops": dict(ops.most_common())}
+
+
+def flash_sass_counts(sass: str, lib: Path) -> dict:
+    """Opcodes of FLASH_SASS_KERNEL: the total, and the tensor-core
+    products, TMA loads, exponentials and register reallocations; and its
+    resources as ``cuobjdump -res-usage`` reports them (registers at
+    entry, stack, local memory)."""
+    ops = opcodes(sass, FLASH_SASS_KERNEL)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    usage = subprocess.run([tool, "-res-usage", str(lib)],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout.splitlines()
+    res = next((usage[i + 1].strip() for i, line in enumerate(usage[:-1])
+                if FLASH_SASS_KERNEL in line), None)
+    return {"kernel": FLASH_SASS_KERNEL, "found": bool(ops),
+            "instructions": sum(ops.values()),
+            **{o: ops[o] for o in ("HGMMA", "UTMALDG", "MUFU",
+                                   "USETMAXREG")},
+            "resources": res, "ops": dict(ops.most_common())}
 
 
 def walls(fn) -> list:
@@ -161,22 +196,25 @@ def main(argv=None) -> int:
 
     cfg, sh = get_arch(cs.LM_ARCH), cs.LM_SHAPES
     heads = (cfg.n_heads, cfg.n_kv_heads)
-    shapes = {"forward": ((sh["fwd_batch"], *heads, sh["fwd_seq"],
-                           sh["fwd_seq"], cfg.hd), True),
+    fwd = (sh["fwd_batch"], *heads, sh["fwd_seq"], sh["fwd_seq"], cfg.hd)
+    shapes = {"forward": (fwd, True, cfg.dtype),
               "prefill": ((sh["serve_batch"], *heads, sh["prompt"],
-                           sh["prompt"], cfg.hd), True),
+                           sh["prompt"], cfg.hd), True, cfg.dtype),
+              "forward_f32": (fwd, True, "float32"),
               **cs.FLASH_OFF_PATH}
     g = torch.Generator(device=dev).manual_seed(size.seed)
-    for label, (shape, causal) in shapes.items():
-        rows.append(cs.flash_row(label, None, *cs.random_qkv(shape, g),
-                                 causal))
+    for label, (shape, causal, dtype) in shapes.items():
+        rows.append(cs.flash_row(label, None,
+                                 *cs.random_qkv(shape, g, dtype), causal))
         torch.cuda.empty_cache()
 
     out["rows"] = {cs.row_name(r): {k: r[k] for k in (
         "ms", "plain_ms", "bound_ms", "library_ms", "err", "shape")}
         for r in rows}
     if args.sass:
-        out["kmeans_sass"] = sass_counts(lib, _build.CSRC, cs.KMEANS_K)
+        sass = library_sass(lib)
+        out["kmeans_sass"] = sass_counts(sass, _build.CSRC, cs.KMEANS_K)
+        out["flash_bf16_sass"] = flash_sass_counts(sass, lib)
     print(json.dumps(out))
     return 0
 
