@@ -25,6 +25,28 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   - connected components: ``cc_auto`` and ``cc_nodelta``, each exactly
     equal to a dense min-label iteration on the card
     (``connected_components.reference_components``);
+  - adsorption with 4 labels (a seed on every 100th vertex; threshold
+    1e-3, at most 60 strata): ``adsorption_auto`` (scatter_route +
+    delta_scatter, add at W = 4), ``adsorption_sort`` (delta_route +
+    delta_scatter) and ``adsorption_nodelta`` (its own scatter, no
+    kernel), each within a per-vertex bound derived from its threshold
+    (ADS_F32) of a float64 fixpoint on the card, delta against nodelta
+    within 5e-2;
+  - observability: ``delta_auto_traced`` and ``sssp_auto_traced`` (a
+    Tracer on the executor; SSSP bit-identical to ``sssp_auto``, PageRank
+    within 1e-2 of the float64 oracle), printing each stratum's host wall
+    against its device time (CUDA events), the device span share, the
+    busy share (torch.profiler, two more untimed runs) and a Chrome trace
+    under ``build/``; ``delta_measured`` (a route table calibrated on the
+    card, printed, then ``route_strategy="measured"``, 1e-2);
+  - Fig 12's recovery (``bench_recovery.py``'s setting) through
+    ``run_resilient``: ``sssp_resilient`` (state and stats equal to
+    ``sssp_auto``), ``sssp_recover_{25,50,75}`` (shard 1 lost at that
+    share of the strata), ``sssp_restart_{50,75}`` and ``sssp_chaos`` (the
+    acceptance schedule, then a rescale to 4 shards), every final state
+    exactly the failure-free one, incremental recovery at 75 % doing less
+    work than restart there; checkpoints in a directory under ``build/``,
+    removed after;
 * k-means on 382 M geo points (47.75 M a shard, 8 shards), k = 32, at most
   60 strata (``bench_kmeans.py``'s settings at the paper's largest size):
   ``kmeans_delta`` and ``kmeans_nodelta`` (kmeans_assign), each within
@@ -65,6 +87,8 @@ ragged causal shape and a non-causal one.  Bounds count float32
 operations at 67 TFLOP/s, bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
+scatter_route and delta_scatter are also held at W = 4, at the first
+stratum of ``adsorption_auto`` on its widest rung.
 The kernel, its plain version and, where one torch call computes the same
 function, that call are timed (CUDA events around at least 5 calls, or 2
 for the slowest plain versions, and at least 20 ms).  Each phase runs
@@ -158,7 +182,34 @@ GRAPH_PHASES = {
 }
 RUN_SETTINGS = {"pagerank": dict(threshold=1e-3, max_iters=60),
                 "sssp": dict(source=0, max_iters=80),
-                "connected_components": dict(max_iters=80)}
+                "connected_components": dict(max_iters=80),
+                "adsorption": dict(threshold=1e-3, max_iters=60)}
+# Adsorption: 4 labels, a seed on every 100th vertex v with label
+# (v / 100) mod 4 (v mod 4 would give every seed label 0).  Phase ->
+# (mode, route, kernels its path must launch); the dense body is the
+# algorithm's own scatter, so nodelta launches no kernel.
+ADS_LABELS = 4
+ADS_SEED_EVERY = 100
+ADSORPTION_PHASES = {
+    "adsorption_auto": ("delta", "auto", ("scatter_route", "delta_scatter")),
+    "adsorption_sort": ("delta", "sort", ("delta_route", "delta_scatter")),
+    "adsorption_nodelta": ("nodelta", "sort", ()),
+}
+ADS_GROUP = "adsorption"    # its phases' launches feed the W = 4 rows
+W1_GROUPS = ("add", "min")  # the W = 1 graph phases, for delta_route
+ADS_DELTA_BOUND = 5e-2      # delta vs nodelta, tests/test_algorithms.py's
+# Against the float64 fixpoint x = 0.25 s + 0.75 A x (A: u -> v weighted
+# 1/deg(u)): a run stops when every vertex's unsent change r = vec - sent
+# is within the threshold t, and its state keeps acc = A sent, so
+# vec - x = -(I - 0.75 A)^-1 0.75 A r, at most t * beta with
+# beta = sum_k>=1 (0.75 A)^k 1 (the same holds for nodelta, whose r is
+# its last step).  Per vertex: |vec - x| <= t * beta + ADS_F32 |x|, the
+# last term for float32 sums of positive terms.
+ADS_F32 = 1e-3
+# Fig 12's setting (bench_recovery.py): SSSP, one shard (1) lost at these
+# fractions of the failure-free strata.
+RECOVER_AT = (0.25, 0.5, 0.75)
+FAILED_SHARD = 1
 
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
@@ -271,9 +322,9 @@ def compare(name: str, got, ref, float_idx=()) -> float:
 def row(name, combiner, err, ms, plain_ms, b, library_ms, shape,
         label=None):
     """One kernel check.  ``combiner`` groups the phases whose launches
-    the row reports: a combiner, or an LM phase's name (None: every
-    phase); ``label`` names the row when it is not the kernel's name with
-    its combiner."""
+    the row reports: a combiner, an LM phase's name or a tuple of them
+    (None: every phase); ``label`` names the row when it is not the
+    kernel's name with its combiner."""
     return dict(name=name, combiner=combiner, err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                 library_ms=library_ms, shape=shape, label=label)
@@ -299,9 +350,10 @@ def print_rows(rows) -> None:
               f"({r['bound_by']}) library {lib}", flush=True)
 
 
-def scatter_route_row(out, snap, seg, combiner):
+def scatter_route_row(out, snap, seg, combiner, group=None, label=None):
     """scatter_route on one shard's outgoing deltas ``out`` at rung
-    capacity ``seg``."""
+    capacity ``seg``; ``group`` (default: the combiner) names the phases
+    whose launches the row reports."""
     import torch
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.kernels import scatter_route as sr
@@ -318,14 +370,41 @@ def scatter_route_row(out, snap, seg, combiner):
     live = int((keys != PAD_KEY).sum())
     W = out.payload.shape[1]
     b = bound(keys.numel() * 4 + live * (8 + 4 * W) + nbytes(*got), live * W)
-    return row("scatter_route", combiner, err,
+    return row("scatter_route", group or combiner, err,
                time_ms(lambda: sr.scatter_route(*args)),
                time_ms(lambda: sr.scatter_route_ref(*args)), b, None,
-               f"C={keys.numel()} live={live} S={S} B={B} cap={seg}")
+               f"C={keys.numel()} live={live} S={S} B={B} cap={seg} W={W}",
+               label=label)
 
 
-def delta_scatter_row(state, idx, pay, combiner):
-    """delta_scatter of one shard's incoming deltas into ``state``."""
+def delta_route_row(out, snap, seg, group, label):
+    """delta_route on one shard's outgoing deltas ``out``, pre-aggregated
+    as the sort strategy does, at rung capacity ``seg``."""
+    import torch
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.handlers import pre_aggregate
+    from repro_torch.kernels import delta_route as dr
+    S = snap.num_shards
+    agg = pre_aggregate(out, "add")
+    owners = torch.where(agg.keys != PAD_KEY, snap.owner_of(agg.keys), S)
+    args = (agg.keys, agg.payload, agg.ann, owners, S, seg)
+    got = dr.delta_route(*args)
+    ref = dr.delta_route_ref(*args)
+    err = compare("delta_route", got, ref)
+    # Every key is read; owner, payload and ann only for live keys.
+    live = int((agg.keys != PAD_KEY).sum())
+    W = agg.payload.shape[1]
+    b = bound(agg.keys.numel() * 4 + live * (5 + 4 * W) + nbytes(*got), 0)
+    return row("delta_route", group, err,
+               time_ms(lambda: dr.delta_route(*args)),
+               time_ms(lambda: dr.delta_route_ref(*args)), b, None,
+               f"C={agg.keys.numel()} live={live} S={S} cap={seg} W={W}",
+               label=label)
+
+
+def delta_scatter_row(state, idx, pay, combiner, group=None, label=None):
+    """delta_scatter of one shard's incoming deltas into ``state``;
+    ``group`` as in :func:`scatter_route_row`."""
     import torch
     from repro_torch.kernels import delta_scatter as ds
     B, W = state.shape
@@ -347,11 +426,12 @@ def delta_scatter_row(state, idx, pay, combiner):
         lib = lambda: torch.full((B + 1, W), fill, device=state.device
                                  ).scatter_reduce_(
             0, lib_idx[:, None].expand(-1, W), pay, "a" + combiner)
-    return row("delta_scatter", combiner, err,
+    return row("delta_scatter", group or combiner, err,
                time_ms(lambda: ds.delta_scatter(state, idx, pay, combiner)),
                time_ms(lambda: ds.delta_scatter_ref(state, idx, pay,
                                                     combiner)),
-               b, time_ms(lib), f"N={B} C={idx.numel()} live={live}")
+               b, time_ms(lib), f"N={B} C={idx.numel()} live={live} W={W}",
+               label=label)
 
 
 def edge_propagate_bins(csc, label) -> None:
@@ -444,8 +524,6 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     from repro_torch.algorithms import emission, pagerank
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _stack, _take
-    from repro_torch.core.handlers import pre_aggregate
-    from repro_torch.kernels import delta_route as dr
 
     S, B = snap.num_shards, snap.block_size
     top = ex.capacity_tiers(algo)[-1]
@@ -456,25 +534,8 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
         active, _ = algo.active_fn(st, g)
         parts.append(algo.sparse_emit(st, g, active, 0, s)[1])
     out0 = parts[0]
-    rows = [scatter_route_row(out0, snap, top.seg, "add")]
-
-    # delta_route: shard 0's pre-aggregated deltas (sort strategy).
-    agg = pre_aggregate(out0, "add")
-    owners = torch.where(agg.keys != PAD_KEY, snap.owner_of(agg.keys), S)
-    args = (agg.keys, agg.payload, agg.ann, owners, S, top.seg)
-    got = dr.delta_route(*args)
-    ref = dr.delta_route_ref(*args)
-    err = compare("delta_route", got, ref)
-    # Every key is read; owner, payload and ann only for live keys.
-    live = int((agg.keys != PAD_KEY).sum())
-    W = agg.payload.shape[1]
-    b = bound(agg.keys.numel() * 4 + live * (5 + 4 * W) + nbytes(*got), 0)
-    rows.append(row("delta_route", None, err,
-                    time_ms(lambda: dr.delta_route(*args)),
-                    time_ms(lambda: dr.delta_route_ref(*args)), b, None,
-                    f"C={agg.keys.numel()} live={live} S={S} "
-                    f"cap={top.seg}"))
-    del got, ref, args, agg
+    rows = [scatter_route_row(out0, snap, top.seg, "add"),
+            delta_route_row(out0, snap, top.seg, W1_GROUPS, "delta_route")]
 
     # delta_scatter: shard 0's incoming deltas after the segment swap.
     incoming, _ = ex.rehash_sparse_simulated(_stack(parts), top.seg, "add",
@@ -496,6 +557,39 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     return rows
 
 
+def widest_stratum(ex, algo, graph, state, stats, what, busiest=False):
+    """Replays a run from ``state`` to the first stratum on the widest
+    rung it routed at (``busiest``: the one of those that emitted most)
+    and emits it at that rung: (state there, each shard's outgoing
+    deltas, the stratum, the shard that emits most)."""
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.engine import _take
+    it = int(stats.iterations)
+    tier_of = stats.tiers[:it].tolist()
+    emitted = stats.delta_counts[:it].tolist()
+    widest = max(tier_of)
+    check(widest >= 0, f"{what}: no sparse stratum")
+    on_it = [i for i in range(it) if tier_of[i] == widest]
+    at = max(on_it, key=lambda i: emitted[i]) if busiest else on_it[0]
+    step = ex.make_stratum_fn(algo, graph)
+    for i in range(at):
+        state, _ = step(state, i)
+    tiers = ex.capacity_tiers(algo)
+    tier = tiers[widest]
+    emit_fn = ex._emit_fn(algo, tier)
+    parts = []
+    for s in range(ex.snapshot.num_shards):
+        st, g = _take(state, s), _take(graph, s)
+        active, _ = algo.active_fn(st, g)
+        parts.append(emit_fn(st, g, active, at, s)[1])
+    src = max(range(len(parts)),
+              key=lambda s: int((parts[s].keys != PAD_KEY).sum()))
+    print(f"{what} checks at stratum {at} (rung {widest} of "
+          f"{len(tiers) - 1}: {tier.src} src, {tier.edge} edge, {tier.seg} "
+          f"seg), source shard {src}", flush=True)
+    return state, parts, at, src
+
+
 def sssp_kernel_checks(graph, snap, ex, algo, stats):
     """The min kernels: scatter_route and delta_scatter at the widest
     sparse stratum of ``sssp_auto`` that routed at the top rung (the
@@ -508,29 +602,10 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     from repro_torch.core.engine import _stack, _take
 
     S, B = snap.num_shards, snap.block_size
-    tiers = ex.capacity_tiers(algo)
-    it = int(stats.iterations)
-    tier_of = stats.tiers[:it].tolist()
-    emitted = stats.delta_counts[:it].tolist()
-    widest = max(t for t in tier_of)
-    check(widest >= 0, "sssp_auto ran no sparse stratum")
-    at = max((i for i in range(it) if tier_of[i] == widest),
-             key=lambda i: emitted[i])
-    step = ex.make_stratum_fn(algo, graph)
-    state = sssp.initial_state(snap, 0, graph.device)
-    for i in range(at):
-        state, _ = step(state, i)
-    tier = tiers[widest]
-    emit_fn = ex._emit_fn(algo, tier)
-    parts = []
-    for s in range(S):
-        st, g = _take(state, s), _take(graph, s)
-        active, _ = algo.active_fn(st, g)
-        parts.append(emit_fn(st, g, active, at, s)[1])
-    src = max(range(S), key=lambda s: int((parts[s].keys != PAD_KEY).sum()))
-    print(f"sssp min checks at stratum {at} (rung {widest}: {tier.src} src, "
-          f"{tier.edge} edge, {tier.seg} seg), source shard {src}",
-          flush=True)
+    state, parts, at, src = widest_stratum(
+        ex, algo, graph, sssp.initial_state(snap, 0, graph.device), stats,
+        "sssp min", busiest=True)
+    tier = ex.capacity_tiers(algo)[int(stats.tiers[at])]
     rows = [scatter_route_row(parts[src], snap, tier.seg, "min")]
 
     incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "min",
@@ -680,11 +755,12 @@ class Phases:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         return out, wall, counts, peak
 
-    def of(self, kernel, combiner) -> int:
-        """Launches of ``kernel`` over the phases of ``combiner`` (every
-        phase when the kernel has none)."""
+    def of(self, kernel, group) -> int:
+        """Launches of ``kernel`` over the phases of ``group``: a combiner
+        or LM phase, a tuple of them, or None for every phase."""
+        groups = group if isinstance(group, tuple) else (group,)
         return sum(c[kernel] for comb, c in self.launches
-                   if combiner is None or comb == combiner)
+                   if group is None or comb in groups)
 
 
 def stats_line(st) -> str:
@@ -771,6 +847,7 @@ def graph_section(args, dev, phases, rows):
         values[name] = pr
         del res
         torch.cuda.empty_cache()
+    pagerank_obs_phases(graph, snap, dev, phases, ref, values)
     sort_vs_auto = float((values["delta_sort"] - values["delta_auto"])
                          .abs().max())
     print(f"max|delta_sort - delta_auto| {sort_vs_auto:.3e} (bound "
@@ -804,7 +881,7 @@ def graph_section(args, dev, phases, rows):
     print(f"sssp oracle: BFS reaches {int(torch.isfinite(bfs).sum())} of {n}"
           f" vertices, depth {int(bfs[torch.isfinite(bfs)].max())} "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    auto_stats = None
+    auto_res = None
     for name in ("sssp_auto", "sssp_sort", "sssp_nodelta"):
         (dist, res), wall, counts, peak = phases.run(
             name, *graph_phase(name, graph, snap, dev))
@@ -815,13 +892,16 @@ def graph_section(args, dev, phases, rows):
               f"{exact}", flush=True)
         check(exact, f"{name}: distances differ from the BFS oracle")
         if name == "sssp_auto":
-            auto_stats = res.stats
+            auto_res = res
         del dist, res
         torch.cuda.empty_cache()
     algo = sssp.make_algorithm(snap, cap["src_capacity"],
                                cap["edge_capacity"])
-    rows += sssp_kernel_checks(graph, snap, ex, algo, auto_stats)
+    rows += sssp_kernel_checks(graph, snap, ex, algo, auto_res.stats)
     del bfs
+    sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
+                          indices)
+    del auto_res
 
     # Connected components, exactly equal to a dense min-label iteration.
     t0 = time.perf_counter()
@@ -839,6 +919,445 @@ def graph_section(args, dev, phases, rows):
         check(exact, f"{name}: labels differ from the oracle")
         del lab, res
         torch.cuda.empty_cache()
+    del labels
+    adsorption_section(graph, snap, dev, phases, rows, indptr, indices)
+
+
+def stratum_spans(name, tracer) -> None:
+    """Prints a traced phase's per-stratum host wall against device time
+    (ms, from CUDA events at each stratum's start and end) and writes its
+    Chrome trace under build/."""
+    from repro_torch.obs import to_chrome_trace, write_chrome_trace
+    spans = [e for e in tracer.events if e["name"].startswith("stratum")]
+    print(f"{name} strata (host ms / device ms, tier): " + ", ".join(
+        f"{e['args']['stratum']}: {e['dur'] * 1e3:.1f}/"
+        f"{e['args'].get('device_s', 0.0) * 1e3:.1f} t{e['args']['tier']}"
+        for e in spans), flush=True)
+    path = ROOT / "build" / f"{name}.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_chrome_trace(tracer, str(path))
+    print(f"{name}: {len(spans)} stratum spans; Chrome trace "
+          f"{path.relative_to(ROOT)} with "
+          f"{to_chrome_trace(tracer)['otherData']['events']} events",
+          flush=True)
+
+
+def busy_share(name, window, wall, top=6) -> float:
+    """One more run of ``window`` (a few strata of the phase) under
+    torch.profiler: its kernels' summed device time over ``wall``, the
+    same strata's host wall in the measured run, is the busy share
+    (kernel times are the device's, so the profiler's host cost stays
+    out); also the ``top`` operators by the device time of the kernels
+    they launch, and the share of the port's kernels, which ctypes
+    launches outside any operator.  Returns the busy share."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    # Kernels, memsets and copies, from the Chrome trace the profiler
+    # writes in C++.
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    busy = sum(e.get("dur", 0.0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+               ) / 1e6
+    averages = prof.key_averages()
+    total = sum(e.self_device_time_total for e in averages
+                if e.device_type.name == "CUDA"
+                and e.key != "Command Buffer Full")
+    ops = [e for e in averages if e.device_type.name == "CPU"
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    rest = total - sum(e.self_device_time_total for e in ops)
+    print(f"{name}: a window's kernels {busy:.3f} s (trace; averages "
+          f"{total / 1e6:.3f} s) in its {wall:.3f} s wall, busy share "
+          f"{busy / wall:.3f}; its device time: the port's CUDA kernels "
+          f"{rest / total:.1%}, "
+          + "; ".join(f"{e.key} {e.self_device_time_total / total:.1%}"
+                      for e in ops[:top])
+          + f" (profiling took {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return busy / wall
+
+
+def traced_phase(name, combiner, needs, phases, run, window_iters):
+    """Phase ``name`` with a fresh Tracer each call: ``run(tracer,
+    max_iters)`` runs it (None: the phase's own cap), with no warm-up (its
+    untraced twin just ran).  Returns (result, wall, counts, peak, tracer
+    of the measured call); prints the busy share of its first
+    ``window_iters`` strata (None: all of them)."""
+    from repro_torch.obs import Tracer
+    box = {}
+
+    def fn(max_iters=None):
+        box["tracer"] = Tracer(name)
+        return run(box["tracer"], max_iters)
+
+    out, wall, counts, peak = phases.run(name, combiner, needs, fn,
+                                         warm_up=False)
+    tracer = box["tracer"]
+    spans = [e for e in tracer.events if e["name"].startswith("stratum")]
+    busy_share(name, lambda: fn(window_iters),
+               sum(e["dur"] for e in spans[:window_iters]))
+    return out, wall, counts, peak, tracer
+
+
+def pagerank_obs_phases(graph, snap, dev, phases, ref, values):
+    """delta_auto_traced (a Tracer on delta_auto's executor) and
+    delta_measured (route_strategy="measured" from a route table
+    calibrated here), each held to PHASE_BOUND against the float64
+    oracle ``ref``."""
+    import dataclasses
+    import torch
+    from repro_torch.algorithms import pagerank
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.core.fixpoint import ROUTE_SCATTER, ROUTE_SORT
+    from repro_torch.obs import calibrate_executor_table
+    n = snap.n_keys
+    cap = capacities(snap)
+    # The algorithm's capacities must be the executor's.
+    kw = dict(RUN_SETTINGS["pagerank"], device=dev,
+              edge_capacity=cap["edge_capacity"],
+              src_capacity=cap["src_capacity"])
+
+    def executor(**extra):
+        return ShardedExecutor(snapshot=snap,
+                               seg_capacity=cap["edge_capacity"],
+                               edge_capacity=cap["edge_capacity"],
+                               src_capacity=cap["src_capacity"],
+                               ladder_tiers=4, route_strategy="auto",
+                               **extra)
+
+    def rel_vs_ref(pr):
+        return float(((pr[:n] - ref).abs() / ref.abs().clamp(min=1)).max())
+
+    def traced(tracer, max_iters):
+        return pagerank.run(graph, snap, executor=executor(tracer=tracer),
+                            **dict(kw, max_iters=max_iters or
+                                   kw["max_iters"]))
+
+    # The window: the first 4 strata, at the top rung.
+    (pr, res), wall, counts, peak, tr = traced_phase(
+        "delta_auto_traced", "add", ("scatter_route", "delta_scatter"),
+        phases, traced, 4)
+    rel = rel_vs_ref(pr)
+    vs = float((pr - values["delta_auto"]).abs().max())
+    print(f"phase delta_auto_traced: {stats_line(res.stats)} wall "
+          f"{wall:.3f} s launches {counts} peak_mem {peak:.2f} GiB "
+          f"rel_err_vs_f64 {rel:.3e}; max|traced - delta_auto| {vs:.3e}",
+          flush=True)
+    check(rel < PHASE_BOUND, f"delta_auto_traced: rel_err_vs_f64 {rel:.3e}"
+                             f" over {PHASE_BOUND}")
+    stratum_spans("delta_auto_traced", tr)
+    del pr, res, tr
+
+    algo = pagerank.make_algorithm(snap, RUN_SETTINGS["pagerank"][
+        "threshold"], cap["src_capacity"], cap["edge_capacity"])
+    auto = executor()
+    t0 = time.perf_counter()
+    table = calibrate_executor_table(auto, algo, device=dev)
+    print(f"route table ({table.backend}, {time.perf_counter() - t0:.1f} s"
+          f" to calibrate): " + "; ".join(
+              f"edge {c}: sort {so * 1e3:.3f} ms scatter {sc * 1e3:.3f} ms"
+              f" -> {table.pick(c, device=dev)} (auto: "
+              f"{auto.pick_route_strategy(c, 'add')})"
+              for c, (so, sc) in sorted(table.entries.items())),
+          flush=True)
+    measured = dataclasses.replace(auto, route_strategy="measured",
+                                   route_table=table)
+    (pr, res), wall, counts, peak = phases.run(
+        "delta_measured", "add", ("delta_scatter",),
+        lambda: pagerank.run(graph, snap, executor=measured, **kw),
+        warm_up=False)
+    it = int(res.stats.iterations)
+    routes = set(res.stats.routes[:it].tolist())
+    for code, kernel in ((ROUTE_SORT, "delta_route"),
+                         (ROUTE_SCATTER, "scatter_route")):
+        check(code not in routes or counts[kernel] > 0,
+              f"delta_measured: kernel {kernel} was never launched")
+    rel = rel_vs_ref(pr)
+    print(f"phase delta_measured: {stats_line(res.stats)} wall {wall:.3f} "
+          f"s launches {counts} peak_mem {peak:.2f} GiB rel_err_vs_f64 "
+          f"{rel:.3e}", flush=True)
+    check(rel < PHASE_BOUND, f"delta_measured: rel_err_vs_f64 {rel:.3e} "
+                             f"over {PHASE_BOUND}")
+    del pr, res
+    torch.cuda.empty_cache()
+
+
+def sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
+                          indices):
+    """sssp_auto_traced, bit-identical to sssp_auto (``auto_res``); then
+    Fig 12's recovery phases through ``run_resilient``, each final state
+    exactly equal to the failure-free run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.algorithms import sssp
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.core.partition import unshard_dense_state
+    from repro_torch.data.graphs import shard_csr
+    from repro_torch.runtime import FaultEvent, FaultPlan, FaultSchedule
+    from repro_torch.runtime.chaos import acceptance_schedule
+
+    def setup(sn, **extra):
+        cap = capacities(sn)
+        ex = ShardedExecutor(snapshot=sn, seg_capacity=cap["edge_capacity"],
+                             edge_capacity=cap["edge_capacity"],
+                             src_capacity=cap["src_capacity"],
+                             ladder_tiers=4, route_strategy="auto", **extra)
+        return ex, sssp.make_algorithm(sn, cap["src_capacity"],
+                                       cap["edge_capacity"])
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    needs = ("scatter_route", "delta_scatter")
+    def traced(tracer, max_iters):
+        return sssp.run(graph, snap, executor=setup(snap, tracer=tracer)[0],
+                        source=RUN_SETTINGS["sssp"]["source"],
+                        max_iters=max_iters or RUN_SETTINGS["sssp"][
+                            "max_iters"], device=dev,
+                        edge_capacity=capacities(snap)["edge_capacity"],
+                        src_capacity=capacities(snap)["src_capacity"])
+
+    # The window: the whole run (10 strata).
+    (dist, res), wall, counts, peak, tr = traced_phase(
+        "sssp_auto_traced", "min", needs, phases, traced, None)
+    exact = same(res.state, auto_res.state) and all(
+        torch.equal(getattr(res.stats, f), getattr(auto_res.stats, f))
+        for f in res.stats._fields)
+    print(f"phase sssp_auto_traced: {stats_line(res.stats)} wall "
+          f"{wall:.3f} s launches {counts} peak_mem {peak:.2f} GiB "
+          f"equal_to_sssp_auto {exact}", flush=True)
+    check(exact, "sssp_auto_traced: state or stats differ from sssp_auto")
+    stratum_spans("sssp_auto_traced", tr)
+    del dist, res, tr
+
+    ex, algo = setup(snap)
+    state0 = sssp.initial_state(snap, 0, dev)
+    iters = int(auto_res.stats.iterations)
+    at = {f: max(int(iters * f), 1) for f in RECOVER_AT}
+
+    def remake(new_snap):
+        e, a = setup(new_snap)
+        return e, a, shard_csr(indptr, indices, new_snap.num_shards,
+                               device=dev)
+
+    # The acceptance schedule (a failure, a correlated replica loss, a
+    # failure during that recovery), then an elastic rescale to 4 shards.
+    chaos = FaultSchedule(events=acceptance_schedule(snap.num_shards).events
+                          + (FaultEvent(kind="rescale", at=3,
+                                        new_num_shards=4),))
+    cases = {"sssp_resilient": None}
+    for f in RECOVER_AT:
+        cases[f"sssp_recover_{int(f * 100)}"] = FaultPlan(
+            fail_at=at[f], failed_shard=FAILED_SHARD)
+    for f in (0.5, 0.75):
+        cases[f"sssp_restart_{int(f * 100)}"] = FaultPlan(
+            fail_at=at[f], failed_shard=FAILED_SHARD, strategy="restart")
+    cases["sssp_chaos"] = chaos
+    ref_flat = unshard_dense_state(snap, torch.stack(auto_res.state, -1))
+    work = {}
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        for name, plan in cases.items():
+            rr, wall, counts, peak = phases.run(
+                name, "min", needs, lambda: ex.run_resilient(
+                    algo, state0, 1, graph, RUN_SETTINGS["sssp"][
+                        "max_iters"], ckpt_root=f"{tmp}/{name}",
+                    fault_plan=plan, remake=remake), warm_up=False)
+            m = rr.metrics
+            shards = m["final_num_shards"]
+            got = unshard_dense_state(snap.resnapshot(shards),
+                                      torch.stack(rr.result.state, -1))
+            exact = m["converged"] and torch.equal(got, ref_flat)
+            if plan is None:
+                exact = exact and all(
+                    torch.equal(getattr(rr.result.stats, f),
+                                getattr(auto_res.stats, f))
+                    for f in auto_res.stats._fields)
+            work[name] = m["total_work_units"]
+            print(f"phase {name}: strata {m['strata_executed']} work_units "
+                  f"{m['total_work_units']} bytes_replicated "
+                  f"{m['bytes_replicated']} recoveries {m['recoveries']} "
+                  f"restarts {m['restarts']} recovery_wall "
+                  f"{m['recovery_wall_s']:.3f} s shards {shards} wall "
+                  f"{wall:.3f} s launches {counts} peak_mem {peak:.2f} GiB "
+                  f"equal_to_failure_free {exact}", flush=True)
+            check(exact, f"{name}: final state differs from the "
+                         f"failure-free run")
+            shutil.rmtree(f"{tmp}/{name}", ignore_errors=True)
+            del rr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"work units: incremental at 75 % {work['sssp_recover_75']}, "
+          f"restart at 75 % {work['sssp_restart_75']}, at 50 % "
+          f"{work['sssp_restart_50']}, failure-free "
+          f"{work['sssp_resilient']}", flush=True)
+    check(work["sssp_recover_75"] < work["sssp_restart_75"],
+          "incremental recovery at 75 % did not do less work than restart")
+    torch.cuda.empty_cache()
+
+
+def make_seeds(snap, dev):
+    """Adsorption's injections: one-hot f32[padded_keys, ADS_LABELS] on
+    every ADS_SEED_EVERY-th vertex v, label (v / ADS_SEED_EVERY) mod
+    ADS_LABELS."""
+    import torch
+    seeds = torch.zeros((snap.padded_keys, ADS_LABELS), device=dev)
+    v = torch.arange(0, snap.n_keys, ADS_SEED_EVERY, device=dev)
+    seeds[v, (v // ADS_SEED_EVERY) % ADS_LABELS] = 1.0
+    return seeds
+
+
+def adsorption_f64(indptr, indices, seeds, dev, tol=1e-12, max_iters=400):
+    """Float64 dense iteration of adsorption's equation, vec = 0.25 seed +
+    0.75 A vec, from vec = 0.25 seed, and of beta = 0.75 A (1 + beta)
+    (see ADS_F32), each until no entry moves by ``tol``: (f64[n, L],
+    f64[n, 1], rounds of the first)."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms.adsorption import INJECTION
+    n = len(indptr) - 1
+    counts = torch.from_numpy(np.diff(indptr)).to(dev)
+    src = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    dst = torch.from_numpy(indices[:src.numel()]).to(dev).long()
+    w = (1.0 / counts.clamp(min=1).double())[src][:, None]
+
+    def fixpoint(base, step):
+        x = base
+        for rounds in range(1, max_iters + 1):
+            new = base + (1.0 - INJECTION) * torch.zeros_like(x).index_add_(
+                0, dst, step(x)[src] * w)
+            moved = float((new - x).abs().max())
+            x = new
+            if moved < tol:
+                break
+        return x, rounds
+
+    vec, rounds = fixpoint(INJECTION * seeds[:n].double(), lambda x: x)
+    zero = torch.zeros((n, 1), dtype=torch.float64, device=dev)
+    beta, _ = fixpoint(zero, lambda b: 1.0 + b)
+    return vec, beta, rounds
+
+
+def adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats):
+    """scatter_route and delta_scatter (add, W = ADS_LABELS) at
+    adsorption_auto's first stratum on its widest rung (the top one when
+    it reached it), delta_route at adsorption_sort's; ``stats`` maps each
+    phase to its run's stats."""
+    import dataclasses
+    import torch
+    from repro_torch.algorithms import adsorption, emission
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.engine import _stack, _take
+
+    S, B = snap.num_shards, snap.block_size
+    state0 = adsorption.initial_state(snap, seeds, graph.device)
+    state, parts, at, src = widest_stratum(
+        ex, algo, graph, state0, stats["adsorption_auto"],
+        f"adsorption_auto W={ADS_LABELS}")
+    tier = ex.capacity_tiers(algo)[int(stats["adsorption_auto"].tiers[at])]
+    rows = [scatter_route_row(parts[src], snap, tier.seg, "add", ADS_GROUP,
+                              f"scatter_route/add_w{ADS_LABELS}")]
+    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "add",
+                                             "scatter")
+    del parts, state
+    dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
+                                          .sum()))
+    in_s = _take(incoming, dst)
+    idx = emission.to_local_keys(in_s, dst, B).contiguous()
+    pay = in_s.payload.contiguous()
+    del incoming, in_s
+    rows.append(delta_scatter_row(
+        torch.zeros((B, ADS_LABELS), device=graph.device), idx, pay, "add",
+        ADS_GROUP, f"delta_scatter/add_w{ADS_LABELS}"))
+    del idx, pay
+
+    # delta_route on adsorption_sort's own run.
+    sort = dataclasses.replace(ex, route_strategy="sort")
+    _, parts, at, src = widest_stratum(
+        sort, algo, graph, state0, stats["adsorption_sort"],
+        f"adsorption_sort W={ADS_LABELS}")
+    tier = ex.capacity_tiers(algo)[int(stats["adsorption_sort"].tiers[at])]
+    rows.append(delta_route_row(parts[src], snap, tier.seg, ADS_GROUP,
+                                f"delta_route/add_w{ADS_LABELS}"))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def adsorption_section(graph, snap, dev, phases, rows, indptr, indices):
+    """Adsorption (L = ADS_LABELS) on the graph: three phases, each against
+    a float64 dense iteration, delta against nodelta, and the W = 4 rows
+    of scatter_route, delta_scatter and delta_route."""
+    import torch
+    from repro_torch.algorithms import adsorption
+    from repro_torch.core.engine import ShardedExecutor
+
+    n, S = snap.n_keys, snap.num_shards
+    cap = capacities(snap)
+    L = ADS_LABELS
+    seeds = make_seeds(snap, dev)
+    # The top rung's routed buffer: S*S*seg slots of a key, an ann and L
+    # payload floats.
+    top = S * S * cap["edge_capacity"] * (5 + 4 * L) / 2 ** 30
+    t0 = time.perf_counter()
+    ref, beta, rounds = adsorption_f64(indptr, indices, seeds, dev)
+    tol = RUN_SETTINGS["adsorption"]["threshold"] * beta + ADS_F32 * ref.abs()
+    sync()
+    print(f"adsorption: L={L}, {int((seeds.sum(1) > 0).sum())} seeds, top "
+          f"rung's routed buffer {top:.2f} GiB; oracle: float64 dense "
+          f"iteration, {rounds} rounds ({time.perf_counter() - t0:.1f} s); "
+          f"bound t*beta + {ADS_F32}|x| from {float(tol.min()):.3e} to "
+          f"{float(tol.max()):.3e}", flush=True)
+    vecs, stats = {}, {}
+    for name, (mode, route, needs) in ADSORPTION_PHASES.items():
+        (vec, res), wall, counts, peak = phases.run(
+            name, ADS_GROUP, needs, lambda: adsorption.run(
+                graph, snap, seeds, mode=mode, route_strategy=route,
+                device=dev, **RUN_SETTINGS["adsorption"], **cap))
+        check(vec.shape == (snap.padded_keys, L) and
+              bool(torch.isfinite(vec).all()),
+              f"{name}: vectors {tuple(vec.shape)} not finite")
+        it = int(res.stats.iterations)
+        check(it < RUN_SETTINGS["adsorption"]["max_iters"],
+              f"{name}: not converged in {it} strata")
+        err = (vec[:n].double() - ref).abs()
+        worst = float(torch.where(err == 0, 0.0, err / tol).max())
+        print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s "
+              f"launches {counts} peak_mem {peak:.2f} GiB max|vec - x| "
+              f"{float(err.max()):.3e} (at |x| "
+              f"{float(ref.abs().flatten()[err.argmax()]):.3e}), at "
+              f"{worst:.3f} of its bound", flush=True)
+        check(worst <= 1.0, f"{name}: off the float64 fixpoint by "
+                            f"{worst:.3f} of its bound")
+        vecs[name] = vec
+        stats[name] = res.stats
+        del res
+        torch.cuda.empty_cache()
+    for name in ("adsorption_auto", "adsorption_sort"):
+        d = float((vecs[name] - vecs["adsorption_nodelta"]).abs().max())
+        print(f"max|{name} - adsorption_nodelta| {d:.3e} (bound "
+              f"{ADS_DELTA_BOUND})", flush=True)
+        check(d < ADS_DELTA_BOUND, f"{name} and adsorption_nodelta "
+                                   f"disagree")
+    del vecs, ref, beta, tol
+    torch.cuda.empty_cache()
+    ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
+                         edge_capacity=cap["edge_capacity"],
+                         src_capacity=cap["src_capacity"], ladder_tiers=4,
+                         route_strategy="auto")
+    algo = adsorption.make_algorithm(snap, L, RUN_SETTINGS["adsorption"][
+        "threshold"], cap["src_capacity"], cap["edge_capacity"])
+    rows += adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats)
 
 
 def make_points(n, dev):

@@ -34,11 +34,21 @@ def emit_over_edges(graph: CSRGraph, active_mask: torch.Tensor,
     destination vertex; ``overflowed`` is set when either the active-source
     list or the edge budget is exceeded.
     """
+    return emit_over_edges_vec(graph, active_mask, payload_of_src[:, None],
+                               src_capacity, edge_capacity)
+
+
+def emit_over_edges_vec(graph: CSRGraph, active_mask: torch.Tensor,
+                        payload_of_src: torch.Tensor, src_capacity: int,
+                        edge_capacity: int) -> DeltaBuffer:
+    """Vector-payload form of :func:`emit_over_edges`: payload_of_src is
+    f32[B, W], one W-column payload per source (adsorption ships whole
+    label-distribution diffs; paper Fig 3 row 2)."""
     dev = active_mask.device
     B = active_mask.shape[0]
     src_db = DeltaBuffer.from_dense_mask(
         active_mask, torch.arange(B, dtype=torch.int32, device=dev),
-        payload_of_src[:, None], src_capacity)
+        payload_of_src, src_capacity)
     src_idx = src_db.keys.clamp(0, B - 1).long()
     live_src = src_db.keys != PAD_KEY
     deg = torch.where(live_src, graph.indptr[src_idx + 1]
@@ -55,10 +65,10 @@ def emit_over_edges(graph: CSRGraph, active_mask: torch.Tensor,
         0, graph.nnz_capacity - 1).long()
     dst = graph.indices[pos]
     valid = valid & (dst >= 0)
-    payload = src_db.payload[owner, 0]
+    payload = src_db.payload[owner]
     return DeltaBuffer(
         keys=torch.where(valid, dst, PAD_KEY),
-        payload=torch.where(valid, payload, 0.0)[:, None],
+        payload=torch.where(valid[:, None], payload, 0.0),
         ann=torch.full((edge_capacity,), ANN_ADJUST, dtype=torch.int8,
                        device=dev),
         count=_i32(valid.sum()),
@@ -69,8 +79,10 @@ def dense_push(graph: CSRGraph, payload_of_src: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense analogue: every source pushes payload along ALL its edges.
 
-    Returns per-edge (dst_global_keys[int32; nnz_cap] with -1 on padding,
-    payload[f32; nnz_cap]); callers fold them into their own key space.
+    ``payload_of_src`` is f32[B] or f32[B, W].  Returns per-edge
+    (dst_global_keys[int32; nnz_cap] with -1 on padding, payload[f32;
+    nnz_cap] or [f32; nnz_cap, W]); callers fold them into their own key
+    space.
     """
     dev = payload_of_src.device
     slots = torch.arange(graph.nnz_capacity, dtype=torch.int32, device=dev)
@@ -79,7 +91,9 @@ def dense_push(graph: CSRGraph, payload_of_src: torch.Tensor
     src = src.clamp(0, graph.n_src - 1).long()
     dst = graph.indices
     valid = dst >= 0
-    payload = torch.where(valid, payload_of_src[src], 0.0)
+    payload = payload_of_src[src]
+    payload = torch.where(valid.view((-1,) + (1,) * (payload.dim() - 1)),
+                          payload, 0.0)
     return torch.where(valid, dst, -1), payload
 
 
@@ -118,3 +132,10 @@ def scatter_local(db: DeltaBuffer, shard_id: int, block: int,
                       dtype=db.payload.dtype, device=db.device)
     return fold(base, to_local_keys(db, shard_id, block), db.payload[:, :1],
                 combiner)[:, 0]
+
+
+def scatter_local_vec(db: DeltaBuffer, shard_id: int, block: int
+                      ) -> torch.Tensor:
+    """Vector add-scatter of an incoming buffer: returns f32[block, W]."""
+    return fold(db.payload.new_zeros((block, db.payload_width)),
+                to_local_keys(db, shard_id, block), db.payload)

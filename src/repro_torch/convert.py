@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.algorithms.adsorption import AdsorptionState
 from repro_torch.algorithms.kmeans import KMState
 from repro_torch.algorithms.pagerank import PRState
 from repro_torch.core.delta import DeltaBuffer
@@ -32,6 +33,8 @@ DTYPES = {
                   "ann": torch.int8, "count": torch.int32,
                   "overflowed": torch.bool},
     PRState: {"acc": torch.float32, "sent": torch.float32},
+    AdsorptionState: {"acc": torch.float32, "sent": torch.float32,
+                      "seed": torch.float32},
     KMState: {"assign": torch.int32, "sums": torch.float32,
               "counts": torch.float32},
 }

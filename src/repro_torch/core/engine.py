@@ -47,6 +47,9 @@ class DeltaAlgorithm:
     combiner: how concurrent contributions to one key merge.
     emit_factory(src_capacity, edge_capacity) -> sparse_emit-like callable,
     which lets the executor run sparse strata at several capacity rungs.
+    nodelta_dense_emit: dense_emit for ``mode="nodelta"``, where every
+    stratum is dense (None: dense_emit); it may round differently, as the
+    reference's compiled loop does there.
     """
 
     active_fn: Callable
@@ -58,6 +61,7 @@ class DeltaAlgorithm:
     payload_width: int = 1
     bytes_per_delta: int = 8  # int32 key + f32 payload
     emit_factory: Optional[Callable] = None
+    nodelta_dense_emit: Optional[Callable] = None
 
     def dense_identity(self) -> float:
         return {"add": 0.0, "min": float("inf"), "max": float("-inf")}[
@@ -134,14 +138,28 @@ class ShardedExecutor:
     ``route_scatter_weight``·(C + slab cells).  A non-composable combiner
     always routes with the sort path.
 
+    ``route_strategy="measured"`` swaps the static model for a measured
+    per-rung table (``route_table``, built by ``repro_torch.obs.calibrate``
+    from sort and scatter timings on the device at hand); a table from
+    another backend is refused.
+
     ``use_kernels`` (default True) sends the local rehash through the CUDA
     kernels: ``kernels/scatter_route`` for the scatter strategy, and
     ``handlers.pre_aggregate`` then ``kernels/delta_route`` otherwise.  On
     CPU tensors the kernels' plain versions run.  False runs the torch-op
     functions of ``core/delta.py``.
 
-    ``backend="shard_map"`` (ROADMAP slice 3), ``tracer`` and
-    ``route_strategy="measured"`` (slice 4) are not ported yet and raise.
+    Observability: an attached ``tracer`` (``repro_torch.obs.Tracer``)
+    gets one span per stratum (its outcome, host wall, and on the card the
+    device time between two CUDA events), closed after the stratum's host
+    read of its live count.  ``tracer=None`` (the default) leaves every
+    stratum exactly as it is: no event, no extra synchronisation.
+
+    :meth:`run_resilient` runs the same strata through the fault-tolerant
+    driver of ``runtime/recovery.py``.
+
+    ``backend="shard_map"`` is the torch.distributed backend of ROADMAP
+    slice 3 and raises.
     """
 
     snapshot: PartitionSnapshot
@@ -153,14 +171,18 @@ class ShardedExecutor:
     ladder_factor: int = 4         # capacity ratio between adjacent rungs
     ladder_src_floor: int = 64     # smallest useful src budget
     ladder_edge_floor: int = 256   # smallest useful edge/seg budget
-    route_strategy: str = "sort"   # "sort" | "scatter" | "auto"
+    route_strategy: str = "sort"   # "sort" | "scatter" | "auto" | "measured"
     route_scatter_weight: float = 0.4  # auto model: relative cost of one
     #                                scatter/slab element vs one sort
     #                                compare·log₂C unit (the reference's
     #                                calibration, kept so rungs pick the
     #                                same routes)
     use_kernels: bool = True
-    tracer: Optional[object] = dataclasses.field(default=None, compare=False)
+    tracer: Optional[object] = dataclasses.field(
+        default=None, compare=False)   # repro_torch.obs.Tracer (None = off)
+    route_table: Optional[object] = dataclasses.field(
+        default=None, compare=False)   # obs.calibrate.RouteCostTable for
+    #                                    route_strategy="measured"
 
     # ------------------------------------------------------------------
     # Density ladder.
@@ -197,17 +219,22 @@ class ShardedExecutor:
     # Rehash strategy selection (per capacity rung).
     # ------------------------------------------------------------------
     def pick_route_strategy(self, edge_capacity: int,
-                            combiner: Optional[str]) -> str:
+                            combiner: Optional[str], device=None) -> str:
         """Physical combine-route implementation for a rung whose routed
-        buffer holds ``edge_capacity`` slots."""
-        if self.route_strategy == "measured":
-            raise NotImplementedError(
-                "route_strategy='measured' needs the measured route table "
-                "of the observability port (ROADMAP queue 1, slice 4)")
-        if self.route_strategy not in ("sort", "scatter", "auto"):
+        buffer holds ``edge_capacity`` slots, on ``device`` (which
+        "measured" holds its table's backend to)."""
+        if self.route_strategy not in ("sort", "scatter", "auto",
+                                       "measured"):
             raise ValueError(self.route_strategy)
         if combiner is None:
             return "sort"
+        if self.route_strategy == "measured":
+            if self.route_table is None:
+                raise ValueError(
+                    "route_strategy='measured' needs a route_table: build "
+                    "one with repro_torch.obs.calibrate."
+                    "calibrate_executor_table(executor, algo)")
+            return self.route_table.pick(edge_capacity, device=device)
         if self.route_strategy != "auto":
             return self.route_strategy
         slab = self.snapshot.padded_keys
@@ -305,9 +332,6 @@ class ShardedExecutor:
                 "ROADMAP queue 1, slice 3")
         if self.backend != "simulated":
             raise ValueError(self.backend)
-        if self.tracer is not None:
-            raise NotImplementedError(
-                "tracing is ROADMAP queue 1, slice 4 (observability)")
 
     def run(self, algo: DeltaAlgorithm, state0, live0, immutable,
             max_iters: int, mode: str = "delta",
@@ -317,7 +341,12 @@ class ShardedExecutor:
             raise ValueError(mode)
         stratum_fn = self.make_stratum_fn(algo, immutable, mode,
                                           explicit_cond)
-        return run_strata(stratum_fn, state0, live0, max_iters)
+        if self.tracer is not None:
+            # Anchor the timeline here, so the first span excludes host
+            # setup.
+            self.tracer.mark_shards(self.snapshot.num_shards)
+        return run_strata(stratum_fn, state0, live0, max_iters,
+                          tracer=self.tracer)
 
     def live_count(self, algo: DeltaAlgorithm, state, immutable
                    ) -> torch.Tensor:
@@ -347,10 +376,50 @@ class ShardedExecutor:
             fn = with_explicit_condition(fn, explicit_cond)
         return fn
 
-    def run_resilient(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_resilient is the fault-tolerance port, ROADMAP queue 1, "
-            "slice 5")
+    # ------------------------------------------------------------------
+    # Fault-tolerant elastic execution (runtime/recovery.py driver).
+    # ------------------------------------------------------------------
+    def run_resilient(self, algo: DeltaAlgorithm, state0, live0, immutable,
+                      max_iters: int, mode: str = "delta",
+                      explicit_cond: Optional[Callable] = None, *,
+                      ckpt_root: str, fault_plan=None, policy=None,
+                      latency_model=None, remake=None, metrics=None,
+                      retry=None, budget=None, tracer=None):
+        """``run`` with fault tolerance and elasticity: stratum-sliced
+        execution that keeps a per-stratum replica chain of changed-entry
+        deltas (paper §4.1), rebuilds a failed shard from replicas and
+        resumes warm, migrates state and in-flight route buffers to a
+        fresh partition snapshot on rescale, and speculatively re-issues
+        straggling shards against their replica.
+
+        A failure-free resilient run equals :meth:`run`, stats included.
+        Returns a ``runtime.recovery.ResilientResult``; ``metrics``
+        carries the Fig 12 work/byte accounting and every recovery event.
+        See :class:`repro_torch.runtime.recovery.ResilientDriver`.
+
+        ``ckpt_root`` must be a dedicated directory: the replica chain
+        owns it and DELETES any existing contents at query start.
+        """
+        from repro_torch.runtime.recovery import ResilientDriver
+        driver = ResilientDriver(
+            self, algo, state0, live0, immutable, max_iters, mode=mode,
+            explicit_cond=explicit_cond, ckpt_root=ckpt_root,
+            fault_plan=fault_plan, policy=policy,
+            latency_model=latency_model, remake=remake, metrics=metrics,
+            retry=retry, budget=budget, tracer=tracer)
+        return driver.run()
+
+    def resume_resilient(self, algo: DeltaAlgorithm, warm_state, immutable,
+                         max_iters: int, mode: str = "delta",
+                         explicit_cond: Optional[Callable] = None,
+                         **resilient_kw):
+        """:meth:`resume` (warm re-entry, Δ₀ from ``active_fn``) through
+        the fault-tolerant driver."""
+        live0 = self.live_count(algo, warm_state, immutable)
+        return self.run_resilient(algo, warm_state, live0, immutable,
+                                  max_iters, mode=mode,
+                                  explicit_cond=explicit_cond,
+                                  **resilient_kw)
 
     # ---- simulated backend ------------------------------------------------
     def _stratum_simulated(self, algo: DeltaAlgorithm, immutable, mode):
@@ -358,6 +427,8 @@ class ShardedExecutor:
         tiers = self.capacity_tiers(algo)
         shards = range(S)
         imm = [_take(immutable, s) for s in shards]
+        tracer = self.tracer
+        device = _device_of(immutable)
         # Sender-side combiner (§5.2) fused into the route.
         combiner = (algo.combiner
                     if algo.combiner in ("add", "min", "max") else None)
@@ -370,7 +441,7 @@ class ShardedExecutor:
 
         def make_sparse_body(tier: CapacityTier, tier_idx: int):
             emit_fn = self._emit_fn(algo, tier)
-            strategy = self.pick_route_strategy(tier.edge, combiner)
+            strategy = self.pick_route_strategy(tier.edge, combiner, device)
             route_code = ROUTE_SCATTER if strategy == "scatter" \
                 else ROUTE_SORT
 
@@ -394,8 +465,12 @@ class ShardedExecutor:
 
             return sparse_body
 
+        dense_emit = (algo.nodelta_dense_emit if mode == "nodelta"
+                      and algo.nodelta_dense_emit is not None
+                      else algo.dense_emit)
+
         def dense_body(state, stratum, active):
-            parts = [algo.dense_emit(_take(state, s), imm[s], stratum, s)
+            parts = [dense_emit(_take(state, s), imm[s], stratum, s)
                      for s in shards]
             partial = _stack([p[0] for p in parts])
             contrib = torch.stack([p[1] for p in parts])
@@ -433,7 +508,27 @@ class ShardedExecutor:
                 return dense_body(state, stratum_idx, active)
             return bodies[branch](state, stratum_idx, active)
 
-        return stratum
+        if tracer is None:
+            return stratum
+
+        def traced(state, stratum_idx):
+            tracer.stratum_begin(device)
+            new_state, outcome = stratum(state, stratum_idx)
+            tracer.stratum_probe(stratum_idx, outcome)
+            return new_state, outcome
+
+        return traced
+
+
+def _device_of(tree) -> torch.device:
+    """The device of the first tensor in ``tree``."""
+    if torch.is_tensor(tree):
+        return tree.device
+    parts = (tree if isinstance(tree, tuple) else
+             [getattr(tree, f.name) for f in dataclasses.fields(tree)])
+    return _device_of(next(p for p in parts
+                           if torch.is_tensor(p) or isinstance(p, tuple)
+                           or dataclasses.is_dataclass(p)))
 
 
 def _f32(x) -> float:

@@ -75,8 +75,8 @@ def empty_stats(max_iters: int) -> StratumStats:
     return stats_from_outcomes([], max_iters)
 
 
-def run_strata(stratum_fn: Callable, state0, live0, max_iters: int
-               ) -> FixpointResult:
+def run_strata(stratum_fn: Callable, state0, live0, max_iters: int,
+               tracer=None) -> FixpointResult:
     """Run ``stratum_fn`` until no live deltas remain or ``max_iters``.
 
     stratum_fn(state, stratum) -> (state', StratumOutcome)
@@ -84,6 +84,10 @@ def run_strata(stratum_fn: Callable, state0, live0, max_iters: int
         application.  Outcome fields are globally reduced.
     live0
         Globally reduced initial live count (size of Δ₀).
+    tracer
+        Optional ``repro_torch.obs.Tracer``: the stratum spans the engine
+        opened are closed after each stratum's host read, and a
+        fixpoint-complete marker follows the loop.  None records nothing.
     """
     state, live, outcomes = state0, int(live0), []
     while len(outcomes) < max_iters and live > 0:
@@ -91,8 +95,12 @@ def run_strata(stratum_fn: Callable, state0, live0, max_iters: int
         # One host read per stratum: the outcome's device scalars.
         outcome = StratumOutcome(*(v.item() if torch.is_tensor(v) else v
                                    for v in outcome))
+        if tracer is not None:
+            tracer.resolve()
         outcomes.append(outcome)
         live = int(outcome.live_count)
+    if tracer is not None:
+        tracer.fixpoint_probe(len(outcomes), max_iters)
     return FixpointResult(state=state,
                           stats=stats_from_outcomes(outcomes, max_iters))
 

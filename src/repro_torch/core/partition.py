@@ -65,11 +65,25 @@ class PartitionSnapshot:
         return [(shard + r) % self.num_shards
                 for r in range(1, min(self.replication, self.num_shards))]
 
+    def global_keys(self, shard, local_idx):
+        """Inverse of (owner_of, local_index) for in-range local indices:
+        how replica-chain entries (kept per shard, indexed locally) are
+        re-keyed to the GLOBAL key space so they can be re-routed under
+        another snapshot (elastic migration).  Block scheme only: the hash
+        scheme's owner is not invertible from (shard, local)."""
+        if self.scheme != "block":
+            raise ValueError("global_keys requires the block scheme")
+        return shard * self.block_size + local_idx
+
     def shard_slice(self, shard: int) -> slice:
         """Dense key range owned by ``shard`` (block scheme only)."""
         if self.scheme != "block":
             raise ValueError("shard_slice requires the block scheme")
         return slice(shard * self.block_size, (shard + 1) * self.block_size)
+
+    def resnapshot(self, num_shards: int) -> "PartitionSnapshot":
+        """New snapshot after the node set changes (elastic / recovery)."""
+        return dataclasses.replace(self, num_shards=num_shards)
 
 
 def shard_dense_state(snapshot: PartitionSnapshot, state: torch.Tensor

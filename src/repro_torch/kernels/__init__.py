@@ -14,9 +14,12 @@ source under ``csrc/``:
   kmeans_assign   nearest centroid per point (thread per point; centroids
                   in constant memory at D = 2, K <= 32, else in shared
                   memory)
-  flash_attention blocked online-softmax attention, GQA, causal or not
-                  (block per query tile, K/V tiles in shared memory, float32
-                  FMA)
+  flash_attention blocked online-softmax attention, GQA, causal or not,
+                  two kernels: bf16 at D = 128 on the tensor cores
+                  (``wgmma``, K/V tiles loaded by TMA;
+                  ``flash_attention_bf16.cu``), and float32 FMA at D in
+                  {16, 32, 64, 128} (block per query tile, K/V tiles in
+                  shared memory; ``flash_attention.cu``)
 
 ``csrc/common.cuh`` holds what several sources share: the integer-punned
 float min/max atomics, the block scan and the segment clearing.

@@ -6,7 +6,10 @@ only the port, so it also runs where the reference's JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Integer outputs and min/max results must match exactly; float adds land
-in atomic order, so add results are within 1e-5 relative.  kmeans_assign's
+in atomic order, so add results are within 1e-5 relative (scatter_route
+and delta_scatter also at adsorption's width, W = 4).  Adsorption on the
+card lands within 5e-3 of the CPU's torch-op path; a resilient SSSP with
+one failure, and a traced SSSP, equal the plain run exactly.  kmeans_assign's
 d² may differ from the plain version's product by rounding, so an
 assignment may differ only where the plain version's best two d² lie
 within 4 ulp of |p|² + |c|².  The float32 flash_attention kernel is
@@ -65,7 +68,7 @@ def t(x, device):
 
 
 @pytest.mark.parametrize("combiner,w", [("add", 1), ("min", 1),
-                                        ("max", 1), ("min", 3)])
+                                        ("max", 1), ("min", 3), ("add", 4)])
 def test_scatter_route(cuda, combiner, w):
     rng = np.random.default_rng(0)
     S, B, cap, c = 8, 5000, 3000, 200_000
@@ -255,6 +258,20 @@ def test_delta_scatter(cuda, combiner):
         assert torch.equal(got, ref)
 
 
+def test_delta_scatter_add_at_width_4(cuda):
+    """Adsorption's apply: add at W = L = 4."""
+    rng = np.random.default_rng(3)
+    n, c, w = 100_000, 400_000, 4
+    state = t(rng.normal(size=(n, w)).astype(np.float32), cuda)
+    idx = t(rng.integers(-1, n + 5, size=c).astype(np.int32), cuda)
+    pay = t(rng.normal(size=(c, w)).astype(np.float32), cuda)
+    before = ds_ops.launches
+    got = t_ds.delta_scatter(state, idx, pay, "add")
+    ref = t_ds.delta_scatter_ref(state, idx, pay, "add")
+    assert ds_ops.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("combiner", ["add", "min", "max"])
 def test_edge_propagate(cuda, combiner):
     n = 50_000
@@ -404,6 +421,82 @@ def test_min_algorithms_on_card_equal_cpu(cuda, algo, mode, route):
                 ("delta", "sort"): [False, True, True, used_dense],
                 ("nodelta", "sort"): [False, False, False, True]}
     assert ran == expected[(mode, route)]
+
+
+@pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),
+                                        ("nodelta", "sort")])
+def test_adsorption_on_card_matches_cpu(cuda, mode, route):
+    """Adsorption (L = 4) through the kernels at W = 4 lands within the
+    threshold of the torch-op path on the CPU."""
+    from repro_torch.algorithms import adsorption
+    n, S, L = 4096, 4, 4
+    indptr, indices = make_powerlaw_graph(n, avg_degree=8.0, seed=0)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    seeds = torch.zeros((snap.padded_keys, L))
+    v = torch.arange(0, n, 10)
+    seeds[v, (v // 10) % L] = 1.0
+    kw = dict(mode=mode, threshold=1e-5, max_iters=120, edge_capacity=8192,
+              src_capacity=1024, ladder_tiers=4, route_strategy=route)
+    counts = (sr_ops.launches, dr_ops.launches, ds_ops.launches)
+    v_gpu, _ = adsorption.run(shard_csr(indptr, indices, S, device=cuda),
+                              snap, seeds, device=cuda, **kw)
+    v_cpu, _ = adsorption.run(shard_csr(indptr, indices, S, device="cpu"),
+                              snap, seeds, device="cpu", use_kernels=False,
+                              **kw)
+    assert v_gpu.shape == (snap.padded_keys, L)
+    assert float((v_gpu.cpu() - v_cpu).abs().max()) < 5e-3
+    ran = [a > b for a, b in zip((sr_ops.launches, dr_ops.launches,
+                                  ds_ops.launches), counts)]
+    assert ran == {("delta", "auto"): [True, False, True],
+                   ("delta", "sort"): [False, True, True],
+                   ("nodelta", "sort"): [False, False, False]}[(mode, route)]
+
+
+def _sssp_setup(device, n=4096, S=4, **kw):
+    from repro_torch.core.engine import ShardedExecutor
+    indptr, indices = make_powerlaw_graph(n, avg_degree=14.5, alpha=2.1,
+                                          seed=0)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    ex = ShardedExecutor(snapshot=snap, seg_capacity=8192,
+                         edge_capacity=8192, src_capacity=1024,
+                         ladder_tiers=4, route_strategy="auto", **kw)
+    algo = sssp.make_algorithm(snap, 1024, 8192)
+    return (ex, algo, sssp.initial_state(snap, 0, device),
+            shard_csr(indptr, indices, S, device=device))
+
+
+def test_resilient_sssp_on_card_recovers_exactly(cuda, tmp_path):
+    """One shard lost mid-run: incremental recovery on the card lands
+    exactly on the failure-free run (min is order-free)."""
+    from repro_torch.runtime import FaultPlan
+    ex, algo, st0, g = _sssp_setup(cuda)
+    ref = ex.run(algo, st0, 1, g, 80)
+    half = max(int(ref.stats.iterations) // 2, 1)
+    rr = ex.run_resilient(algo, st0, 1, g, 80, ckpt_root=str(tmp_path),
+                          fault_plan=FaultPlan(fail_at=half, failed_shard=1))
+    assert rr.metrics["converged"] and rr.metrics["recoveries"] == 1
+    assert all(x.is_cuda for x in rr.result.state)
+    for a, b in zip(ref.state, rr.result.state):
+        assert torch.equal(a, b)
+    assert torch.equal(ref.stats.delta_counts, rr.result.stats.delta_counts)
+
+
+def test_traced_sssp_on_card_equals_untraced(cuda):
+    """A tracer changes nothing on the card, and its spans carry the
+    strata's device time."""
+    from repro_torch.obs import Tracer
+    ex, algo, st0, g = _sssp_setup(cuda)
+    ref = ex.run(algo, st0, 1, g, 80)
+    tr = Tracer()
+    tex, _, _, _ = _sssp_setup(cuda, tracer=tr)
+    res = tex.run(algo, st0, 1, g, 80)
+    for a, b in zip(ref.state, res.state):
+        assert torch.equal(a, b)
+    for f in ref.stats._fields:
+        assert torch.equal(getattr(ref.stats, f), getattr(res.stats, f))
+    spans = [e for e in tr.events if e["name"].startswith("stratum")]
+    assert len(spans) == int(ref.stats.iterations)
+    assert all(0 < e["args"]["device_s"] for e in spans)
 
 
 @pytest.mark.parametrize("mode", ["delta", "nodelta"])

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
-A subprocess imports ``repro_torch`` and runs a tiny PageRank on the CPU,
-then reports which modules were loaded; a source scan finds no import of
+A subprocess imports ``repro_torch`` (observability and runtime included)
+and runs a tiny PageRank, a traced resilient PageRank with one failure and
+adsorption on the CPU, then reports which modules were loaded; a source scan finds no import of
 ``jax`` or ``repro``; the entry points refuse to fall back to the CPU when
 no device is named and CUDA is missing.
 """
@@ -26,6 +27,10 @@ from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import load_dataset, make_powerlaw_graph, shard_csr
 import repro_torch.convert
 import repro_torch.kernels._build
+import repro_torch.algorithms.adsorption
+import repro_torch.obs
+import repro_torch.runtime
+import repro_torch.runtime.chaos
 import repro_torch.launch.serve
 import repro_torch.models.transformer
 import repro_torch.serve.serve_step
@@ -42,8 +47,28 @@ cfg = get_arch("llama3-8b").reduced()
 lm = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 toks = repro_torch.serve.serve_step.generate(
     cfg, lm, torch.zeros((1, 4), dtype=torch.int32), 2, 6)
+import tempfile
+from repro_torch.obs import Tracer
+from repro_torch.runtime import FaultPlan
+from repro_torch.core.engine import ShardedExecutor
+from repro_torch.algorithms import adsorption
+ex = ShardedExecutor(snapshot=snap, seg_capacity=512, edge_capacity=512,
+                     src_capacity=128, ladder_tiers=2, tracer=Tracer())
+algo = pagerank.make_algorithm(snap, src_capacity=128, edge_capacity=512)
+with tempfile.TemporaryDirectory() as td:
+    rr = ex.run_resilient(algo, pagerank.initial_state(snap, "cpu"), 256,
+                          shard_csr(indptr, indices, 2, device="cpu"), 5,
+                          ckpt_root=td,
+                          fault_plan=FaultPlan(fail_at=2, failed_shard=1))
+seeds = torch.zeros((256, 4))
+seeds[::10, 0] = 1.0
+vec, _ = adsorption.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
+                        seeds, device="cpu", max_iters=3, edge_capacity=512,
+                        src_capacity=128)
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
-                  "lm": list(toks.shape)}))
+                  "lm": list(toks.shape),
+                  "resilient": rr.metrics["recoveries"],
+                  "adsorption": list(vec.shape)}))
 """
 
 
@@ -55,6 +80,8 @@ def test_import_and_run_load_no_jax_or_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["iters"] == 5
     assert got["lm"] == [1, 6]
+    assert got["resilient"] == 1
+    assert got["adsorption"] == [256, 4]
     bad = [m for m in got["mods"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
            or m in ("repro", "ml_dtypes")]
@@ -76,13 +103,15 @@ def test_sources_import_neither_jax_nor_reference():
 def test_entry_points_need_cuda_unless_told_otherwise():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
-    from repro_torch.algorithms import pagerank
+    from repro_torch.algorithms import adsorption, pagerank
     from repro_torch.configs import get_arch
     from repro_torch.core.partition import PartitionSnapshot
     from repro_torch.data import graphs
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch import serve
     from repro_torch.models import transformer
+    from repro_torch.obs import calibrate_route_table
+    from repro_torch.runtime import chaos
     snap = PartitionSnapshot(n_keys=64, num_shards=2)
     indptr, indices = graphs.make_powerlaw_graph(64, 4.0, seed=0)
     g = graphs.shard_csr(indptr, indices, 2, device="cpu")
@@ -93,7 +122,11 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                  lambda: transformer.init_cache(
                      get_arch("olmo-1b").reduced(), 1, 4),
                  lambda: TokenPipeline(256, 8, 1).batch_at(0),
-                 lambda: serve.main(["--reduced"])):
+                 lambda: serve.main(["--reduced"]),
+                 lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
+                 lambda: adsorption.initial_state(snap, torch.zeros(64, 4)),
+                 lambda: calibrate_route_table(snap, [64]),
+                 lambda: chaos.main(["--quick", "--nodes", "64"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -152,16 +152,25 @@ def test_stats_helpers_match_reference():
 
 
 @pytest.mark.parametrize("kw,call", [
-    (dict(backend="shard_map"), "run"), (dict(tracer=object()), "run"),
-    (dict(route_strategy="measured"), "run"), ({}, "run_resilient")])
-def test_unported_paths_raise(setup, kw, call):
+    (dict(backend="shard_map"), "run"),
+    (dict(backend="shard_map", tracer="tracer"), "run"),
+    (dict(backend="shard_map", route_strategy="measured"), "run"),
+    (dict(backend="shard_map"), "run_resilient")])
+def test_unported_paths_raise(setup, kw, call, tmp_path):
+    """The shard_map backend (slice 3) raises on every entry path: plain,
+    traced, measured routing and resilient."""
+    from repro_torch.obs import Tracer
     snap = setup["snap"]
+    if kw.get("tracer"):
+        kw = dict(kw, tracer=Tracer())
     ex = ShardedExecutor(snapshot=snap, seg_capacity=2048, edge_capacity=2048,
                          src_capacity=256, **kw)
     algo = TP.make_algorithm(snap)
-    with pytest.raises(NotImplementedError, match="slice"):
+    extra = ({"ckpt_root": str(tmp_path / "c")} if call == "run_resilient"
+             else {})
+    with pytest.raises(NotImplementedError, match="slice 3"):
         getattr(ex, call)(algo, TP.initial_state(snap, "cpu"), 1,
-                          setup["tg"], 2)
+                          setup["tg"], 2, **extra)
 
 
 def test_types_are_pinned(setup):
