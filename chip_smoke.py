@@ -88,7 +88,11 @@ operations at 67 TFLOP/s, bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
 scatter_route and delta_scatter are also held at W = 4, at the first
-stratum of ``adsorption_auto`` on its widest rung.
+stratum of ``adsorption_auto`` on its widest rung.  delta_scatter's rows
+take a shard's incoming buffer as the algorithms pass it (global keys,
+``key_base`` = the shard's first key); a line beside each times
+``to_local_keys`` followed by the kernel on the local keys against that
+single launch.
 The kernel, its plain version and, where one torch call computes the same
 function, that call are timed (CUDA events around at least 5 calls, or 2
 for the slowest plain versions, and at least 20 ms).  Each phase runs
@@ -324,10 +328,12 @@ def row(name, combiner, err, ms, plain_ms, b, library_ms, shape,
     """One kernel check.  ``combiner`` groups the phases whose launches
     the row reports: a combiner, an LM phase's name or a tuple of them
     (None: every phase); ``label`` names the row when it is not the
-    kernel's name with its combiner."""
+    kernel's name with its combiner.  ``seq_ms``, set by a builder, is
+    printed on a line beside the row."""
     return dict(name=name, combiner=combiner, err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                library_ms=library_ms, shape=shape, label=label)
+                library_ms=library_ms, shape=shape, label=label,
+                seq_ms=None)
 
 
 def row_name(r) -> str:
@@ -348,6 +354,10 @@ def print_rows(rows) -> None:
               f"max_abs_err {r['err']:.3e} kernel {r['ms']:.3f} ms plain "
               f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) library {lib}", flush=True)
+        if r["seq_ms"] is not None:
+            print(f"kernel {name}: to_local_keys + kernel on local keys "
+                  f"{r['seq_ms']:.3f} ms, single launch on global keys "
+                  f"{r['ms']:.3f} ms", flush=True)
 
 
 def scatter_route_row(out, snap, seg, combiner, group=None, label=None):
@@ -402,22 +412,29 @@ def delta_route_row(out, snap, seg, group, label):
                label=label)
 
 
-def delta_scatter_row(state, idx, pay, combiner, group=None, label=None):
-    """delta_scatter of one shard's incoming deltas into ``state``;
-    ``group`` as in :func:`scatter_route_row`."""
+def delta_scatter_row(state, db, shard, combiner, group=None, label=None):
+    """delta_scatter of shard ``shard``'s incoming buffer ``db`` into
+    ``state``, as the path calls it: the buffer's global keys and
+    ``key_base = shard * N``; ``group`` as in :func:`scatter_route_row`.
+    Also times ``to_local_keys`` followed by the kernel on the local keys
+    (``seq_ms``): what the single launch saves."""
     import torch
+    from repro_torch.algorithms import emission
     from repro_torch.kernels import delta_scatter as ds
     B, W = state.shape
-    got = ds.delta_scatter(state, idx, pay, combiner)
-    ref = ds.delta_scatter_ref(state, idx, pay, combiner)
+    keys, pay = db.keys.contiguous(), db.payload.contiguous()
+    base = shard * B
+    got = ds.delta_scatter(state, keys, pay, combiner, base)
+    ref = ds.delta_scatter_ref(state, keys, pay, combiner, base)
     err = compare(f"delta_scatter/{combiner}", [got], [ref],
                   float_idx=(0,) if combiner == "add" else ())
-    # Every index is read; the payload only where it is in range; the
+    # Every key is read; the payload only where its row is in range; the
     # state is read and written once.
-    in_range = (idx >= 0) & (idx < B)
+    local = emission.to_local_keys(db, shard, B)
+    in_range = (local >= 0) & (local < B)
     live = int(in_range.sum())
-    b = bound(nbytes(idx) + live * 4 * W + 2 * nbytes(state), live * W)
-    lib_idx = torch.where(in_range, idx, B).long()
+    b = bound(nbytes(keys) + live * 4 * W + 2 * nbytes(state), live * W)
+    lib_idx = torch.where(in_range, local, B).long()
     if combiner == "add":
         lib = lambda: torch.zeros((B + 1, W), device=state.device).index_add_(
             0, lib_idx, pay)
@@ -426,12 +443,18 @@ def delta_scatter_row(state, idx, pay, combiner, group=None, label=None):
         lib = lambda: torch.full((B + 1, W), fill, device=state.device
                                  ).scatter_reduce_(
             0, lib_idx[:, None].expand(-1, W), pay, "a" + combiner)
-    return row("delta_scatter", group or combiner, err,
-               time_ms(lambda: ds.delta_scatter(state, idx, pay, combiner)),
-               time_ms(lambda: ds.delta_scatter_ref(state, idx, pay,
-                                                    combiner)),
-               b, time_ms(lib), f"N={B} C={idx.numel()} live={live} W={W}",
-               label=label)
+    seq = lambda: ds.delta_scatter(
+        state, emission.to_local_keys(db, shard, B).contiguous(), pay,
+        combiner)
+    r = row("delta_scatter", group or combiner, err,
+            time_ms(lambda: ds.delta_scatter(state, keys, pay, combiner,
+                                             base)),
+            time_ms(lambda: ds.delta_scatter_ref(state, keys, pay, combiner,
+                                                 base)),
+            b, time_ms(lib), f"N={B} C={keys.numel()} live={live} W={W} "
+                             f"key_base={base}", label=label)
+    r["seq_ms"] = time_ms(seq)
+    return r
 
 
 def edge_propagate_bins(csc, label) -> None:
@@ -521,8 +544,7 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     """Each PageRank kernel against its plain version at the first
     stratum's inputs (the first dense stratum for edge_propagate)."""
     import torch
-    from repro_torch.algorithms import emission, pagerank
-    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.algorithms import pagerank
     from repro_torch.core.engine import _stack, _take
 
     S, B = snap.num_shards, snap.block_size
@@ -542,12 +564,10 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
                                              "scatter")
     del parts, out0
     in0 = _take(incoming, 0)
-    idx = emission.to_local_keys(in0, 0, B).contiguous()
-    pay = in0.payload.contiguous()
-    del incoming, in0
+    del incoming
     rows.append(delta_scatter_row(
-        torch.zeros((B, 1), device=graph.device), idx, pay, "add"))
-    del idx, pay
+        torch.zeros((B, 1), device=graph.device), in0, 0, "add"))
+    del in0
 
     # edge_propagate: shard 0's dense stratum from the initial state.
     csc = shard0_csc(graph, snap)
@@ -597,11 +617,11 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     first stratum, where every payload but the source's is inf, and held
     also at that widest stratum's, where most are finite."""
     import torch
-    from repro_torch.algorithms import emission, sssp
+    from repro_torch.algorithms import sssp
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _stack, _take
 
-    S, B = snap.num_shards, snap.block_size
+    S = snap.num_shards
     state, parts, at, src = widest_stratum(
         ex, algo, graph, sssp.initial_state(snap, 0, graph.device), stats,
         "sssp min", busiest=True)
@@ -614,13 +634,11 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
                                           .sum()))
     in_s = _take(incoming, dst)
-    idx = emission.to_local_keys(in_s, dst, B).contiguous()
-    pay = in_s.payload.contiguous()
     dist = state.dist[dst][:, None].contiguous()
     mid = state.dist[0]
-    del incoming, in_s, state
-    rows.append(delta_scatter_row(dist, idx, pay, "min"))
-    del idx, pay, dist
+    del incoming, state
+    rows.append(delta_scatter_row(dist, in_s, dst, "min"))
+    del in_s, dist
 
     d0 = sssp.initial_state(snap, 0, graph.device).dist[0]
     print(f"edge_propagate min: finite payloads {int(torch.isfinite(d0).sum())}"
@@ -1256,7 +1274,7 @@ def adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats):
     phase to its run's stats."""
     import dataclasses
     import torch
-    from repro_torch.algorithms import adsorption, emission
+    from repro_torch.algorithms import adsorption
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _stack, _take
 
@@ -1274,13 +1292,11 @@ def adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats):
     dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
                                           .sum()))
     in_s = _take(incoming, dst)
-    idx = emission.to_local_keys(in_s, dst, B).contiguous()
-    pay = in_s.payload.contiguous()
-    del incoming, in_s
+    del incoming
     rows.append(delta_scatter_row(
-        torch.zeros((B, ADS_LABELS), device=graph.device), idx, pay, "add",
+        torch.zeros((B, ADS_LABELS), device=graph.device), in_s, dst, "add",
         ADS_GROUP, f"delta_scatter/add_w{ADS_LABELS}"))
-    del idx, pay
+    del in_s
 
     # delta_route on adsorption_sort's own run.
     sort = dataclasses.replace(ex, route_strategy="sort")

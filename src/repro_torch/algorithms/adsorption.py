@@ -11,7 +11,8 @@ they last propagated.  Payloads are W = L columns; everything else is the
 PageRank pattern with vector deltas.
 
 With ``use_kernels`` the sparse apply folds through ``kernels/delta_scatter``
-(add at W = L); the engine's routes reach ``kernels/scatter_route`` and
+(add at W = L), which takes the incoming buffer's global keys and the
+shard's first key; the engine's routes reach ``kernels/scatter_route`` and
 ``kernels/delta_route`` at the same width.  The dense body is its own
 scatter over the edges, as in the reference (no kernel).
 """
@@ -99,10 +100,10 @@ def make_algorithm(snapshot: PartitionSnapshot, n_labels: int,
                      graph: CSRGraph, stratum, shard_id):
         if use_kernels:
             from repro_torch.kernels.delta_scatter import delta_scatter
-            local = emission.to_local_keys(incoming, shard_id, block)
             inc = delta_scatter(state.acc.new_zeros(state.acc.shape),
-                                local.contiguous(),
-                                incoming.payload.contiguous())
+                                incoming.keys.contiguous(),
+                                incoming.payload.contiguous(),
+                                key_base=shard_id * block)
         else:
             inc = emission.scatter_local_vec(incoming, shard_id, block)
         new_state = AdsorptionState(state.acc + inc, state.sent, state.seed)

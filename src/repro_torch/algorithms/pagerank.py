@@ -10,7 +10,8 @@ records ``sent ← pr``.  Receivers fold the adjustment deltas into ``acc``.
 The no-delta mode re-derives every vertex's full contribution each stratum
 (contributions are *replaced*, not adjusted).
 
-With ``use_kernels`` the sparse apply goes through ``kernels/delta_scatter``
+With ``use_kernels`` the sparse apply goes through ``kernels/delta_scatter``,
+which takes the incoming buffer's global keys and the shard's first key,
 and the dense body through ``kernels/edge_propagate`` (over a ragged CSC
 built once per shard); otherwise the torch-op functions of ``emission.py``
 run.
@@ -102,11 +103,11 @@ def make_algorithm(snapshot: PartitionSnapshot, threshold: float = 1e-3,
         # order of operations, so sums round the same way.
         if use_kernels:
             from repro_torch.kernels.delta_scatter import delta_scatter
-            local = emission.to_local_keys(incoming, shard_id, block)
             zero = torch.zeros((block, 1), dtype=state.acc.dtype,
                                device=state.acc.device)
-            inc = delta_scatter(zero, local.contiguous(),
-                                incoming.payload.contiguous())[:, 0]
+            inc = delta_scatter(zero, incoming.keys.contiguous(),
+                                incoming.payload.contiguous(),
+                                key_base=shard_id * block)[:, 0]
         else:
             inc = emission.scatter_local(incoming, shard_id, block, "add")
         new_state = PRState(acc=state.acc + inc, sent=state.sent)

@@ -9,7 +9,8 @@ emits ``dist+1`` to each out-neighbor; receivers fold with a min-combiner.
 No-delta re-relaxes every settled vertex each stratum.
 
 With ``use_kernels`` the sparse apply folds through ``kernels/delta_scatter``
-(min) and the dense body through ``kernels/edge_propagate`` (min, over a
+(min; it takes the incoming buffer's global keys and the shard's first
+key) and the dense body through ``kernels/edge_propagate`` (min, over a
 ragged CSC built once per shard); the engine's ``auto`` route reaches
 ``kernels/scatter_route`` with min.  Otherwise the torch-op functions of
 ``emission.py`` run.  Min is order-free, so both paths give equal values.
@@ -43,10 +44,10 @@ def min_fold(values: torch.Tensor, incoming: DeltaBuffer, shard_id: int,
     of one shard folded into f32[block] with the min combiner."""
     if use_kernels:
         from repro_torch.kernels.delta_scatter import delta_scatter
-        local = emission.to_local_keys(incoming, shard_id, block)
-        return delta_scatter(values[:, None].contiguous(), local.contiguous(),
-                             incoming.payload[:, :1].contiguous(),
-                             "min")[:, 0]
+        return delta_scatter(values[:, None].contiguous(),
+                             incoming.keys.contiguous(),
+                             incoming.payload[:, :1].contiguous(), "min",
+                             key_base=shard_id * block)[:, 0]
     return torch.minimum(values, emission.scatter_local(incoming, shard_id,
                                                         block, "min"))
 

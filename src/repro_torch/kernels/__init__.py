@@ -8,7 +8,9 @@ source under ``csrc/``:
   scatter_route   sort-free combine-route, add/min/max (slab + per-owner
                   scan)
   delta_route     stable per-owner bucketing (tile histograms + scan)
-  delta_scatter   delta buffer -> dense keyed state (atomics)
+  delta_scatter   delta buffer -> dense keyed state (global keys made
+                  local in the kernel; a thread per 4 deltas, keys read
+                  as int4, vector atomics at W = 2 and W % 4 == 0)
   edge_propagate  pull over a ragged destination-grouped CSC (rows binned
                   once: a thread per light row, a warp per heavy row)
   kmeans_assign   nearest centroid per point (thread per point; centroids

@@ -45,8 +45,9 @@ SIGNATURES = {
     # tile_hist, tile_off, out_keys, out_payload, out_ann, per_owner, stream
     "delta_route": [P, P, P, P, I64, I64, I64, I64,
                     P, P, P, P, P, P, P],
-    # out (state copy, updated in place), idx, payload, N, W, C, op, stream
-    "delta_scatter": [P, P, P, I64, I64, I64, I64, P],
+    # out (state copy, updated in place), keys, payload, N, W, C, key_base,
+    # op, stream
+    "delta_scatter": [P, P, P, I64, I64, I64, I64, I64, P],
     # payload, indptr, src, weight, heavy, n_dst, n_heavy, heavy_edges, op,
     # out, stream
     "edge_propagate": [P, P, P, P, P, I64, I64, I64, I64, P, P],

@@ -7,7 +7,8 @@ only the port, so it also runs where the reference's JAX is not installed:
 
 Integer outputs and min/max results must match exactly; float adds land
 in atomic order, so add results are within 1e-5 relative (scatter_route
-and delta_scatter also at adsorption's width, W = 4).  Adsorption on the
+also at adsorption's width, W = 4; delta_scatter at W = 1, 2, 3, 4 and 8,
+on global keys with a key base, and on unaligned views).  Adsorption on the
 card lands within 5e-3 of the CPU's torch-op path; a resilient SSSP with
 one failure, and a traced SSSP, equal the plain run exactly.  kmeans_assign's
 d² may differ from the plain version's product by rounding, so an
@@ -241,16 +242,12 @@ def test_delta_route(cuda):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("combiner", ["add", "min", "max"])
-def test_delta_scatter(cuda, combiner):
-    rng = np.random.default_rng(2)
-    n, c = 100_000, 400_000
-    state = t(rng.normal(size=(n, 1)).astype(np.float32), cuda)
-    idx = t(rng.integers(-1, n + 5, size=c).astype(np.int32), cuda)
-    pay = t(rng.normal(size=(c, 1)).astype(np.float32), cuda)
+def check_delta_scatter(state, keys, pay, combiner, key_base):
+    """One launch of the kernel, held to its plain version: min/max
+    exactly, add within 1e-5 relative."""
     before = ds_ops.launches
-    got = t_ds.delta_scatter(state, idx, pay, combiner)
-    ref = t_ds.delta_scatter_ref(state, idx, pay, combiner)
+    got = t_ds.delta_scatter(state, keys, pay, combiner, key_base)
+    ref = t_ds.delta_scatter_ref(state, keys, pay, combiner, key_base)
     assert ds_ops.launches == before + 1
     if combiner == "add":
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
@@ -258,18 +255,56 @@ def test_delta_scatter(cuda, combiner):
         assert torch.equal(got, ref)
 
 
-def test_delta_scatter_add_at_width_4(cuda):
-    """Adsorption's apply: add at W = L = 4."""
-    rng = np.random.default_rng(3)
-    n, c, w = 100_000, 400_000, 4
+@pytest.mark.parametrize("key_base", [0, 12_345])
+@pytest.mark.parametrize("combiner,w", [
+    ("add", 1), ("min", 1), ("max", 1), ("add", 2), ("add", 3), ("add", 4),
+    ("add", 8)])
+def test_delta_scatter(cuda, combiner, w, key_base):
+    """Global keys (PAD, other shards' keys, keys past the block) folded
+    at every width the kernel specialises: W = 1, 2 (float2 atomics), 3
+    (scalar), 4 and 8 (float4 atomics); adsorption's apply is W = 4."""
+    rng = np.random.default_rng(2 + w)
+    n, c = 100_000, 400_000
     state = t(rng.normal(size=(n, w)).astype(np.float32), cuda)
-    idx = t(rng.integers(-1, n + 5, size=c).astype(np.int32), cuda)
+    keys = t(rng.integers(-1, key_base + n + 5, size=c).astype(np.int32),
+             cuda)
     pay = t(rng.normal(size=(c, w)).astype(np.float32), cuda)
-    before = ds_ops.launches
-    got = t_ds.delta_scatter(state, idx, pay, "add")
-    ref = t_ds.delta_scatter_ref(state, idx, pay, "add")
-    assert ds_ops.launches == before + 1
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    check_delta_scatter(state, keys, pay, combiner, key_base)
+
+
+@pytest.mark.parametrize("case", ["keys_unaligned", "payload_unaligned",
+                                  "c_mod_4", "empty", "all_pad", "hot_row"])
+@pytest.mark.parametrize("combiner,w", [("add", 1), ("min", 1), ("add", 2),
+                                        ("add", 4)])
+def test_delta_scatter_edges(cuda, combiner, w, case):
+    """A keys view off the 16-byte grid (scalar head), a payload off it
+    (scalar loads), C % 4 != 0 (scalar tail), C = 0, a buffer of padding
+    only, and one row receiving 8 deltas."""
+    rng = np.random.default_rng(5)
+    n, c, base = 5000, 40_003 if case == "c_mod_4" else 40_000, 777
+    keys = rng.integers(-1, base + n + 5, size=c + 1).astype(np.int32)
+    pay = rng.normal(size=((c + 1) * w + 1,)).astype(np.float32)
+    if case == "all_pad":
+        keys[:] = -1
+    if case == "hot_row":
+        keys[:] = -1
+        keys[1:1 + 8 * 97:97] = base + 1234
+    keys_t = t(keys, cuda)
+    pay_t = t(pay, cuda)
+    keys_t = keys_t[1:] if case == "keys_unaligned" else keys_t[:c]
+    off = 1 if case == "payload_unaligned" else 0
+    pay_t = pay_t[off:off + c * w].view(c, w)
+    if case == "empty":
+        keys_t, pay_t = keys_t[:0], pay_t[:0]
+    if case == "keys_unaligned":
+        assert keys_t.data_ptr() % 16
+    if case == "payload_unaligned":
+        assert pay_t.data_ptr() % 8
+    state = t(rng.normal(size=(n, w)).astype(np.float32), cuda)
+    check_delta_scatter(state, keys_t, pay_t, combiner, base)
+    if case == "all_pad" or case == "empty":
+        assert torch.equal(t_ds.delta_scatter(state, keys_t, pay_t, combiner,
+                                              base), state)
 
 
 @pytest.mark.parametrize("combiner", ["add", "min", "max"])

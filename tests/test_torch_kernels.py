@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.algorithms.emission import to_local_keys as j_to_local_keys
 from repro.core.delta import ANN_ADJUST as J_ANN_ADJUST
 from repro.core.delta import DeltaBuffer as JDeltaBuffer
 from repro.core.delta import combine_route_scatter as j_combine_route_scatter
@@ -46,6 +47,8 @@ from repro.kernels.scatter_route.ref import \
     scatter_route_ref as j_scatter_route_ref
 
 from repro_torch import convert
+from repro_torch.algorithms.emission import fold as t_fold
+from repro_torch.algorithms.emission import to_local_keys as t_to_local_keys
 from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
@@ -264,6 +267,61 @@ class TestDeltaScatter:
         np.testing.assert_array_equal(
             t_ds.delta_scatter_ref(t(state), t(idx), t(pay),
                                    combiner).numpy(), out_t.numpy())
+
+    @pytest.mark.parametrize("w,combiner", [(1, "add"), (4, "add"),
+                                            (1, "min"), (1, "max")])
+    @pytest.mark.parametrize("shard", [0, 1, 3])
+    def test_key_base_vs_pallas_on_local_keys(self, w, combiner, shard):
+        """Global keys with ``key_base = shard * block`` against the
+        reference's kernel on keys made local by its ``to_local_keys``;
+        bit for bit against ``fold`` on the port's ``to_local_keys``."""
+        block, shards, c = 512, 4, 512
+        rng = np.random.default_rng(100 * shard + w)
+        # PAD, keys of every shard (below and above this block) and keys
+        # past the last shard.
+        keys = rng.integers(-1, shards * block + 7, size=c).astype(np.int32)
+        keys[:8] = [-1, 0, shard * block - 1, shard * block,
+                    (shard + 1) * block - 1, (shard + 1) * block,
+                    shards * block, -1]
+        state = rng.normal(size=(block, w)).astype(np.float32)
+        pay = rng.normal(size=(c, w)).astype(np.float32)
+        b = dict(keys=keys, payload=pay,
+                 ann=np.full(c, J_ANN_ADJUST, np.int8),
+                 count=np.int32(c), overflowed=np.bool_(False))
+        j_local = j_to_local_keys(_jdb(b), jnp.int32(shard), block)
+        out_j = j_delta_scatter(jnp.asarray(state), j_local, jnp.asarray(pay),
+                                combiner, tile_n=256, chunk=256,
+                                interpret=True)
+        plain = j_delta_scatter_ref(jnp.asarray(state), j_local,
+                                    jnp.asarray(pay), combiner)
+        got = t_ds.delta_scatter_ref(t(state), t(keys), t(pay), combiner,
+                                     key_base=shard * block)
+        local = t_to_local_keys(convert.to_torch(DeltaBuffer, b, "cpu"),
+                                shard, block)
+        np.testing.assert_array_equal(np.asarray(j_local), local.numpy())
+        np.testing.assert_array_equal(
+            t_fold(t(state), local, t(pay), combiner).numpy(), got.numpy())
+        np.testing.assert_array_equal(
+            t_ds.delta_scatter(t(state), t(keys), t(pay), combiner,
+                               key_base=shard * block).numpy(), got.numpy())
+        np.testing.assert_array_equal(np.asarray(plain), got.numpy())
+        if combiner == "add":
+            in_block = t(np.asarray(j_local))
+            terms = t_ds.delta_scatter_ref(torch.ones(block, w).double(),
+                                           in_block,
+                                           torch.ones(c, w).double())
+            abs_sum = t_ds.delta_scatter_ref(t(np.abs(state)).double(),
+                                             in_block,
+                                             t(np.abs(pay)).double())
+            assert_reordered_sum(got, out_j, terms, abs_sum)
+        else:
+            np.testing.assert_array_equal(np.asarray(out_j), got.numpy())
+
+    def test_negative_key_base_raises(self):
+        x = torch.zeros(4, dtype=torch.int32)
+        with pytest.raises(ValueError, match="key_base"):
+            t_ds.delta_scatter(torch.zeros(4, 1), x, torch.zeros(4, 1),
+                               key_base=-1)
 
     def test_wrapper_cpu_vs_reference_ops(self):
         rng = np.random.default_rng(3)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times edge_propagate, kmeans_assign and flash_attention as chip_smoke.py's
-rows do, for any tree.
+"""Times edge_propagate, kmeans_assign, flash_attention and delta_scatter as
+chip_smoke.py's rows do, for any tree.
 
     python3 tools/time_kernels.py [--src DIR] [--sass] [--phases]
 
@@ -20,7 +20,17 @@ checkout, on its graph and its points:
   standard normal inputs (chip_smoke.py's forward and prefill rows take
   layer 0's q, k and v of the model instead): the bf16 kernel at the
   forward's and the prefill's shapes, the float32 kernel at the
-  forward's, and both at the ragged and the non-causal shapes.
+  forward's, and both at the ragged and the non-causal shapes;
+* delta_scatter at the inputs of chip_smoke.py's three rows (PageRank's
+  first stratum on the top rung, add at W = 1; ``sssp_auto``'s busiest
+  stratum on its widest rung, min; ``adsorption_auto``'s first stratum
+  on its widest rung, add at W = 4; ``sssp_auto``, ``adsorption_auto``
+  and ``adsorption_sort`` run once to find them), each a shard's
+  incoming buffer: ``kernel_ms`` is the kernel alone on keys made local
+  beforehand, ``seq_ms`` the conversion (``to_local_keys``) and then the
+  kernel on the local keys, and ``ms`` the single launch on global keys
+  with ``key_base`` (null for a tree whose op takes no ``key_base``),
+  each held to the plain version (not timed).
 
 Each row is held to its plain version, and timed beside it and beside the
 one torch call where there is one, by chip_smoke.py's ``time_ms`` (CUDA
@@ -30,11 +40,14 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
   K = 32 (``cuobjdump -sass`` on the built library), by opcode, and per
   (point, centroid) pair; and those of the bf16 flash_attention kernel at
   D = 128, by opcode (HGMMA: the tensor-core products, UTMALDG: the TMA
-  loads, MUFU: the exponentials), with its registers and stack.
+  loads, MUFU: the exponentials), with its registers and stack; and those
+  of the delta_scatter kernels of the three rows (add and min at W = 1,
+  add at W = 4), with their loads and atomics in full.
 * ``--phases``: three walls each of the phases these kernels carry
   (``nodelta``, ``sssp_nodelta``, ``cc_nodelta``, ``kmeans_delta``,
-  ``kmeans_nodelta``) at chip_smoke.py's settings, after one untimed run;
-  host clock, ending in a synchronise.
+  ``kmeans_nodelta``) and delta_scatter carries (``delta_auto``,
+  ``sssp_auto``, ``cc_auto``, ``adsorption_auto``) at chip_smoke.py's
+  settings, after one untimed run; host clock, ending in a synchronise.
 
 Prints the card and one JSON line.  Exits non-zero without CUDA.
 """
@@ -54,6 +67,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PHASE_RUNS = 3
 SASS_KERNEL = "ka_table_kernelILi32E"   # ka_table_kernel<32>, mangled
 FLASH_SASS_KERNEL = "fa_bf16_kernel"
+# ds_kernel<OP, V, FW, ALIGNED>, mangled: add at W = 1, min at W = 1, add
+# at W = 4 with an aligned payload.
+SCATTER_SASS_KERNELS = {"add_w1": "ds_kernelILi0ELi1ELi1ELb1E",
+                        "min_w1": "ds_kernelILi1ELi1ELi1ELb1E",
+                        "add_w4": "ds_kernelILi0ELi4ELi4ELb1E"}
 PAIR_OPS = ("FMUL", "FFMA", "FADD", "FSETP", "FSEL", "FMNMX", "SEL")
 
 
@@ -119,6 +137,24 @@ def flash_sass_counts(sass: str, lib: Path) -> dict:
             "resources": res, "ops": dict(ops.most_common())}
 
 
+def scatter_sass_counts(sass: str) -> dict:
+    """Opcodes of each SCATTER_SASS_KERNELS variant, and its loads and
+    atomics in full (their width shows in the suffix: .128, F32x4)."""
+    out = {}
+    for label, kernel in SCATTER_SASS_KERNELS.items():
+        lines, inside = [], False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                inside = kernel in line
+            elif inside and re.search(r"\b(LDG|RED|ATOM)\w*", line):
+                lines.append(re.sub(r"\s+", " ", line.split(";")[0]).strip())
+        ops = opcodes(sass, kernel)
+        out[label] = {"kernel": kernel, "found": bool(ops),
+                      "instructions": sum(ops.values()),
+                      "memory": lines, "ops": dict(ops.most_common())}
+    return out
+
+
 def walls(fn) -> list:
     """PHASE_RUNS host-clock walls of ``fn`` after one untimed run."""
     import torch
@@ -130,6 +166,75 @@ def walls(fn) -> list:
         fn()
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t0)
+    return out
+
+
+def scatter_inputs(cs, graph, snap, dev) -> list:
+    """(label, state, incoming buffer, shard, combiner) of chip_smoke.py's
+    three delta_scatter rows, taken from its check functions in place of
+    the rows they build."""
+    from unittest import mock
+    from repro_torch.algorithms import adsorption, pagerank, sssp
+    from repro_torch.core.engine import ShardedExecutor
+    cap = cs.capacities(snap)
+    ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
+                         edge_capacity=cap["edge_capacity"],
+                         src_capacity=cap["src_capacity"], ladder_tiers=4,
+                         route_strategy="auto")
+    found = []
+
+    def take(state, db, shard, combiner, group=None, label=None):
+        found.append((label or f"delta_scatter/{combiner}", state, db, shard,
+                      combiner))
+
+    with mock.patch.object(cs, "delta_scatter_row", take):
+        cs.pagerank_kernel_checks(graph, snap, ex, pagerank.make_algorithm(
+            snap, cs.RUN_SETTINGS["pagerank"]["threshold"],
+            cap["src_capacity"], cap["edge_capacity"]))
+        _, res = cs.graph_phase("sssp_auto", graph, snap, dev)[2]()
+        cs.sssp_kernel_checks(graph, snap, ex, sssp.make_algorithm(
+            snap, cap["src_capacity"], cap["edge_capacity"]), res.stats)
+        seeds = cs.make_seeds(snap, dev)
+        stats = {}
+        for name in ("adsorption_auto", "adsorption_sort"):
+            mode, route, _ = cs.ADSORPTION_PHASES[name]
+            stats[name] = adsorption.run(
+                graph, snap, seeds, mode=mode, route_strategy=route,
+                device=dev, **cs.RUN_SETTINGS["adsorption"], **cap)[1].stats
+        cs.adsorption_kernel_checks(graph, snap, ex, adsorption.make_algorithm(
+            snap, cs.ADS_LABELS, cs.RUN_SETTINGS["adsorption"]["threshold"],
+            cap["src_capacity"], cap["edge_capacity"]), seeds, stats)
+    return found
+
+
+def scatter_row(cs, state, db, shard, combiner) -> dict:
+    """kernel_ms, seq_ms and ms (see the module's docstring) of one
+    shard's incoming buffer ``db``, each result held to the plain version;
+    bound_ms as chip_smoke.py's row counts it."""
+    import inspect
+    from repro_torch.algorithms import emission
+    from repro_torch.kernels import delta_scatter as ds
+    B, W = state.shape
+    keys, pay = db.keys.contiguous(), db.payload.contiguous()
+    local = emission.to_local_keys(db, shard, B).contiguous()
+    ref = ds.delta_scatter_ref(state, local, pay, combiner)
+    calls = {"kernel_ms": lambda: ds.delta_scatter(state, local, pay,
+                                                   combiner),
+             "seq_ms": lambda: ds.delta_scatter(
+                 state, emission.to_local_keys(db, shard, B).contiguous(),
+                 pay, combiner)}
+    if "key_base" in inspect.signature(ds.delta_scatter).parameters:
+        calls["ms"] = lambda: ds.delta_scatter(state, keys, pay, combiner,
+                                               key_base=shard * B)
+    out = {"ms": None}
+    for name, fn in calls.items():
+        cs.compare(f"delta_scatter/{combiner} {name}", [fn()], [ref],
+                   float_idx=(0,) if combiner == "add" else ())
+        out[name] = cs.time_ms(fn)
+    live = int(((local >= 0) & (local < B)).sum())
+    out["bound_ms"] = cs.bound(cs.nbytes(keys) + live * 4 * W
+                               + 2 * cs.nbytes(state), live * W)[0]
+    out["shape"] = f"N={B} C={keys.numel()} live={live} W={W} shard={shard}"
     return out
 
 
@@ -166,10 +271,23 @@ def main(argv=None) -> int:
     rows.append(cs.pagerank_edge_row(graph, snap, csc))
     rows.append(cs.sssp_edge_row(graph, snap, csc))
     del csc
+    out["delta_scatter"] = {
+        label: scatter_row(cs, state, db, shard, combiner)
+        for label, state, db, shard, combiner in scatter_inputs(
+            cs, graph, snap, dev)}
+    torch.cuda.empty_cache()
     if args.phases:
+        from repro_torch.algorithms import adsorption
         out["phase_walls_s"] = {
             name: walls(cs.graph_phase(name, graph, snap, dev)[2])
-            for name in ("nodelta", "sssp_nodelta", "cc_nodelta")}
+            for name in ("nodelta", "sssp_nodelta", "cc_nodelta",
+                         "delta_auto", "sssp_auto", "cc_auto")}
+        seeds = cs.make_seeds(snap, dev)
+        out["phase_walls_s"]["adsorption_auto"] = walls(
+            lambda: adsorption.run(
+                graph, snap, seeds, mode="delta", route_strategy="auto",
+                device=dev, **cs.RUN_SETTINGS["adsorption"],
+                **cs.capacities(snap)))
     del graph
     torch.cuda.empty_cache()
 
@@ -215,6 +333,7 @@ def main(argv=None) -> int:
         sass = library_sass(lib)
         out["kmeans_sass"] = sass_counts(sass, _build.CSRC, cs.KMEANS_K)
         out["flash_bf16_sass"] = flash_sass_counts(sass, lib)
+        out["delta_scatter_sass"] = scatter_sass_counts(sass)
     print(json.dumps(out))
     return 0
 
