@@ -47,11 +47,40 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     exactly the failure-free one, incremental recovery at 75 % doing less
     work than restart there; checkpoints in a directory under ``build/``,
     removed after;
+* incremental views (``repro_torch.incremental``, ``bench_incremental.py``'s
+  setting) over a ``GraphStore`` of that graph, each view on its own copy:
+  ``ViewManager(fallback_threshold=2.0)`` (every batch repairs), the cold
+  executor at the capacities above, the rule's own resume capacities, a
+  stream of batches that insert and delete 1 % of |E| each (about 241 k
+  of each, from ``--seed``), one warm-up batch and two measured ones.
+  Each measured repair runs as a phase (its kernels must launch; a dense
+  stratum must have launched edge_propagate), prints its report, the host
+  seconds of its parts (``apply_batch``, ``build_sharded``, ``repair``,
+  ``fixpoint``) and a cold recompute's wall on the same store:
+  - ``view_pagerank`` (threshold 1e-4, at most 100 strata; scatter_route
+    + delta_scatter, add): warm and cold within 1e-2 of a float64 power
+    iteration of the mutated graph;
+  - ``view_sssp`` (source 0, 100 strata) and ``view_cc`` (100 strata;
+    min): warm exactly equal to the cold recompute and to the BFS or
+    dense min-label oracle of the mutated graph;
+  - ``view_sssp_resilient``: ``view_sssp`` with a replica chain under
+    ``build/``, shard 1 lost at stratum 1 of the first measured repair;
+    answers exactly ``view_sssp``'s, the failure in ``last_recovery``;
+  - ``view_journal``: ``view_sssp`` under a journal under ``build/``;
+    ``ViewManager.restore`` gives a view whose answer equals the live
+    one; the directories are removed after;
 * k-means on 382 M geo points (47.75 M a shard, 8 shards), k = 32, at most
   60 strata (``bench_kmeans.py``'s settings at the paper's largest size):
   ``kmeans_delta`` and ``kmeans_nodelta`` (kmeans_assign), each within
   3e-3 (coordinates; cloud spread 3.0) of a float64 Lloyd iteration of the
-  same shape on the card, and of each other;
+  same shape on the card, and of each other; then ``view_kmeans``, a
+  k-means view on ``make_geo_points(points // 10, 32, seed)`` (38.2 M
+  points by default, a tenth of the paper's; 76.4 M slots in a host store
+  that goes to the card every batch), k = 32, 60 strata, batches of
+  1,000 inserts and 1,000 removals: each measured repair (kmeans_assign)
+  within 3e-3 of a float64 Lloyd run from the repaired state on the
+  mutated store, its counts equal to the store's and its sums within
+  1e-4 of their |x| mass;
 * the dense LM serving path at Llama-3-8B's full width and depth (32
   layers, d 4096, GQA 32/8 heads of 128, d_ff 14,336, vocab 128,256, bf16
   weights from the port's seeded init), tokens from ``TokenPipeline``:
@@ -93,6 +122,13 @@ take a shard's incoming buffer as the algorithms pass it (global keys,
 ``key_base`` = the shard's first key); a line beside each times
 ``to_local_keys`` followed by the kernel on the local keys against that
 single launch.
+The views' repairs run the graph kernels at the resume executor's smaller
+capacities and kmeans_assign at the view's store, so their launches are
+kept apart (groups ``view_add``, ``view_min``, ``view_kmeans``) and
+reported by rows of their own: scatter_route, delta_route, delta_scatter
+and edge_propagate at the inputs of ``view_pagerank``'s and
+``view_sssp``'s last measured repair (replayed from its repaired state),
+kmeans_assign at ``view_kmeans``'s last one.
 The kernel, its plain version and, where one torch call computes the same
 function, that call are timed (CUDA events around at least 5 calls, or 2
 for the slowest plain versions, and at least 20 ms).  Each phase runs
@@ -215,6 +251,47 @@ ADS_F32 = 1e-3
 RECOVER_AT = (0.25, 0.5, 0.75)
 FAILED_SHARD = 1
 
+# Incremental views (bench_incremental.py's setting): one warm-up batch,
+# then VIEW_BATCHES measured ones, each inserting and deleting VIEW_FRAC / 2
+# of |E|; fallback_threshold 2.0, so every batch takes the repair path.
+# Phase -> (algorithm, params, launch group, kernels its repairs must
+# launch).  The views' launches go to groups of their own: their repairs
+# run at the resume executor's smaller capacities, so they feed the rows
+# that VIEW_ROWS builds from a view's own repair, not the cold phases'.
+VIEW_FRAC = 0.01
+VIEW_BATCHES = 2
+VIEW_FALLBACK = 2.0
+VIEW_NEEDS = ("scatter_route", "delta_scatter")
+VIEW_PHASES = {
+    "view_pagerank": ("pagerank", dict(threshold=1e-4, max_iters=100),
+                      "view_add", VIEW_NEEDS),
+    "view_sssp": ("sssp", dict(source=0, max_iters=100), "view_min",
+                  VIEW_NEEDS),
+    "view_cc": ("connected_components", dict(max_iters=100), "view_min",
+                VIEW_NEEDS),
+    "view_sssp_resilient": ("sssp", dict(source=0, max_iters=100),
+                            "view_min", VIEW_NEEDS),
+    "view_journal": ("sssp", dict(source=0, max_iters=100), "view_min",
+                     VIEW_NEEDS),
+}
+# Phase -> combiner: the phases whose last measured repair gives the
+# kernel rows of their launch group.
+VIEW_ROWS = {"view_pagerank": "add", "view_sssp": "min"}
+# The k-means view: --points / KMEANS_VIEW_CUT points (a tenth of the
+# paper's 382 M by default), k = 32, KMEANS_STRATA strata; each batch
+# removes KMEANS_VIEW_BATCH points and inserts as many, each a valid point
+# moved by the generator's jitter.  At this size no centroid's count
+# reaches 2^24, so float32 counts stay exact integers.
+KMEANS_VIEW_CUT = 10
+KMEANS_VIEW_BATCH = 1000
+KMEANS_JITTER = 0.15
+# The view's (sums, counts) against a float64 sum over the store's valid
+# points, per centroid: counts exactly (see KMEANS_VIEW_CUT),
+# sums within this share of the centroid's sum of |coordinates|; float32
+# cells of at most 16,384 points and the strata's adjustments round far
+# below it.
+KMEANS_SUM_RTOL = 1e-4
+
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "scatter_route": ("src/repro_torch/kernels/csrc/scatter_route.cu",
                       "src/repro/kernels/scatter_route/scatter_route.py:112"),
@@ -299,9 +376,13 @@ def bound(bytes_moved: int, ops: int,
                                                            "operations")
 
 
-def compare(name: str, got, ref, float_idx=()) -> float:
-    """Outputs in ``float_idx`` within FLOAT_RTOL relative, all others
-    exactly; returns the max absolute difference over the float outputs."""
+def compare(name: str, got, ref, float_idx=(), scale=None) -> float:
+    """Outputs in ``float_idx`` within FLOAT_RTOL of ``scale``, all others
+    exactly; returns the max absolute difference over the float outputs.
+    ``scale`` (parallel to the outputs) is the plain version run on the
+    magnitudes of its inputs, each float slot's sum of |terms|, the
+    measure of a reordered float sum's error; where it is None, |ref|,
+    which is the same where no terms cancel."""
     import torch
     err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
@@ -315,7 +396,8 @@ def compare(name: str, got, ref, float_idx=()) -> float:
         if diff.numel():
             err = max(err, float(diff.max()))
         if i in float_idx:
-            ok = bool(torch.all(diff <= FLOAT_RTOL * r.abs() + 1e-30))
+            mag = r.abs() if scale is None else scale[i].abs()
+            ok = bool(torch.all(diff <= FLOAT_RTOL * mag + 1e-30))
             check(ok, f"{name}: float output {i} off by up to {err:.3e} "
                       f"(rtol {FLOAT_RTOL})")
         else:
@@ -374,8 +456,10 @@ def scatter_route_row(out, snap, seg, combiner, group=None, label=None):
             combiner)
     got = sr.scatter_route(*args)
     ref = sr.scatter_route_ref(*args)
+    scale = (sr.scatter_route_ref(keys, out.payload.abs(), *args[2:])
+             if combiner == "add" else None)
     err = compare(f"scatter_route/{combiner}", got, ref,
-                  float_idx=(1,) if combiner == "add" else ())
+                  float_idx=(1,) if combiner == "add" else (), scale=scale)
     # Every key is read; local, owner and payload only for live keys.
     live = int((keys != PAD_KEY).sum())
     W = out.payload.shape[1]
@@ -387,15 +471,15 @@ def scatter_route_row(out, snap, seg, combiner, group=None, label=None):
                label=label)
 
 
-def delta_route_row(out, snap, seg, group, label):
+def delta_route_row(out, snap, seg, group, label, combiner="add"):
     """delta_route on one shard's outgoing deltas ``out``, pre-aggregated
-    as the sort strategy does, at rung capacity ``seg``."""
+    by ``combiner`` as the sort strategy does, at rung capacity ``seg``."""
     import torch
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.handlers import pre_aggregate
     from repro_torch.kernels import delta_route as dr
     S = snap.num_shards
-    agg = pre_aggregate(out, "add")
+    agg = pre_aggregate(out, combiner)
     owners = torch.where(agg.keys != PAD_KEY, snap.owner_of(agg.keys), S)
     args = (agg.keys, agg.payload, agg.ann, owners, S, seg)
     got = dr.delta_route(*args)
@@ -426,8 +510,10 @@ def delta_scatter_row(state, db, shard, combiner, group=None, label=None):
     base = shard * B
     got = ds.delta_scatter(state, keys, pay, combiner, base)
     ref = ds.delta_scatter_ref(state, keys, pay, combiner, base)
+    scale = ([ds.delta_scatter_ref(state.abs(), keys, pay.abs(), "add",
+                                   base)] if combiner == "add" else None)
     err = compare(f"delta_scatter/{combiner}", [got], [ref],
-                  float_idx=(0,) if combiner == "add" else ())
+                  float_idx=(0,) if combiner == "add" else (), scale=scale)
     # Every key is read; the payload only where its row is in range; the
     # state is read and written once.
     local = emission.to_local_keys(db, shard, B)
@@ -468,10 +554,11 @@ def edge_propagate_bins(csc, label) -> None:
           f"{heavy_edges} of {csc.src.numel()}", flush=True)
 
 
-def edge_propagate_row(payload, csc, combiner, also=()):
+def edge_propagate_row(payload, csc, combiner, also=(), group=None,
+                       label=None):
     """edge_propagate of one shard's dense stratum over ``csc``, timed at
     ``payload`` and held to its plain version at ``payload`` and each of
-    ``also``."""
+    ``also``; ``group`` as in :func:`scatter_route_row`."""
     import torch
     from repro_torch.kernels import edge_propagate as ep
     plain_csc = (csc.indptr, csc.src, csc.weight)
@@ -480,8 +567,12 @@ def edge_propagate_row(payload, csc, combiner, also=()):
     for x in (payload, *also):
         got = ep.edge_propagate(x, csc, combiner)
         ref = ep.edge_propagate_ref(x, *plain_csc, combiner)
+        scale = ([ep.edge_propagate_ref(x.abs(), csc.indptr, csc.src,
+                                        csc.weight.abs(), "add")]
+                 if combiner == "add" else None)
         err = max(err, compare(f"edge_propagate/{combiner}", [got], [ref],
-                               float_idx=(0,) if combiner == "add" else ()))
+                               float_idx=(0,) if combiner == "add" else (),
+                               scale=scale))
     n_edges = csc.src.numel()
     # The function's bytes: the heavy list is the layout's, not the work's.
     b = bound(nbytes(payload, *plain_csc, got), 2 * n_edges)
@@ -496,12 +587,12 @@ def edge_propagate_row(payload, csc, combiner, also=()):
             (n_pad,), float("inf") if combiner == "min" else float("-inf"),
             device=payload.device).scatter_reduce_(
             0, dst, payload[csc.src] * csc.weight, "a" + combiner)
-    return row("edge_propagate", combiner, err,
+    return row("edge_propagate", group or combiner, err,
                time_ms(lambda: ep.edge_propagate(payload, csc, combiner)),
                time_ms(lambda: ep.edge_propagate_ref(payload, *plain_csc,
                                                      combiner)),
                b, time_ms(lib), f"n_dst={n_pad} E={n_edges} "
-                                f"N_src={payload.numel()}")
+                                f"N_src={payload.numel()}", label=label)
 
 
 def pagerank_edge_row(graph, snap, csc):
@@ -577,15 +668,19 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
     return rows
 
 
-def widest_stratum(ex, algo, graph, state, stats, what, busiest=False):
+def widest_stratum(ex, algo, graph, state, stats, what, busiest=False,
+                   route=None):
     """Replays a run from ``state`` to the first stratum on the widest
-    rung it routed at (``busiest``: the one of those that emitted most)
-    and emits it at that rung: (state there, each shard's outgoing
-    deltas, the stratum, the shard that emits most)."""
+    rung it routed at (``busiest``: the one of those that emitted most;
+    ``route``: of the strata that took that route) and emits it at that
+    rung: (state there, each shard's outgoing deltas, the stratum, the
+    shard that emits most)."""
     from repro_torch.core.delta import PAD_KEY
     from repro_torch.core.engine import _take
     it = int(stats.iterations)
-    tier_of = stats.tiers[:it].tolist()
+    routes = stats.routes[:it].tolist()
+    tier_of = [t if route is None or r == route else -1
+               for t, r in zip(stats.tiers[:it].tolist(), routes)]
     emitted = stats.delta_counts[:it].tolist()
     widest = max(tier_of)
     check(widest >= 0, f"{what}: no sparse stratum")
@@ -651,9 +746,11 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     return rows
 
 
-def kmeans_kernel_check(points, cents):
+def kmeans_kernel_check(points, cents, group="kmeans",
+                        label="kmeans_assign"):
     """kmeans_assign at the full shape, against its plain version run in
-    chunks (the plain [N, K] matrix would not fit)."""
+    chunks (the plain [N, K] matrix would not fit); ``group`` as in
+    :func:`scatter_route_row`."""
     import torch
     from repro_torch.kernels import kmeans_assign as ka
     N, D = points.shape
@@ -696,9 +793,10 @@ def kmeans_kernel_check(points, cents):
             ka.kmeans_assign_ref(points[lo:lo + KMEANS_CHUNK], cents)
 
     b = bound(N * (4 * D + 8) + K * D * 4, N * K * (2 * D + 3))
-    out = row("kmeans_assign", None, err,
+    out = row("kmeans_assign", group, err,
               time_ms(lambda: ka.assign(points, cents)),
-              time_ms(plain, reps=2), b, None, f"N={N} D={D} K={K}")
+              time_ms(plain, reps=2), b, None, f"N={N} D={D} K={K}",
+              label=label)
     torch.cuda.empty_cache()
     return out
 
@@ -939,6 +1037,9 @@ def graph_section(args, dev, phases, rows):
         torch.cuda.empty_cache()
     del labels
     adsorption_section(graph, snap, dev, phases, rows, indptr, indices)
+    del graph
+    torch.cuda.empty_cache()
+    graph_views_section(args, dev, phases, rows, indptr, indices)
 
 
 def stratum_spans(name, tracer) -> None:
@@ -1376,6 +1477,399 @@ def adsorption_section(graph, snap, dev, phases, rows, indptr, indices):
     rows += adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats)
 
 
+def mutation_stream(store, rng, frac):
+    """One batch: frac·|E| mixed inserts (uniform) and deletes (existing
+    edges), ``bench_incremental.py``'s stream."""
+    from repro_torch.incremental import EdgeDelete, EdgeInsert
+    half = max(int(store.n_edges * frac / 2), 1)
+    muts = [EdgeInsert(int(rng.integers(store.n)), int(rng.integers(store.n)))
+            for _ in range(half)]
+    src, dst = store.edges()
+    for i in rng.choice(len(src), half, replace=False):
+        muts.append(EdgeDelete(int(src[i]), int(dst[i])))
+    return muts
+
+
+def path_kernels(stats) -> set:
+    """The kernels a run's strata launch by its stats: the route kernel of
+    each sparse stratum's route, delta_scatter for a sparse stratum,
+    edge_propagate for a dense one."""
+    from repro_torch.core.fixpoint import ROUTE_SCATTER, ROUTE_SORT
+    it = int(stats.iterations)
+    dense = stats.used_dense[:it].tolist()
+    routes = set(stats.routes[:it].tolist())
+    return ({k for code, k in ((ROUTE_SCATTER, "scatter_route"),
+                               (ROUTE_SORT, "delta_route")) if code in routes}
+            | ({"delta_scatter"} if not all(dense) else set())
+            | ({"edge_propagate"} if any(dense) else set()))
+
+
+def refresh_line(view) -> str:
+    """A refresh's report and the host seconds of its parts."""
+    r = view.history[-1]
+    st = view.last_result.stats
+    it = int(st.iterations)
+    split = " ".join(f"{k} {v:.3f}" for k, v in view.last_split.items())
+    return (f"mode {r.mode} mutations {r.mutations} touched {r.touched_keys} "
+            f"strata {r.strata} rehash_bytes {r.rehash_bytes:.6g} "
+            f"dense_strata {int(st.used_dense[:it].sum())} wall "
+            f"{r.wall_s:.3f} s (host s: {split})")
+
+
+def view_kernel_checks(view, group, combiner):
+    """Each graph kernel of the view's last repair against its plain
+    version at that repair's own inputs (the resume executor's
+    capacities, the repaired graph), as rows of launch group ``group``:
+    each route kernel at the busiest stratum on the widest rung that took
+    its route, delta_scatter at the busiest shard's incoming buffer of
+    scatter_route's stratum, edge_propagate over shard 0's CSC at the
+    first dense stratum's payload."""
+    import torch
+    from repro_torch.algorithms import pagerank
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.engine import _stack, _take
+    from repro_torch.core.fixpoint import ROUTE_SCATTER, ROUTE_SORT
+    from repro_torch.kernels import edge_propagate as ep
+    ex, algo = view.rule.resume_executor, view.rule.resume_algo
+    graph, snap, start = view.immutable, ex.snapshot, view.last_plan.state
+    stats = view.last_result.stats
+    it = int(stats.iterations)
+    tiers = ex.capacity_tiers(algo)
+    routes = set(stats.routes[:it].tolist())
+    field = {"pagerank": None, "sssp": "dist",
+             "connected_components": "label"}[view.algorithm]
+    rows = []
+    for code in (ROUTE_SCATTER, ROUTE_SORT):
+        if code not in routes:
+            continue
+        kernel = "scatter_route" if code == ROUTE_SCATTER else "delta_route"
+        state, parts, at, src = widest_stratum(
+            ex, algo, graph, start, stats, f"{group} {kernel}",
+            busiest=True, route=code)
+        seg = tiers[int(stats.tiers[at])].seg
+        if code == ROUTE_SORT:
+            rows.append(delta_route_row(parts[src], snap, seg, group,
+                                        f"delta_route/{group}", combiner))
+            continue
+        rows.append(scatter_route_row(parts[src], snap, seg, combiner, group,
+                                      f"scatter_route/{group}"))
+        incoming, _ = ex.rehash_sparse_simulated(_stack(parts), seg,
+                                                 combiner, "scatter")
+        del parts
+        dst = max(range(snap.num_shards),
+                  key=lambda s: int((incoming.keys[s] != PAD_KEY).sum()))
+        into = (torch.zeros((snap.block_size, 1), device=graph.device)
+                if field is None else
+                getattr(state, field)[dst][:, None].contiguous())
+        rows.append(delta_scatter_row(into, _take(incoming, dst), dst,
+                                      combiner, group,
+                                      f"delta_scatter/{group}"))
+        del incoming, state
+    dense = stats.used_dense[:it].tolist()
+    if any(dense):
+        at = dense.index(True)
+        step = ex.make_stratum_fn(algo, graph)
+        state = start
+        for i in range(at):
+            state, _ = step(state, i)
+        st, g0 = _take(state, 0), _take(graph, 0)
+        if field is None:
+            payload = pagerank.current_pr(st) / torch.clamp(
+                g0.out_degree, min=1).to(torch.float32)
+        elif field == "dist":
+            payload = torch.where(st.dist < float("inf"), st.dist + 1.0,
+                                  float("inf"))
+        else:
+            payload = st.label
+        print(f"{group} edge_propagate at stratum {at} (dense), shard 0",
+              flush=True)
+        csc = ep.build_csc(g0, snap.padded_keys)
+        edge_propagate_bins(csc, f"edge_propagate/{group}")
+        rows.append(edge_propagate_row(payload, csc, combiner, group=group,
+                                       label=f"edge_propagate/{group}"))
+        del state, csc
+    torch.cuda.empty_cache()
+    return rows
+
+
+class GraphViewOracles:
+    """What every graph view's measured batch is held to, made once a
+    batch: the views' stores start equal and take the same stream, so
+    they stay equal."""
+
+    def __init__(self, n, dev):
+        self.n, self.dev = n, dev
+        self.csr, self.made = {}, {}
+
+    def graph(self, j, store):
+        from repro_torch.data.graphs import edges_to_csr
+        if j not in self.csr:
+            self.csr[j] = edges_to_csr(*store.edges(), self.n)
+        return self.csr[j]
+
+    def of(self, kind, j, store, **kw):
+        import torch
+        from repro_torch.algorithms import connected_components as cc
+        from repro_torch.algorithms import pagerank, sssp
+        if (kind, j) not in self.made:
+            ip, ix = self.graph(j, store)
+            t0 = time.perf_counter()
+            if kind == "pagerank":
+                out = pagerank.reference_pagerank(ip, ix, self.n, iters=300,
+                                                  device=self.dev)
+            elif kind == "sssp":
+                out = sssp.reference_sssp(ip, ix, self.n, kw["source"],
+                                          device=self.dev)
+            else:
+                out = cc.reference_components(ip, ix, self.n,
+                                              device=self.dev)
+            sync()
+            print(f"view oracle {kind} batch {j}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            self.made[(kind, j)] = out
+        return self.made[(kind, j)]
+
+
+def graph_view_phase(name, base, snap, dev, phases, rows, batches, rng,
+                     oracles, answers):
+    """One graph view (VIEW_PHASES[name]) over a copy of ``base``: the
+    warm-up batch, then each measured batch's repair through
+    ``Phases.run``, held to a cold recompute on the same store and to the
+    oracle of the mutated graph.  ``batches`` (the stream, made on first
+    use) and ``answers`` (view_sssp's answers) are shared by the
+    phases."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.incremental import ViewManager
+    from repro_torch.runtime import FaultPlan
+    algo, params, group, needs = VIEW_PHASES[name]
+    cap = capacities(snap)
+    params = dict(params, **cap, route_strategy="auto")
+    tmp = []
+    if name == "view_sssp_resilient":
+        tmp.append(tempfile.mkdtemp(prefix="view_chain_", dir=ROOT / "build"))
+        params["resilient_root"] = tmp[-1]
+    journal = None
+    if name == "view_journal":
+        journal = tempfile.mkdtemp(prefix="view_journal_", dir=ROOT / "build")
+        tmp.append(journal)
+    try:
+        mgr = ViewManager(journal_root=journal,
+                          fallback_threshold=VIEW_FALLBACK)
+        t0 = time.perf_counter()
+        view = mgr.create_view("v", algo, copy.deepcopy(base), device=dev,
+                               **params)
+        sync()
+        print(f"phase {name} cold start: {refresh_line(view)}; view made "
+              f"in {time.perf_counter() - t0:.3f} s", flush=True)
+        for j in range(1 + VIEW_BATCHES):
+            if j == len(batches):
+                t0 = time.perf_counter()
+                batches.append(mutation_stream(view.store, rng, VIEW_FRAC))
+                print(f"view batch {j}: {len(batches[j])} mutations made in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+            mgr.mutate("v", *batches[j])
+            if j == 0:                       # the warm-up batch
+                mgr.refresh("v")
+                sync()
+                print(f"phase {name} warm-up: {refresh_line(view)}",
+                      flush=True)
+                continue
+            if name == "view_sssp_resilient" and j == 1:
+                view.fault_plan = FaultPlan(fail_at=1, failed_shard=1)
+            _, wall, counts, peak = phases.run(
+                name, group, needs, lambda: mgr.refresh("v"),
+                warm_up=False)
+            report = view.history[-1]
+            check(report.mode == "repair" and view.degraded is None,
+                  f"{name} batch {j}: {report.mode}, not a repair")
+            st = view.last_result.stats
+            dense = bool(st.used_dense[:int(st.iterations)].any())
+            for kernel in path_kernels(st):
+                check(counts[kernel] > 0, f"{name} batch {j}: its strata "
+                                          f"ran {kernel} no time")
+            warm = view.query()
+            t0 = time.perf_counter()
+            state, res = view.rule.cold(view)
+            sync()
+            cold_wall = time.perf_counter() - t0
+            cold = view.rule.extract(view, state)
+            cold_it = int(res.stats.iterations)
+            cold_bytes = float(res.stats.rehash_bytes[:cold_it].sum())
+            del state, res
+            check(warm.shape == (snap.n_keys,) and cold.shape == warm.shape,
+                  f"{name}: answer shape {warm.shape}")
+            what = ""
+            if algo == "pagerank":
+                ref = oracles.of("pagerank", j, view.store).cpu().numpy()
+                scale = np.maximum(np.abs(ref), 1.0)
+                rel_w = float((np.abs(warm - ref) / scale).max())
+                rel_c = float((np.abs(cold - ref) / scale).max())
+                what = (f"rel_err_vs_f64 warm {rel_w:.3e} cold {rel_c:.3e} "
+                        f"(bound {PHASE_BOUND})")
+                check(bool(np.isfinite(warm).all()) and max(rel_w, rel_c)
+                      < PHASE_BOUND, f"{name} batch {j}: {what}")
+            else:
+                kind = "sssp" if algo == "sssp" else "cc"
+                ref = oracles.of(kind, j, view.store,
+                                 source=params.get("source", 0)).cpu().numpy()
+                exact = np.array_equal(warm, cold) and np.array_equal(warm,
+                                                                      ref)
+                what = f"warm == cold == oracle {exact}"
+                check(exact, f"{name} batch {j}: {what}")
+                if name == "view_sssp":
+                    answers[j] = warm
+                elif algo == "sssp":
+                    same = np.array_equal(warm, answers[j])
+                    what += f"; equal to view_sssp {same}"
+                    check(same, f"{name} batch {j}: differs from view_sssp")
+            if name == "view_sssp_resilient" and j == 1:
+                events = [e["event"] for e in
+                          (view.last_recovery or {}).get("events", [])]
+                what += f"; recovery events {events}"
+                check("failure" in events, f"{name}: no failure recorded")
+            print(f"phase {name} batch {j}: {refresh_line(view)} launches "
+                  f"{counts} dense_body {dense} peak_mem {peak:.2f} GiB; "
+                  f"cold {cold_wall:.3f} s {cold_it} strata rehash_bytes "
+                  f"{cold_bytes:.6g}; {what}", flush=True)
+        if name in VIEW_ROWS:
+            rows += view_kernel_checks(view, group, VIEW_ROWS[name])
+        if journal is not None:
+            t0 = time.perf_counter()
+            restored = ViewManager.restore(journal, device=dev)
+            sync()
+            same = np.array_equal(restored.query("v"), view.query())
+            print(f"phase {name} restore: version "
+                  f"{restored['v'].version} of {view.version}, "
+                  f"{time.perf_counter() - t0:.3f} s, query equal to the "
+                  f"live view {same}", flush=True)
+            check(same and restored["v"].version == view.version,
+                  f"{name}: the restored view differs from the live one")
+            del restored
+        del view, mgr
+    finally:
+        for d in tmp:
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def graph_views_section(args, dev, phases, rows, indptr, indices):
+    """The incremental graph views of VIEW_PHASES on the DBPedia-shaped
+    graph, each view over its own copy of one store."""
+    import numpy as np
+    from repro_torch.core.partition import PartitionSnapshot
+    from repro_torch.incremental import GraphStore
+    n, S = args.n, args.shards
+    t0 = time.perf_counter()
+    base = GraphStore(indptr, indices, n, S)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    print(f"views: store of {base.n_edges} edges, nnz capacity "
+          f"{base.nnz_capacity} a shard ({time.perf_counter() - t0:.1f} s); "
+          f"batches of {VIEW_FRAC:.0%} of |E|, one warm-up and "
+          f"{VIEW_BATCHES} measured, fallback_threshold {VIEW_FALLBACK}",
+          flush=True)
+    batches, answers = [], {}
+    oracles = GraphViewOracles(n, dev)
+    rng = np.random.default_rng(args.seed)
+    for name in VIEW_PHASES:
+        graph_view_phase(name, base, snap, dev, phases, rows, batches, rng,
+                         oracles, answers)
+
+
+def kmeans_view_section(args, dev, phases, rows):
+    """The k-means view on --points / KMEANS_VIEW_CUT geo points: the
+    warm-up batch, then each measured batch's repair, held to a float64
+    Lloyd run from the repaired state on the mutated store, with (sums,
+    counts) against the store's valid points; then the kmeans_assign row
+    at the last repair's points and centroids."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms import kmeans
+    from repro_torch.data.points import make_geo_points
+    from repro_torch.incremental import PointInsert, PointRemove, ViewManager
+    S, k, n = args.shards, KMEANS_K, args.points // KMEANS_VIEW_CUT
+    t0 = time.perf_counter()
+    pts = make_geo_points(n, KMEANS_K, seed=args.seed, device="cpu").numpy()
+    mgr = ViewManager(fallback_threshold=VIEW_FALLBACK)
+    view = mgr.create_kmeans_view("km", pts, k=k, num_shards=S, device=dev,
+                                  max_iters=KMEANS_STRATA, seed=args.seed)
+    sync()
+    print(f"phase view_kmeans cold start: n={n} capacity "
+          f"{view.store.capacity} k={k}: {refresh_line(view)}; view made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del pts
+    rng = np.random.default_rng(args.seed)
+    for j in range(1 + VIEW_BATCHES):
+        valid = np.flatnonzero(view.store.to_arrays()["valid"])
+        near = view.store.to_arrays()["points"][
+            rng.choice(valid, KMEANS_VIEW_BATCH)]
+        new = near + rng.normal(0.0, KMEANS_JITTER, near.shape)
+        mgr.mutate("km", *[PointInsert(float(x), float(y)) for x, y in new],
+                   *[PointRemove(int(s)) for s in rng.choice(
+                       valid, KMEANS_VIEW_BATCH, replace=False)])
+        if j == 0:
+            mgr.refresh("km")
+            sync()
+            print(f"phase view_kmeans warm-up: {refresh_line(view)}",
+                  flush=True)
+            continue
+        _, wall, counts, peak = phases.run(
+            "view_kmeans", "view_kmeans", ("kmeans_assign",),
+            lambda: mgr.refresh("km"), warm_up=False)
+        check(view.history[-1].mode == "repair" and view.degraded is None,
+              f"view_kmeans batch {j}: not a repair")
+        got = torch.from_numpy(view.query()).to(dev).double()
+        check(bool(torch.isfinite(got).all()) and got.shape == (k, 2),
+              f"view_kmeans: centroids {tuple(got.shape)} not finite")
+        arrays = view.store.to_arrays()
+        keep = torch.from_numpy(arrays["valid"]).to(dev)
+        points = torch.from_numpy(arrays["points"]).to(dev)[keep]
+        assign = view.state.assign.reshape(-1)[keep].long()
+        # A resume starts from the repaired assignment, so its first
+        # stratum is the assignment lloyd_f64 makes from its init: one
+        # round fewer lands on the same step of the same trajectory.
+        t0 = time.perf_counter()
+        ref, rounds = lloyd_f64(points, kmeans.centroids_of(
+            view.last_plan.state), KMEANS_STRATA - 1)
+        lloyd_s = time.perf_counter() - t0
+        err = float((got - ref).abs().max())
+        counts_ref = torch.bincount(assign, minlength=k).double()
+        sums_ref = torch.stack([torch.bincount(
+            assign, weights=points[:, d].double(), minlength=k)
+            for d in range(2)], 1)
+        mass = torch.stack([torch.bincount(
+            assign, weights=points[:, d].double().abs(), minlength=k)
+            for d in range(2)], 1)
+        sums_err = float(((view.state.sums.double() - sums_ref).abs()
+                          / mass.clamp(min=1.0)).max())
+        counts_ok = torch.equal(view.state.counts.double(), counts_ref)
+        t0 = time.perf_counter()
+        _, cold = view.rule.cold(view)
+        sync()
+        cold_wall = time.perf_counter() - t0
+        print(f"phase view_kmeans batch {j}: {refresh_line(view)} launches "
+              f"{counts} peak_mem {peak:.2f} GiB; cold {cold_wall:.3f} s "
+              f"{int(cold.stats.iterations)} strata; max|c - c_f64| "
+              f"{err:.3e} (bound {KMEANS_BOUND}; Lloyd from the repaired "
+              f"state, {rounds} rounds, {lloyd_s:.1f} s); sums off by "
+              f"{sums_err:.3e} of their |x| mass (bound {KMEANS_SUM_RTOL}), "
+              f"counts equal {counts_ok}", flush=True)
+        del cold, points, assign, keep
+        check(err < KMEANS_BOUND, f"view_kmeans batch {j}: centroids off "
+                                  f"the float64 Lloyd by {err:.3e}")
+        check(counts_ok and sums_err < KMEANS_SUM_RTOL,
+              f"view_kmeans batch {j}: sums or counts off the store")
+    # The path assigns every slot of the store, valid or not.
+    rows.append(kmeans_kernel_check(
+        view.immutable[0].reshape(-1, 2), kmeans.centroids_of(view.state),
+        "view_kmeans", "kmeans_assign/view"))
+    del view, mgr
+    torch.cuda.empty_cache()
+
+
 def make_points(n, dev):
     """``n`` geo points in KMEANS_K clouds and KMEANS_K initial centroids
     (``bench_kmeans.py``'s data): (points, init)."""
@@ -1426,7 +1920,7 @@ def kmeans_section(args, dev, phases, rows):
     for name, mode in [("kmeans_delta", "delta"),
                        ("kmeans_nodelta", "nodelta")]:
         (c, res), wall, counts, peak = phases.run(
-            name, None, ("kmeans_assign",),
+            name, "kmeans", ("kmeans_assign",),
             kmeans_phase(mode, sharded, init, dev), warm_up=False)
         it = int(res.stats.iterations)
         check(c.shape == (k, 2) and bool(torch.isfinite(c).all()),
@@ -1777,6 +2271,8 @@ def main(argv=None) -> int:
     graph_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     kmeans_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    kmeans_view_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     lm_section(args, dev, phases, rows)
     print_rows(rows)

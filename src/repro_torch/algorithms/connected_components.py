@@ -25,6 +25,7 @@ from repro_torch.core.fixpoint import FixpointResult
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.edge_propagate import CSCCache
 
 
 class CCState(NamedTuple):
@@ -37,7 +38,7 @@ def make_algorithm(snapshot: PartitionSnapshot, src_capacity: int = 1024,
                    ) -> DeltaAlgorithm:
     block = snapshot.block_size
     n_padded = snapshot.padded_keys
-    csc_of_shard: dict = {}   # ragged CSC per shard, built on first use
+    csc = CSCCache(n_padded)   # ragged CSC per shard, kept per graph
 
     def active_fn(state: CCState, graph: CSRGraph):
         active = state.label < state.sent
@@ -55,8 +56,7 @@ def make_algorithm(snapshot: PartitionSnapshot, src_capacity: int = 1024,
         return sparse_emit
 
     def dense_emit(state: CCState, graph: CSRGraph, stratum, shard_id):
-        contrib = min_push(state.label, graph, n_padded, csc_of_shard,
-                           shard_id, use_kernels)
+        contrib = min_push(state.label, graph, csc, shard_id, use_kernels)
         return CCState(label=state.label, sent=state.label), contrib[:, None]
 
     def apply_sparse(state: CCState, incoming: DeltaBuffer, graph: CSRGraph,

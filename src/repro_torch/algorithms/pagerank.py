@@ -13,7 +13,7 @@ The no-delta mode re-derives every vertex's full contribution each stratum
 With ``use_kernels`` the sparse apply goes through ``kernels/delta_scatter``,
 which takes the incoming buffer's global keys and the shard's first key,
 and the dense body through ``kernels/edge_propagate`` (over a ragged CSC
-built once per shard); otherwise the torch-op functions of ``emission.py``
+built once per shard and graph); otherwise the torch-op functions of ``emission.py``
 run.
 """
 from __future__ import annotations
@@ -30,6 +30,7 @@ from repro_torch.core.fixpoint import FixpointResult
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.edge_propagate import CSCCache, edge_propagate
 
 DAMPING = 0.85
 BASE = 0.15
@@ -57,7 +58,7 @@ def make_algorithm(snapshot: PartitionSnapshot, threshold: float = 1e-3,
                    use_kernels: bool = True) -> DeltaAlgorithm:
     block = snapshot.block_size
     n_padded = snapshot.padded_keys
-    csc_of_shard: dict = {}   # ragged CSC per shard, built on first use
+    csc = CSCCache(n_padded)   # ragged CSC per shard, kept per graph
 
     def n_active(state: PRState) -> torch.Tensor:
         diff = torch.abs(current_pr(state) - state.sent)
@@ -85,11 +86,7 @@ def make_algorithm(snapshot: PartitionSnapshot, threshold: float = 1e-3,
         pr = current_pr(state)
         deg = torch.clamp(graph.out_degree, min=1).to(pr.dtype)
         if use_kernels:
-            from repro_torch.kernels.edge_propagate import (build_csc,
-                                                            edge_propagate)
-            if shard_id not in csc_of_shard:
-                csc_of_shard[shard_id] = build_csc(graph, n_padded)
-            contrib = edge_propagate(pr / deg, csc_of_shard[shard_id])
+            contrib = edge_propagate(pr / deg, csc.get(shard_id, graph))
         else:
             dst, payload = emission.dense_push(graph, pr / deg)
             contrib = emission.fold(pr.new_zeros((n_padded, 1)), dst,

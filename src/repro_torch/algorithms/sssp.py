@@ -11,8 +11,8 @@ No-delta re-relaxes every settled vertex each stratum.
 With ``use_kernels`` the sparse apply folds through ``kernels/delta_scatter``
 (min; it takes the incoming buffer's global keys and the shard's first
 key) and the dense body through ``kernels/edge_propagate`` (min, over a
-ragged CSC built once per shard); the engine's ``auto`` route reaches
-``kernels/scatter_route`` with min.  Otherwise the torch-op functions of
+ragged CSC built once per shard and graph); the engine's ``auto`` route
+reaches ``kernels/scatter_route`` with min.  Otherwise the torch-op functions of
 ``emission.py`` run.  Min is order-free, so both paths give equal values.
 """
 from __future__ import annotations
@@ -29,6 +29,7 @@ from repro_torch.core.fixpoint import FixpointResult
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.edge_propagate import CSCCache, edge_propagate
 
 INF = float("inf")
 
@@ -52,19 +53,14 @@ def min_fold(values: torch.Tensor, incoming: DeltaBuffer, shard_id: int,
                                                         block, "min"))
 
 
-def min_push(payload: torch.Tensor, graph: CSRGraph, n_padded: int,
-             csc_of_shard: dict, shard_id: int, use_kernels: bool
-             ) -> torch.Tensor:
-    """Dense min over every edge u→v of ``payload[u]``: f32[n_padded], inf
+def min_push(payload: torch.Tensor, graph: CSRGraph, csc: CSCCache,
+             shard_id: int, use_kernels: bool) -> torch.Tensor:
+    """Dense min over every edge u→v of ``payload[u]``: f32[csc.n_dst], inf
     where no edge lands."""
     if use_kernels:
-        from repro_torch.kernels.edge_propagate import (build_csc,
-                                                        edge_propagate)
-        if shard_id not in csc_of_shard:
-            csc_of_shard[shard_id] = build_csc(graph, n_padded)
-        return edge_propagate(payload, csc_of_shard[shard_id], "min")
+        return edge_propagate(payload, csc.get(shard_id, graph), "min")
     dst, pay = emission.dense_push(graph, payload)
-    return emission.fold(pay.new_full((n_padded, 1), INF), dst,
+    return emission.fold(pay.new_full((csc.n_dst, 1), INF), dst,
                          pay[:, None], "min")[:, 0]
 
 
@@ -73,7 +69,7 @@ def make_algorithm(snapshot: PartitionSnapshot, src_capacity: int = 1024,
                    ) -> DeltaAlgorithm:
     block = snapshot.block_size
     n_padded = snapshot.padded_keys
-    csc_of_shard: dict = {}   # ragged CSC per shard, built on first use
+    csc = CSCCache(n_padded)   # ragged CSC per shard, kept per graph
 
     def active_fn(state: SPState, graph: CSRGraph):
         active = state.dist < state.sent          # improved since last send
@@ -92,8 +88,7 @@ def make_algorithm(snapshot: PartitionSnapshot, src_capacity: int = 1024,
 
     def dense_emit(state: SPState, graph: CSRGraph, stratum, shard_id):
         payload = torch.where(state.dist < INF, state.dist + 1.0, INF)
-        contrib = min_push(payload, graph, n_padded, csc_of_shard, shard_id,
-                           use_kernels)
+        contrib = min_push(payload, graph, csc, shard_id, use_kernels)
         return SPState(dist=state.dist, sent=state.dist), contrib[:, None]
 
     def apply_sparse(state: SPState, incoming: DeltaBuffer, graph: CSRGraph,

@@ -70,6 +70,35 @@ def build_csc(graph: CSRGraph, n_dst: int,
                      weight=w[order].contiguous())
 
 
+class CSCCache:
+    """Each shard's ragged CSC over destinations [0, ``n_dst``), built on
+    first use and rebuilt when, and only when, the shard's graph changes:
+    an entry is reused only while ``indptr`` and ``indices`` are the same
+    tensors as before (device, address, shape, strides and ``_version``,
+    which counts in-place writes).  The entry holds those tensors, so no
+    other graph can take their memory while it lives.  An algorithm keeps
+    one cache across runs: a view hands it a rebuilt graph every refresh."""
+
+    def __init__(self, n_dst: int):
+        self.n_dst = n_dst
+        self._entries: dict = {}   # shard -> (identity, tensors, RaggedCSC)
+
+    @staticmethod
+    def _identity(graph: CSRGraph) -> tuple:
+        return tuple((str(t.device), t.data_ptr(), tuple(t.shape),
+                      t.stride(), t._version)
+                     for t in (graph.indptr, graph.indices))
+
+    def get(self, shard_id: int, graph: CSRGraph) -> RaggedCSC:
+        ident = self._identity(graph)
+        entry = self._entries.get(shard_id)
+        if entry is None or entry[0] != ident:
+            entry = (ident, (graph.indptr, graph.indices),
+                     build_csc(graph, self.n_dst))
+            self._entries[shard_id] = entry
+        return entry[2]
+
+
 def edge_propagate(payload: torch.Tensor, csc: RaggedCSC,
                    combiner: str = "add") -> torch.Tensor:
     """payload f32[N_src] -> f32[n_dst]: out[d] = combine over edges s->d

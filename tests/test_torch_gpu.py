@@ -37,6 +37,7 @@ import torch
 from repro_torch.algorithms import connected_components as cc
 from repro_torch.configs import get_arch
 from repro_torch.algorithms import kmeans, pagerank, sssp
+from repro_torch.core.fixpoint import ROUTE_SCATTER, ROUTE_SORT
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph, make_powerlaw_graph, shard_csr
 from repro_torch.data.points import make_geo_points, sample_initial_centroids
@@ -703,3 +704,64 @@ def test_llama3_full_width_two_layers_prefill_kernel_matches_plain(cuda):
             scale = float(b["attn"][key].abs().max())
             assert float((a["attn"][key] - b["attn"][key]).abs().max()) \
                 <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("resume", ["sparse", "dense"])
+@pytest.mark.parametrize("algo", ["pagerank", "sssp", "connected_components"])
+def test_view_repair_on_card_matches_cpu(cuda, algo, resume):
+    """A view's cold run and two warm repairs on the card, through the
+    kernels, against the same view on the CPU's torch-op path: SSSP and
+    CC exactly (min is order-free), PageRank within 1e-5 relative (run
+    to the float32 fixpoint, threshold 1e-7, so the atomics' order moves
+    only the last bits).  ``dense``: a tiny resume budget sends the
+    repairs through edge_propagate, whose CSC must follow each refresh's
+    graph."""
+    from repro_torch.incremental import EdgeDelete, EdgeInsert, ViewManager
+    n, S = 1024, 4
+    indptr, indices = make_powerlaw_graph(n, avg_degree=6.0, seed=2)
+    params = dict(max_iters=300)
+    if algo == "pagerank":
+        params["threshold"] = 1e-7
+    if resume == "dense":
+        params.update(resume_edge_capacity=64, resume_src_capacity=16)
+    views = {dev: ViewManager(fallback_threshold=2.0).create_graph_view(
+        "v", algo, indptr, indices, n, num_shards=S, device=dev,
+        use_kernels=dev != "cpu", **params) for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(0)
+
+    def close(a, b):
+        if algo == "pagerank":
+            return bool(np.all(np.abs(a - b) <= 1e-5 * np.abs(b)))
+        return np.array_equal(a, b)
+
+    assert close(views["cuda"].query(), views["cpu"].query())
+    dense_repairs = 0
+    for _ in range(2):
+        src, dst = views["cpu"].store.edges()
+        muts = [EdgeInsert(int(rng.integers(n)), int(rng.integers(n)))
+                for _ in range(12)]
+        muts += [EdgeDelete(int(src[i]), int(dst[i]))
+                 for i in rng.choice(len(src), 12, replace=False)]
+        counters = (sr_ops, dr_ops, ds_ops, ep_ops)
+        before = [c.launches for c in counters]
+        for view in views.values():
+            view.apply(*muts)
+            assert view.refresh().mode == "repair"
+        ran = [c.launches > b for c, b in zip(counters, before)]
+        # The kernels the card's strata must have launched, by its stats.
+        st = views["cuda"].last_result.stats
+        it = int(st.iterations)
+        dense = st.used_dense[:it].tolist()
+        routes = set(st.routes[:it].tolist())
+        assert ran == [ROUTE_SCATTER in routes, ROUTE_SORT in routes,
+                       not all(dense), any(dense)]
+        dense_repairs += any(dense)
+        assert all(x.is_cuda for x in views["cuda"].state)
+        assert close(views["cuda"].query(), views["cpu"].query())
+        if algo != "pagerank":
+            for f in ("delta_counts", "used_dense", "tiers", "routes"):
+                assert torch.equal(
+                    getattr(views["cuda"].last_result.stats, f),
+                    getattr(views["cpu"].last_result.stats, f))
+    if resume == "dense":
+        assert dense_repairs == 2

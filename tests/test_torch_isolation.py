@@ -2,7 +2,8 @@
 
 A subprocess imports ``repro_torch`` (observability and runtime included)
 and runs a tiny PageRank, a traced resilient PageRank with one failure and
-adsorption on the CPU, then reports which modules were loaded; a source scan finds no import of
+adsorption on the CPU, and two journaled views restored, then reports which
+modules were loaded; a source scan finds no import of
 ``jax`` or ``repro``; the entry points refuse to fall back to the CPU when
 no device is named and CUDA is missing.
 """
@@ -13,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +36,7 @@ import repro_torch.runtime.chaos
 import repro_torch.launch.serve
 import repro_torch.models.transformer
 import repro_torch.serve.serve_step
+import repro_torch.incremental
 indptr, indices = make_powerlaw_graph(256, 6.0, seed=0)
 snap = PartitionSnapshot(n_keys=256, num_shards=2)
 pr, res = pagerank.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
@@ -65,10 +68,21 @@ seeds[::10, 0] = 1.0
 vec, _ = adsorption.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
                         seeds, device="cpu", max_iters=3, edge_capacity=512,
                         src_capacity=128)
+from repro_torch.incremental import EdgeInsert, PointInsert, ViewManager
+with tempfile.TemporaryDirectory() as td:
+    vm = ViewManager(journal_root=td)
+    vm.create_graph_view("sp", "sssp", indptr, indices, 256, num_shards=2,
+                         device="cpu")
+    vm.create_kmeans_view("km", seeds[:64, :2].numpy(), k=2, device="cpu")
+    vm.mutate("sp", EdgeInsert(0, 7))
+    vm.mutate("km", PointInsert(0.5, 0.5))
+    vm.refresh()
+    views = {n: v.version for n, v in ViewManager.restore(td, "cpu").views
+             .items()}
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
                   "lm": list(toks.shape),
                   "resilient": rr.metrics["recoveries"],
-                  "adsorption": list(vec.shape)}))
+                  "adsorption": list(vec.shape), "views": views}))
 """
 
 
@@ -82,6 +96,7 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["lm"] == [1, 6]
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
+    assert got["views"] == {"km": 1, "sp": 1}
     bad = [m for m in got["mods"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
            or m in ("repro", "ml_dtypes")]
@@ -108,6 +123,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     from repro_torch.core.partition import PartitionSnapshot
     from repro_torch.data import graphs
     from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.incremental import ViewManager
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.obs import calibrate_route_table
@@ -126,7 +142,11 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: adsorption.initial_state(snap, torch.zeros(64, 4)),
                  lambda: calibrate_route_table(snap, [64]),
-                 lambda: chaos.main(["--quick", "--nodes", "64"])):
+                 lambda: chaos.main(["--quick", "--nodes", "64"]),
+                 lambda: ViewManager().create_graph_view(
+                     "v", "sssp", indptr, indices, 64, num_shards=2),
+                 lambda: ViewManager().create_kmeans_view(
+                     "k", np.zeros((16, 2), np.float32), k=2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
