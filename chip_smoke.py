@@ -25,6 +25,19 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   - connected components: ``cc_auto`` and ``cc_nodelta``, each exactly
     equal to a dense min-label iteration on the card
     (``connected_components.reference_components``);
+  - the compiled rule programs of ``repro_torch.frontend`` at the same
+    settings (route ``auto``): ``rules_pagerank`` and
+    ``rules_pagerank_nodelta`` (within 1e-2 of the float64 power
+    iteration; the nodelta run exactly ``nodelta``'s answer, the delta
+    run within PAGERANK_TWIN_BOUND of ``delta_auto``'s), ``rules_sssp``
+    and ``rules_cc`` (exactly ``sssp_auto``'s and ``cc_auto``'s answers
+    and their oracles), and rules-only
+    reachability, ``rules_reach`` and ``rules_reach_nodelta`` (its reached
+    set exactly the BFS oracle's), each wall printed beside its
+    handwritten twin's with the overhead (``bench_frontend.py``'s 5 %
+    budget, printed only); reachability runs the max variants of
+    scatter_route, delta_scatter and edge_propagate, whose rows are built
+    at its widest stratum;
   - adsorption with 4 labels (a seed on every 100th vertex; threshold
     1e-3, at most 60 strata): ``adsorption_auto`` (scatter_route +
     delta_scatter, add at W = 4), ``adsorption_sort`` (delta_route +
@@ -117,7 +130,11 @@ operations at 67 TFLOP/s, bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
 scatter_route and delta_scatter are also held at W = 4, at the first
-stratum of ``adsorption_auto`` on its widest rung.  delta_scatter's rows
+stratum of ``adsorption_auto`` on its widest rung, and with max at
+``rules_reach``'s busiest stratum on its widest rung (edge_propagate max
+over shard 0's CSC at that stratum's values); the compiled programs'
+launches are kept in groups of their own (``rules_add``, ``rules_min``,
+``max``, the last feeding the max rows).  delta_scatter's rows
 take a shard's incoming buffer as the algorithms pass it (global keys,
 ``key_base`` = the shard's first key); a line beside each times
 ``to_local_keys`` followed by the kernel on the local keys against that
@@ -224,6 +241,39 @@ RUN_SETTINGS = {"pagerank": dict(threshold=1e-3, max_iters=60),
                 "sssp": dict(source=0, max_iters=80),
                 "connected_components": dict(max_iters=80),
                 "adsorption": dict(threshold=1e-3, max_iters=60)}
+# The compiled rule programs (``repro_torch.frontend``) on the same graph:
+# phase -> (program, mode, launch group, the handwritten phase it is
+# printed beside, kernels its path must launch).  Their launches go to
+# groups of their own, so the handwritten rows' counts stay comparable
+# with earlier runs; reachability's feed the max rows.
+RULES_PHASES = {
+    "rules_pagerank": ("pagerank", "delta", "rules_add", "delta_auto",
+                       ("scatter_route", "delta_scatter")),
+    "rules_pagerank_nodelta": ("pagerank", "nodelta", "rules_add",
+                               "nodelta", ("edge_propagate",)),
+    "rules_sssp": ("sssp", "delta", "rules_min", "sssp_auto",
+                   ("scatter_route", "delta_scatter")),
+    "rules_cc": ("cc", "delta", "rules_min", "cc_auto",
+                 ("scatter_route", "delta_scatter")),
+    "rules_reach": ("reachability", "delta", "max", None,
+                    ("scatter_route", "delta_scatter")),
+    "rules_reach_nodelta": ("reachability", "nodelta", "max", None,
+                            ("edge_propagate",)),
+}
+RULES_ITERS = {"pagerank": 60, "sssp": 80, "cc": 80, "reachability": 80}
+# benchmarks/bench_frontend.py's budget for a compiled program's wall over
+# the handwritten one's; printed only (the walls are single readings on a
+# shared host).
+RULES_OVERHEAD_BUDGET = 0.05
+# Compiled delta PageRank against ``delta_auto``'s answer, relative to
+# max(1, |value|).  Both fold their Δs with float atomics, whose order
+# differs from run to run and can tip a vertex across the 1e-3 threshold
+# in one run and not in the other: two runs of ``delta_auto`` itself came
+# 1.263e-3, 1.450e-3 and 1.593e-3 apart (absolute), the compiled run
+# 5.208e-4 (relative) from its twin, so the bound is about 3x the worst.
+# nodelta's dense strata have no atomics: ``rules_pagerank_nodelta`` must
+# equal ``nodelta`` exactly.
+PAGERANK_TWIN_BOUND = 5e-3
 # Adsorption: 4 labels, a seed on every 100th vertex v with label
 # (v / 100) mod 4 (v mod 4 would give every seed label 0).  Phase ->
 # (mode, route, kernels its path must launch); the dense body is the
@@ -847,6 +897,7 @@ class Phases:
     def __init__(self, counters):
         self.counters = counters
         self.launches = []   # (combiner or LM phase, {kernel: launches})
+        self.walls = {}      # phase name -> wall of its measured call (s)
 
     def counts(self) -> dict:
         return {k: getattr(mod, attr)
@@ -864,6 +915,7 @@ class Phases:
         out = fn()
         sync()
         wall = time.perf_counter() - t0
+        self.walls[name] = wall
         counts = self.counts()
         self.launches.append((combiner, counts))
         for k in needs:
@@ -969,6 +1021,8 @@ def graph_section(args, dev, phases, rows):
     print(f"max|delta_sort - delta_auto| {sort_vs_auto:.3e} (bound "
           f"{PHASE_BOUND})", flush=True)
     check(sort_vs_auto < PHASE_BOUND, "delta_sort and delta_auto disagree")
+    # the handwritten answers the rules phases must equal
+    kept = {name: values[name] for name in ("delta_auto", "nodelta")}
     del values
 
     # Delta against nodelta, and both against the oracle, at 1e-5.
@@ -986,7 +1040,7 @@ def graph_section(args, dev, phases, rows):
           f"{rel_n:.3e} (bound {ACCURACY_BOUND})", flush=True)
     check(agree < ACCURACY_BOUND, "delta and nodelta disagree")
     check(max(rel_d, rel_n) < ACCURACY_BOUND, "values off the oracle")
-    del pr_d, res_d, pr_n, res_n, ref
+    del pr_d, res_d, pr_n, res_n
     torch.cuda.empty_cache()
 
     # SSSP from vertex 0, exactly equal to a BFS on the card.
@@ -1009,12 +1063,12 @@ def graph_section(args, dev, phases, rows):
         check(exact, f"{name}: distances differ from the BFS oracle")
         if name == "sssp_auto":
             auto_res = res
+            kept[name] = dist
         del dist, res
         torch.cuda.empty_cache()
     algo = sssp.make_algorithm(snap, cap["src_capacity"],
                                cap["edge_capacity"])
     rows += sssp_kernel_checks(graph, snap, ex, algo, auto_res.stats)
-    del bfs
     sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
                           indices)
     del auto_res
@@ -1033,13 +1087,165 @@ def graph_section(args, dev, phases, rows):
               f"launches {counts} peak_mem {peak:.2f} GiB "
               f"equal_to_oracle {exact}", flush=True)
         check(exact, f"{name}: labels differ from the oracle")
+        if name == "cc_auto":
+            kept[name] = lab
         del lab, res
         torch.cuda.empty_cache()
-    del labels
+    rules_section(graph, snap, dev, phases, rows,
+                  dict(pagerank=ref, bfs=bfs, labels=labels, **kept))
+    del ref, bfs, labels, kept
     adsorption_section(graph, snap, dev, phases, rows, indptr, indices)
     del graph
     torch.cuda.empty_cache()
     graph_views_section(args, dev, phases, rows, indptr, indices)
+
+
+def compiled_programs() -> dict:
+    """The four canned rule programs compiled at RUN_SETTINGS, keyed as
+    RULES_PHASES names them (reachability from its rule text)."""
+    from repro_torch import frontend
+    return {
+        "pagerank": frontend.compile_program(frontend.pagerank_program(
+            RUN_SETTINGS["pagerank"]["threshold"])),
+        "sssp": frontend.compile_program(frontend.sssp_program(
+            RUN_SETTINGS["sssp"]["source"])),
+        "cc": frontend.compile_program(frontend.cc_program()),
+        "reachability": frontend.compile_program(
+            frontend.parse_program(frontend.REACHABILITY_TEXT)),
+    }
+
+
+def rules_phase(name, compiled, graph, snap, dev):
+    """A function that runs phase ``name`` of RULES_PHASES once."""
+    prog, mode = RULES_PHASES[name][:2]
+    cp = compiled[prog]
+    return lambda: cp.run(graph, snap, mode=mode,
+                          max_iters=RULES_ITERS[prog], route_strategy="auto",
+                          device=dev, **capacities(snap))
+
+
+def rules_kernel_checks(graph, snap, ex, cp, stats):
+    """The max kernels at reachability's widest stratum (``rules_reach``'s
+    busiest on its widest rung): scatter_route on the shard that emits
+    most, delta_scatter into the shard that receives most, edge_propagate
+    over shard 0's CSC at that stratum's values, held also at the initial
+    ones (only the source is not -inf)."""
+    import torch
+    from repro_torch.core.delta import PAD_KEY
+    from repro_torch.core.engine import _stack, _take
+
+    cap = capacities(snap)
+    algo = cp.make_algorithm(snap, cap["src_capacity"], cap["edge_capacity"])
+    state0 = cp.initial_state(snap, graph.device)
+    state, parts, at, src = widest_stratum(ex, algo, graph, state0, stats,
+                                           "reach max", busiest=True)
+    tier = ex.capacity_tiers(algo)[int(stats.tiers[at])]
+    rows = [scatter_route_row(parts[src], snap, tier.seg, "max")]
+    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "max",
+                                             "scatter")
+    del parts
+    dst = max(range(snap.num_shards),
+              key=lambda s: int((incoming.keys[s] != PAD_KEY).sum()))
+    store = state[0]
+    rows.append(delta_scatter_row(store[dst][:, None].contiguous(),
+                                  _take(incoming, dst), dst, "max"))
+    del incoming
+    csc = shard0_csc(graph, snap)
+    edge_propagate_bins(csc, "edge_propagate/max")
+    print(f"edge_propagate max: reached payloads "
+          f"{int(torch.isfinite(state0[0][0]).sum())} at stratum 0, "
+          f"{int(torch.isfinite(store[0]).sum())} at stratum {at} of "
+          f"{store[0].numel()}", flush=True)
+    rows.append(edge_propagate_row(store[0].contiguous(), csc, "max",
+                                   also=(state0[0][0],)))
+    del state, store, csc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rules_section(graph, snap, dev, phases, rows, oracles):
+    """The compiled rule programs of ``repro_torch.frontend`` on the
+    DBPedia-shaped graph, each phase of RULES_PHASES at the handwritten
+    phases' settings: PageRank within PHASE_BOUND of the float64 oracle
+    and held to its handwritten twin (nodelta exactly, delta within
+    PAGERANK_TWIN_BOUND), SSSP and CC exactly equal to ``sssp_auto``'s and
+    ``cc_auto``'s answers and to their oracles, reachability (no
+    handwritten counterpart) exactly the BFS oracle's reached set.
+    ``oracles`` holds the float64 PageRank (``pagerank``), the BFS
+    distances (``bfs``), the min-label oracle (``labels``) and the four
+    handwritten answers, keyed by their phases.  Prints each phase's
+    strata and wall beside its handwritten twin's; then the max rows."""
+    import torch
+    from repro_torch.core.engine import ShardedExecutor
+
+    n = snap.n_keys
+    reached = torch.isfinite(oracles["bfs"])
+    compiled = compiled_programs()
+    reach_stats = None
+    for name, (prog, mode, group, twin, needs) in RULES_PHASES.items():
+        (vals, res), wall, counts, peak = phases.run(
+            name, group, needs,
+            rules_phase(name, compiled, graph, snap, dev))
+        check(vals.shape == (snap.padded_keys,),
+              f"{name}: values shape {tuple(vals.shape)}")
+        path = path_kernels(res.stats)
+        check(set(needs) <= path, f"{name}: its strata ran {sorted(path)}, "
+                                  f"not all of {list(needs)}")
+        for k in path:
+            check(counts[k] > 0, f"{name}: kernel {k} of its strata was "
+                                 "never launched")
+        if prog == "pagerank":
+            ref, hand = oracles["pagerank"], oracles[twin]
+            check(bool(torch.isfinite(vals).all()), f"{name}: non-finite")
+            err = float(((vals[:n] - ref).abs() / ref.abs().clamp(min=1))
+                        .max())
+            diff = (vals - hand).abs()
+            twin_err = float((diff / hand.abs().clamp(min=1)).max())
+            verdict = (f"rel_err_vs_f64 {err:.3e}; vs {twin}: max abs "
+                       f"{float(diff.max()):.3e}, rel {twin_err:.3e}, "
+                       f"{int((diff > 0).sum())} values differ")
+            check(err < PHASE_BOUND,
+                  f"{name}: rel_err_vs_f64 {err:.3e} over {PHASE_BOUND}")
+            if mode == "nodelta":
+                check(bool(torch.equal(vals, hand)),
+                      f"{name}: answer differs from {twin}")
+            else:
+                check(twin_err <= PAGERANK_TWIN_BOUND,
+                      f"{name}: {twin_err:.3e} off {twin} (relative), "
+                      f"over {PAGERANK_TWIN_BOUND}")
+        elif prog == "reachability":
+            exact = (bool(torch.equal(vals[:n] == 1.0, reached))
+                     and bool(((vals == 1.0) | (vals == float("-inf")))
+                              .all()))
+            verdict = f"equal_to_bfs_reach {exact}"
+            check(exact, f"{name}: reached set differs from the BFS oracle")
+            if mode == "delta":
+                reach_stats = res.stats
+        else:
+            oracle = oracles["bfs" if prog == "sssp" else "labels"]
+            exact = (bool(torch.equal(vals, oracles[twin]))
+                     and bool(torch.equal(vals[:n], oracle)))
+            verdict = f"equal_to_{twin}_and_oracle {exact}"
+            check(exact,
+                  f"{name}: answer differs from {twin} or its oracle")
+        beside = ""
+        if twin is not None:
+            hand = phases.walls[twin]
+            beside = (f" ({twin} {hand:.3f} s, overhead "
+                      f"{(wall - hand) / hand:+.1%}, budget "
+                      f"{RULES_OVERHEAD_BUDGET:.0%})")
+        print(f"phase {name}: {stats_line(res.stats)} wall {wall:.3f} s"
+              f"{beside} launches {counts} peak_mem {peak:.2f} GiB "
+              f"{verdict}", flush=True)
+        del vals, res
+        torch.cuda.empty_cache()
+    cap = capacities(snap)
+    ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
+                         edge_capacity=cap["edge_capacity"],
+                         src_capacity=cap["src_capacity"], ladder_tiers=4,
+                         route_strategy="auto")
+    rows += rules_kernel_checks(graph, snap, ex, compiled["reachability"],
+                                reach_stats)
 
 
 def stratum_spans(name, tracer) -> None:

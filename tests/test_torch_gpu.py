@@ -9,8 +9,10 @@ Integer outputs and min/max results must match exactly; float adds land
 in atomic order, so add results are within 1e-5 relative (scatter_route
 also at adsorption's width, W = 4; delta_scatter at W = 1, 2, 3, 4 and 8,
 on global keys with a key base, and on unaligned views).  Adsorption on the
-card lands within 5e-3 of the CPU's torch-op path; a resilient SSSP with
-one failure, and a traced SSSP, equal the plain run exactly.  kmeans_assign's
+card lands within 5e-3 of the CPU's torch-op path, as does compiled
+PageRank; compiled SSSP, CC and reachability equal it exactly; a
+resilient SSSP with one failure, and a traced SSSP, equal the plain run
+exactly.  kmeans_assign's
 d² may differ from the plain version's product by rounding, so an
 assignment may differ only where the plain version's best two d² lie
 within 4 ulp of |p|² + |c|².  The float32 flash_attention kernel is
@@ -457,6 +459,56 @@ def test_min_algorithms_on_card_equal_cpu(cuda, algo, mode, route):
                 ("delta", "sort"): [False, True, True, used_dense],
                 ("nodelta", "sort"): [False, False, False, True]}
     assert ran == expected[(mode, route)]
+
+
+@pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),
+                                        ("nodelta", "sort")])
+@pytest.mark.parametrize("program", ["pagerank", "sssp", "cc",
+                                     "reachability"])
+def test_compiled_programs_on_card_match_cpu(cuda, program, mode, route):
+    """Compiled rule programs through the kernels on the card against the
+    torch-op path on the CPU: PageRank within 5e-3 at threshold 1e-5
+    (atomics reorder float adds), the min and max programs exactly, stats
+    included, and reachability also against the BFS oracle.  Each run
+    launches the kernels of its path: for reachability that is the max
+    variant of scatter_route, delta_scatter and edge_propagate."""
+    from repro_torch import frontend
+    n, S = 4096, 4
+    indptr, indices = make_powerlaw_graph(n, avg_degree=14.5, alpha=2.1,
+                                          seed=0)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    prog = (frontend.pagerank_program(1e-5) if program == "pagerank"
+            else getattr(frontend, f"{program}_program")())
+    cp = frontend.compile_program(prog)
+    kw = dict(mode=mode, max_iters=120, edge_capacity=8192,
+              src_capacity=1024, ladder_tiers=4, route_strategy=route)
+    counts = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+              ep_ops.launches)
+    v_gpu, r_gpu = cp.run(shard_csr(indptr, indices, S, device=cuda), snap,
+                          device=cuda, **kw)
+    after = (sr_ops.launches, dr_ops.launches, ds_ops.launches,
+             ep_ops.launches)
+    v_cpu, r_cpu = cp.run(shard_csr(indptr, indices, S, device="cpu"),
+                          snap, device="cpu", use_kernels=False, **kw)
+    if program == "pagerank":
+        assert float((v_gpu.cpu() - v_cpu).abs().max()) < 5e-3
+        used_dense = True if mode == "nodelta" else None
+    else:
+        assert torch.equal(v_gpu.cpu(), v_cpu)
+        for f in r_cpu.stats._fields:
+            assert torch.equal(getattr(r_gpu.stats, f).cpu(),
+                               getattr(r_cpu.stats, f)), f
+        used_dense = bool(r_cpu.stats.used_dense.any())
+    if program == "reachability":
+        bfs = sssp.reference_sssp(indptr, indices, n, device="cpu")
+        assert torch.equal(v_cpu[:n] == 1.0, torch.isfinite(bfs))
+    ran = [a > b for a, b in zip(after, counts)]
+    expected = {("delta", "auto"): [True, False, True],
+                ("delta", "sort"): [False, True, True],
+                ("nodelta", "sort"): [False, False, False]}[(mode, route)]
+    assert ran[:3] == expected
+    if used_dense is not None:
+        assert ran[3] == used_dense
 
 
 @pytest.mark.parametrize("mode,route", [("delta", "auto"), ("delta", "sort"),

@@ -2,10 +2,11 @@
 
 A subprocess imports ``repro_torch`` (observability and runtime included)
 and runs a tiny PageRank, a traced resilient PageRank with one failure and
-adsorption on the CPU, and two journaled views restored, then reports which
-modules were loaded; a source scan finds no import of
-``jax`` or ``repro``; the entry points refuse to fall back to the CPU when
-no device is named and CUDA is missing.
+adsorption on the CPU, two journaled views restored, and reachability
+compiled from its rule text, then reports which modules were loaded; a
+source scan finds no import of ``jax`` or ``repro``; the entry points
+refuse to fall back to the CPU when no device is named and CUDA is
+missing.
 """
 import json
 import os
@@ -79,10 +80,16 @@ with tempfile.TemporaryDirectory() as td:
     vm.refresh()
     views = {n: v.version for n, v in ViewManager.restore(td, "cpu").views
              .items()}
+import repro_torch.frontend as F
+cp = F.compile_program(F.parse_program(F.REACHABILITY_TEXT))
+reach, _ = cp.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
+                  device="cpu", max_iters=40, route_strategy="auto",
+                  ladder_tiers=2, edge_capacity=512, src_capacity=128)
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
                   "lm": list(toks.shape),
                   "resilient": rr.metrics["recoveries"],
-                  "adsorption": list(vec.shape), "views": views}))
+                  "adsorption": list(vec.shape), "views": views,
+                  "reached": int((reach == 1.0).sum())}))
 """
 
 
@@ -97,6 +104,7 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
     assert got["views"] == {"km": 1, "sp": 1}
+    assert got["reached"] > 1
     bad = [m for m in got["mods"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
            or m in ("repro", "ml_dtypes")]
@@ -123,6 +131,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     from repro_torch.core.partition import PartitionSnapshot
     from repro_torch.data import graphs
     from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.frontend import compile_program, reachability_program
     from repro_torch.incremental import ViewManager
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -131,6 +140,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     snap = PartitionSnapshot(n_keys=64, num_shards=2)
     indptr, indices = graphs.make_powerlaw_graph(64, 4.0, seed=0)
     g = graphs.shard_csr(indptr, indices, 2, device="cpu")
+    reach = compile_program(reachability_program())
     for call in (lambda: pagerank.run(g, snap),
                  lambda: graphs.load_dataset("dbpedia-small", 2),
                  lambda: pagerank.initial_state(snap),
@@ -140,6 +150,8 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                  lambda: TokenPipeline(256, 8, 1).batch_at(0),
                  lambda: serve.main(["--reduced"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
+                 lambda: reach.run(g, snap),
+                 lambda: reach.initial_state(snap),
                  lambda: adsorption.initial_state(snap, torch.zeros(64, 4)),
                  lambda: calibrate_route_table(snap, [64]),
                  lambda: chaos.main(["--quick", "--nodes", "64"]),

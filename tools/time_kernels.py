@@ -48,6 +48,15 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
   ``kmeans_nodelta``) and delta_scatter carries (``delta_auto``,
   ``sssp_auto``, ``cc_auto``, ``adsorption_auto``) at chip_smoke.py's
   settings, after one untimed run; host clock, ending in a synchronise.
+  Then each compiled rule phase of chip_smoke.py's RULES_PHASES that has
+  a handwritten twin runs in turns with it (twin, rules, rules, twin,
+  PAIR_ROUNDS times, after one untimed run of each), with the largest
+  difference of a rules answer from the twin's first and of the twin's
+  answers from each other; then one more run of each under
+  torch.profiler: the CUDA kernels, memsets and copies it launched (from
+  the profiler's Chrome trace), their summed device time, and the
+  ``aten`` operators it called, nested ones included.  The rule phases
+  need a tree whose ``repro_torch`` has the frontend.
 
 Prints the card and one JSON line.  Exits non-zero without CUDA.
 """
@@ -65,6 +74,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASE_RUNS = 3
+PAIR_ROUNDS = 2   # rounds of (twin, rules, rules, twin)
 SASS_KERNEL = "ka_table_kernelILi32E"   # ka_table_kernel<32>, mangled
 FLASH_SASS_KERNEL = "fa_bf16_kernel"
 # ds_kernel<OP, V, FW, ALIGNED>, mangled: add at W = 1, min at W = 1, add
@@ -167,6 +177,70 @@ def walls(fn) -> list:
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t0)
     return out
+
+
+def device_activity(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: device activities launched,
+    their summed device seconds, and torch operators called."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and str(e.get("name", "")).startswith("aten::")]
+    return {"device_activities": len(device),
+            "device_s": sum(e.get("dur", 0.0) for e in device) / 1e6,
+            "aten_ops": len(ops)}
+
+
+def rules_pair(twin, twin_fn, name, rules_fn) -> dict:
+    """A compiled rule phase and its handwritten twin in turns (see the
+    module docstring): host-clock walls, answer differences, one profiled
+    run of each."""
+    import torch
+    runs = {twin: twin_fn, name: rules_fn}
+    for fn in runs.values():
+        fn()
+        torch.cuda.synchronize()
+    walls = {label: [] for label in runs}
+    answers = {label: [] for label in runs}
+    for _ in range(PAIR_ROUNDS):
+        for label in (twin, name, name, twin):
+            t0 = time.perf_counter()
+            vals, _ = runs[label]()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            answers[label].append(vals)
+    first = answers[twin][0]
+
+    def spread(vs):   # equal infinities differ by 0
+        return max(float(torch.where(v == first, 0.0, (v - first).abs())
+                         .max()) for v in vs)
+
+    pair = {"walls_s": walls,
+            "max_abs_diff_vs_twin": spread(answers[name]),
+            "twin_spread": spread(answers[twin][1:]),
+            "profiled": {label: device_activity(fn)
+                         for label, fn in runs.items()}}
+    print(f"{name} vs {twin}: " + "; ".join(
+        f"{label} walls {[round(w, 4) for w in ws]} "
+        f"{pair['profiled'][label]}" for label, ws in walls.items())
+        + f"; max|rules - twin| {pair['max_abs_diff_vs_twin']:.3e}, twin "
+        f"spread {pair['twin_spread']:.3e}", flush=True)
+    del answers
+    torch.cuda.empty_cache()
+    return pair
 
 
 def scatter_inputs(cs, graph, snap, dev) -> list:
@@ -288,6 +362,13 @@ def main(argv=None) -> int:
                 graph, snap, seeds, mode="delta", route_strategy="auto",
                 device=dev, **cs.RUN_SETTINGS["adsorption"],
                 **cs.capacities(snap)))
+        compiled = cs.compiled_programs()
+        out["rules_pairs"] = {
+            name: rules_pair(
+                twin, cs.graph_phase(twin, graph, snap, dev)[2], name,
+                cs.rules_phase(name, compiled, graph, snap, dev))
+            for name, (_, _, _, twin, _) in cs.RULES_PHASES.items()
+            if twin is not None}
     del graph
     torch.cuda.empty_cache()
 
