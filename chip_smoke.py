@@ -38,6 +38,16 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     budget, printed only); reachability runs the max variants of
     scatter_route, delta_scatter and edge_propagate, whose rows are built
     at its widest stratum;
+  - the shard_map backend (``core/engine.py`` over ``torch.distributed``)
+    on a world of one rank, NCCL on ``cuda:0``, the group initialised
+    through a ``file://`` store under ``build/`` (no port) and destroyed
+    after: ``dist_pagerank``, ``dist_pagerank_nodelta``, ``dist_sssp``,
+    ``dist_sssp_sort``, ``dist_cc`` and ``dist_rules_sssp``, each held to
+    its simulated twin of this run (DIST_PHASES): SSSP, CC and nodelta
+    PageRank exactly, values and every stats column; delta PageRank within
+    PAGERANK_TWIN_BOUND (float atomics); each wall printed beside its
+    twin's, with its peak memory, the NCCL version and the world size;
+    their launches go to the twins' groups;
   - adsorption with 4 labels (a seed on every 100th vertex; threshold
     1e-3, at most 60 strata): ``adsorption_auto`` (scatter_route +
     delta_scatter, add at W = 4), ``adsorption_sort`` (delta_route +
@@ -274,6 +284,18 @@ RULES_OVERHEAD_BUDGET = 0.05
 # nodelta's dense strata have no atomics: ``rules_pagerank_nodelta`` must
 # equal ``nodelta`` exactly.
 PAGERANK_TWIN_BOUND = 5e-3
+# The shard_map backend on one rank: phase -> (its simulated twin, launch
+# group).  Every phase runs at its twin's settings through an executor of
+# backend "shard_map"; dist_sssp_sort takes the sort route, so delta_route
+# runs on the new path too.
+DIST_PHASES = {
+    "dist_pagerank": ("delta_auto", "add"),
+    "dist_pagerank_nodelta": ("nodelta", "add"),
+    "dist_sssp": ("sssp_auto", "min"),
+    "dist_sssp_sort": ("sssp_sort", "min"),
+    "dist_cc": ("cc_auto", "min"),
+    "dist_rules_sssp": ("rules_sssp", "rules_min"),
+}
 # Adsorption: 4 labels, a seed on every 100th vertex v with label
 # (v / 100) mod 4 (v mod 4 would give every seed label 0).  Phase ->
 # (mode, route, kernels its path must launch); the dense body is the
@@ -701,8 +723,8 @@ def pagerank_kernel_checks(graph, snap, ex, algo):
             delta_route_row(out0, snap, top.seg, W1_GROUPS, "delta_route")]
 
     # delta_scatter: shard 0's incoming deltas after the segment swap.
-    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), top.seg, "add",
-                                             "scatter")
+    incoming, _ = ex.rehash_sparse(_stack(parts), top.seg, "add",
+                                   "scatter")
     del parts, out0
     in0 = _take(incoming, 0)
     del incoming
@@ -773,8 +795,8 @@ def sssp_kernel_checks(graph, snap, ex, algo, stats):
     tier = ex.capacity_tiers(algo)[int(stats.tiers[at])]
     rows = [scatter_route_row(parts[src], snap, tier.seg, "min")]
 
-    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "min",
-                                             "scatter")
+    incoming, _ = ex.rehash_sparse(_stack(parts), tier.seg, "min",
+                                   "scatter")
     del parts
     dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
                                           .sum()))
@@ -898,6 +920,7 @@ class Phases:
         self.counters = counters
         self.launches = []   # (combiner or LM phase, {kernel: launches})
         self.walls = {}      # phase name -> wall of its measured call (s)
+        self.stats = {}      # phase name -> StratumStats of that call
 
     def counts(self) -> dict:
         return {k: getattr(mod, attr)
@@ -916,6 +939,8 @@ class Phases:
         sync()
         wall = time.perf_counter() - t0
         self.walls[name] = wall
+        if isinstance(out, tuple) and hasattr(out[-1], "stats"):
+            self.stats[name] = out[-1].stats
         counts = self.counts()
         self.launches.append((combiner, counts))
         for k in needs:
@@ -1093,11 +1118,135 @@ def graph_section(args, dev, phases, rows):
         torch.cuda.empty_cache()
     rules_section(graph, snap, dev, phases, rows,
                   dict(pagerank=ref, bfs=bfs, labels=labels, **kept))
+    dist_section(graph, snap, dev, phases, kept)
     del ref, bfs, labels, kept
     adsorption_section(graph, snap, dev, phases, rows, indptr, indices)
     del graph
     torch.cuda.empty_cache()
     graph_views_section(args, dev, phases, rows, indptr, indices)
+
+
+def dist_phase(name, graph, snap, dev, ex):
+    """A function that runs phase ``name`` of DIST_PHASES once, at its
+    twin's settings, through the executor ``ex``."""
+    import importlib
+    twin = DIST_PHASES[name][0]
+    kw = dict(device=dev, executor=ex, **capacities(snap))
+    if twin in RULES_PHASES:
+        prog, mode = RULES_PHASES[twin][:2]
+        cp = compiled_programs()[prog]
+        return lambda: cp.run(graph, snap, mode=mode,
+                              max_iters=RULES_ITERS[prog], **kw)
+    algo, mode = GRAPH_PHASES[twin][:2]
+    mod = importlib.import_module(f"repro_torch.algorithms.{algo}")
+    return lambda: mod.run(graph, snap, mode=mode, **RUN_SETTINGS[algo],
+                           **kw)
+
+
+def dist_section(graph, snap, dev, phases, answers, backend="nccl"):
+    """The shard_map backend on a world of one rank over NCCL: each phase
+    of DIST_PHASES against its simulated twin of this run (``answers``
+    holds the twins' answers by phase, ``sssp_auto``'s standing for every
+    SSSP twin; ``phases`` their walls and stats)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.core.fixpoint import StratumStats
+    from repro_torch.launch.mesh import (flat_mesh, init_shard_group,
+                                         local_shards)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    cap = capacities(snap)
+    with tempfile.TemporaryDirectory(dir=build, prefix="dist_pg_") as td:
+        init_shard_group(backend, f"file://{td}/store", world_size=1,
+                         rank=0)
+        try:
+            mesh = flat_mesh(snap.num_shards, device=dev)
+            nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                    if backend == "nccl" else "none")
+            print(f"dist: world {mesh.world} rank {mesh.rank} device "
+                  f"{mesh.device} backend {dist.get_backend()} nccl {nccl} "
+                  f"shards {list(local_shards(mesh))}", flush=True)
+            for name, (twin, group) in DIST_PHASES.items():
+                route = ("sort" if twin == "sssp_sort" else "auto")
+                ex = ShardedExecutor(
+                    snapshot=snap, seg_capacity=cap["edge_capacity"],
+                    edge_capacity=cap["edge_capacity"],
+                    src_capacity=cap["src_capacity"], ladder_tiers=4,
+                    route_strategy=route, backend="shard_map", mesh=mesh)
+                (vals, res), wall, counts, peak = phases.run(
+                    name, group, (), dist_phase(name, graph, snap, dev, ex))
+                path = path_kernels(res.stats)
+                for k in path:
+                    check(counts[k] > 0, f"{name}: kernel {k} of its strata "
+                                         "was never launched")
+                want = answers["sssp_auto" if twin.startswith(("sssp",
+                               "rules_sssp")) else twin]
+                check(vals.shape == want.shape and bool(
+                    torch.isfinite(vals[:snap.n_keys]).any()),
+                    f"{name}: values of shape {tuple(vals.shape)}")
+                if twin == "delta_auto":
+                    diff = (vals - want).abs()
+                    err = float((diff / want.abs().clamp(min=1)).max())
+                    verdict = (f"vs {twin}: rel {err:.3e} (bound "
+                               f"{PAGERANK_TWIN_BOUND}), "
+                               f"{int((diff > 0).sum())} values differ")
+                    check(err <= PAGERANK_TWIN_BOUND,
+                          f"{name}: {err:.3e} off {twin}")
+                else:
+                    same = bool(torch.equal(vals, want))
+                    twin_stats = phases.stats[twin]
+                    stats_same = all(torch.equal(getattr(res.stats, f),
+                                                 getattr(twin_stats, f))
+                                     for f in StratumStats._fields)
+                    verdict = (f"equal_to_{twin} {same} stats_equal "
+                               f"{stats_same}")
+                    check(same and stats_same,
+                          f"{name}: differs from {twin}")
+                hand = phases.walls[twin]
+                print(f"phase {name}: {stats_line(res.stats)} wall "
+                      f"{wall:.3f} s ({twin} {hand:.3f} s, "
+                      f"{(wall - hand) / hand:+.1%}) launches {counts} "
+                      f"peak_mem {peak:.2f} GiB world {mesh.world} "
+                      f"{verdict}", flush=True)
+                del vals, res
+                torch.cuda.empty_cache()
+            if dev.type == "cuda":
+                exchange_timing(mesh, snap.num_shards, cap["edge_capacity"])
+        finally:
+            dist.destroy_process_group()
+
+
+def exchange_timing(mesh, S, cap) -> None:
+    """One top-rung exchange of the sparse rehash (keys int32, payload
+    float32, ann int8, each [world, L, L, cap]) as the engine makes it
+    (``ShardMesh.all_to_all``: ``all_to_all_single`` into a fresh receive
+    buffer) against a ``copy_`` of the same tensors, timed with CUDA
+    events: the cost the shard_map strata add at world 1."""
+    import torch
+    L = mesh.shards_per_rank
+    bufs = [torch.ones((mesh.world, L, L, cap), dtype=dt, device=mesh.device)
+            for dt in (torch.int32, torch.float32, torch.int8)]
+    outs = [torch.empty_like(b) for b in bufs]
+    moved = nbytes(*bufs)
+
+    def exchange():
+        outs[:] = [mesh.all_to_all(b) for b in bufs]
+
+    a2a = time_ms(exchange, reps=3)
+    check(all(torch.equal(o, b) for o, b in zip(outs, bufs)),
+          "all_to_all_single at world 1 did not return its input")
+    cp = time_ms(lambda: [o.copy_(b) for o, b in zip(outs, bufs)], reps=3)
+    print(f"dist exchange: {moved / 1e9:.2f} GB a top-rung stratum (S={S}, "
+          f"cap={cap}): all_to_all_single {a2a:.3f} ms "
+          f"({2 * moved / a2a / 1e6:.0f} GB/s read+write), copy_ "
+          f"{cp:.3f} ms ({2 * moved / cp / 1e6:.0f} GB/s); read+write "
+          f"bound {2 * moved / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
+    del bufs, outs
+    torch.cuda.empty_cache()
 
 
 def compiled_programs() -> dict:
@@ -1141,8 +1290,8 @@ def rules_kernel_checks(graph, snap, ex, cp, stats):
                                            "reach max", busiest=True)
     tier = ex.capacity_tiers(algo)[int(stats.tiers[at])]
     rows = [scatter_route_row(parts[src], snap, tier.seg, "max")]
-    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "max",
-                                             "scatter")
+    incoming, _ = ex.rehash_sparse(_stack(parts), tier.seg, "max",
+                                   "scatter")
     del parts
     dst = max(range(snap.num_shards),
               key=lambda s: int((incoming.keys[s] != PAD_KEY).sum()))
@@ -1593,8 +1742,8 @@ def adsorption_kernel_checks(graph, snap, ex, algo, seeds, stats):
     tier = ex.capacity_tiers(algo)[int(stats["adsorption_auto"].tiers[at])]
     rows = [scatter_route_row(parts[src], snap, tier.seg, "add", ADS_GROUP,
                               f"scatter_route/add_w{ADS_LABELS}")]
-    incoming, _ = ex.rehash_sparse_simulated(_stack(parts), tier.seg, "add",
-                                             "scatter")
+    incoming, _ = ex.rehash_sparse(_stack(parts), tier.seg, "add",
+                                   "scatter")
     del parts, state
     dst = max(range(S), key=lambda s: int((incoming.keys[s] != PAD_KEY)
                                           .sum()))
@@ -1759,8 +1908,8 @@ def view_kernel_checks(view, group, combiner):
             continue
         rows.append(scatter_route_row(parts[src], snap, seg, combiner, group,
                                       f"scatter_route/{group}"))
-        incoming, _ = ex.rehash_sparse_simulated(_stack(parts), seg,
-                                                 combiner, "scatter")
+        incoming, _ = ex.rehash_sparse(_stack(parts), seg,
+                                       combiner, "scatter")
         del parts
         dst = max(range(snap.num_shards),
                   key=lambda s: int((incoming.keys[s] != PAD_KEY).sum()))

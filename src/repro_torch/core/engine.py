@@ -7,8 +7,12 @@ swapped across shards, and the receiver recounts live slots.  The dense
 (no-delta / fallback) path exchanges each shard's full contribution vector
 instead; the two patterns are the delta/dense duality at the wire level.
 
-Backend: ``simulated`` only: shards are a leading tensor axis on one
-device and the swap is an axis transpose.  Algorithms are written against
+Backends: ``shard_map``, where each rank of a ``torch.distributed`` group
+(``launch/mesh.py``) computes its own block of shards and the swap is an
+``all_to_all_single``, and ``simulated``, the same strata over a one-rank
+mesh that holds every shard and whose collectives are identities, so the
+swap is an axis transpose.  On the CPU their results are bit-identical.
+Algorithms are written against
 :class:`DeltaAlgorithm` (five shard-local functions); the engine calls them
 once per shard, owns routing, density switching and the fixpoint loop.
 Outgoing deltas use GLOBAL keys; the engine routes by the snapshot.
@@ -158,15 +162,33 @@ class ShardedExecutor:
     :meth:`run_resilient` runs the same strata through the fault-tolerant
     driver of ``runtime/recovery.py``.
 
-    ``backend="shard_map"`` is the torch.distributed backend of ROADMAP
-    slice 3 and raises.
+    ``backend="shard_map"`` runs over a ``torch.distributed`` group:
+    ``mesh`` (``launch.mesh.ShardMesh``; None = ``flat_mesh`` over the
+    default group, on the inputs' device) gives each rank a contiguous
+    block of the shards.  The
+    caller hands every rank the same global ``[S, ...]`` state and
+    immutable trees; a rank computes its block on ``mesh.device``, swaps
+    segments with ``all_to_all_single``, reduces the rung choice, live
+    count and emitted count with ``all_reduce``, and every rank returns
+    the same global result (the final state all-gathered).  Rank 0's
+    ``route_table`` decides the measured routes of every rank.  An
+    ``explicit_cond`` reads the all-gathered new and old states, so every
+    rank stops where the simulated backend stops.  A ``tracer`` gets one
+    span a stratum for the rank's own shards.  The resilient driver runs
+    on the simulated backend only (the shard_map twin is ROADMAP slice
+    8's).  ``axis_name`` is accepted for parity with the reference's
+    executor and read by nothing: a ``torch.distributed`` collective
+    addresses its group, not a named axis.
     """
 
     snapshot: PartitionSnapshot
     seg_capacity: int
     edge_capacity: int
     src_capacity: int
-    backend: str = "simulated"
+    backend: str = "simulated"     # "simulated" | "shard_map"
+    axis_name: str = "shards"      # unused (see above)
+    mesh: Optional[object] = dataclasses.field(
+        default=None, compare=False)   # launch.mesh.ShardMesh (shard_map)
     ladder_tiers: int = 1          # 1 = ladder off (single sparse rung)
     ladder_factor: int = 4         # capacity ratio between adjacent rungs
     ladder_src_floor: int = 64     # smallest useful src budget
@@ -219,22 +241,25 @@ class ShardedExecutor:
     # Rehash strategy selection (per capacity rung).
     # ------------------------------------------------------------------
     def pick_route_strategy(self, edge_capacity: int,
-                            combiner: Optional[str], device=None) -> str:
+                            combiner: Optional[str], device=None,
+                            table=None) -> str:
         """Physical combine-route implementation for a rung whose routed
         buffer holds ``edge_capacity`` slots, on ``device`` (which
-        "measured" holds its table's backend to)."""
+        "measured" holds its table's backend to); ``table`` None =
+        ``route_table``."""
         if self.route_strategy not in ("sort", "scatter", "auto",
                                        "measured"):
             raise ValueError(self.route_strategy)
         if combiner is None:
             return "sort"
         if self.route_strategy == "measured":
-            if self.route_table is None:
+            table = self.route_table if table is None else table
+            if table is None:
                 raise ValueError(
                     "route_strategy='measured' needs a route_table: build "
                     "one with repro_torch.obs.calibrate."
                     "calibrate_executor_table(executor, algo)")
-            return self.route_table.pick(edge_capacity, device=device)
+            return table.pick(edge_capacity, device=device)
         if self.route_strategy != "auto":
             return self.route_strategy
         slab = self.snapshot.padded_keys
@@ -278,83 +303,119 @@ class ShardedExecutor:
                                           combiner)
         return deltamod.route_by_owner(db, owners, S, seg_capacity)
 
-    def rehash_sparse_simulated(self, stacked: DeltaBuffer,
-                                seg_capacity: Optional[int] = None,
-                                combiner: Optional[str] = None,
-                                strategy: str = "sort"
-                                ) -> tuple[DeltaBuffer, torch.Tensor]:
-        """stacked: [S] leading axis of per-shard outgoing Δ -> (incoming Δ
-        [S, S*cap], globally summed routed delta count).  Each source's
-        routed segments are written straight into the swapped
-        [dst, src, cap] layout, so only one shard's routed buffer is alive
-        besides the result."""
-        S = self.snapshot.num_shards
+    def rehash_sparse(self, stacked: DeltaBuffer,
+                      seg_capacity: Optional[int] = None,
+                      combiner: Optional[str] = None,
+                      strategy: str = "sort", mesh=None
+                      ) -> tuple[DeltaBuffer, torch.Tensor]:
+        """stacked: this rank's [L] outgoing Δ -> (incoming Δ [L, S*cap]
+        in source-shard order, routed delta count summed over every rank);
+        ``mesh`` None = this executor's.  Each local source's routed
+        segments go straight into a send buffer [world, L_dst, L_src, cap]
+        ordered by destination rank, so only one shard's routed buffer is
+        alive besides it; one ``all_to_all`` each for keys, payload and
+        ann.  On the simulated backend (world 1, L = S) the buffer is the
+        swapped [dst, src, cap] layout itself and nothing is copied."""
+        mesh = self._mesh(stacked.keys) if mesh is None else mesh
+        S, L, world = self.snapshot.num_shards, mesh.shards_per_rank, \
+            mesh.world
         cap = self.seg_capacity if seg_capacity is None else seg_capacity
         dev = stacked.keys.device
         w = stacked.payload_width
-        keys = torch.empty((S, S, cap), dtype=torch.int32, device=dev)
-        payload = torch.empty((S, S, cap, w), dtype=stacked.payload.dtype,
-                              device=dev)
-        ann = torch.empty((S, S, cap), dtype=torch.int8, device=dev)
-        emitted = torch.zeros((), dtype=torch.int32, device=dev)
-        overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        for s in range(S):
+        keys = torch.empty((world, L, L, cap), dtype=torch.int32, device=dev)
+        payload = torch.empty((world, L, L, cap, w),
+                              dtype=stacked.payload.dtype, device=dev)
+        ann = torch.empty((world, L, L, cap), dtype=torch.int8, device=dev)
+        votes = torch.zeros((2,), dtype=torch.int32, device=dev)
+        for s in range(L):
             routed = self._route_one(_take(stacked, s), cap, combiner,
                                      strategy)
-            keys[:, s] = routed.keys.view(S, cap)
-            payload[:, s] = routed.payload.view(S, cap, w)
-            ann[:, s] = routed.ann.view(S, cap)
-            emitted += routed.count
-            overflow |= routed.overflowed
+            keys[:, :, s] = routed.keys.view(world, L, cap)
+            payload[:, :, s] = routed.payload.view(world, L, cap, w)
+            ann[:, :, s] = routed.ann.view(world, L, cap)
+            votes[0] += routed.count
+            votes[1] += routed.overflowed.to(torch.int32)
+        # Received [world_src, L_dst, L_src, cap] -> [L_dst, S_src * cap]
+        # (a view at world 1).
+        keys, payload, ann = (
+            mesh.all_to_all(x).transpose(0, 1)
+            .reshape((L, S * cap) + x.shape[4:])
+            for x in (keys, payload, ann))
+        emitted, overflow = mesh.all_reduce(votes, "sum")
         incoming = deltamod.recount(DeltaBuffer(
-            keys=keys.view(S, S * cap), payload=payload.view(S, S * cap, w),
-            ann=ann.view(S, S * cap), count=None,
-            overflowed=overflow.expand(S)))
+            keys=keys, payload=payload, ann=ann, count=None,
+            overflowed=(overflow > 0).expand(L)))
         return incoming, emitted
 
     # ------------------------------------------------------------------
     # Dense rehash: contribution vectors -> combined local blocks.
     # ------------------------------------------------------------------
-    def rehash_dense_simulated(self, contrib: torch.Tensor, combiner: str
-                               ) -> torch.Tensor:
-        """contrib: [S_src, n_padded, W] -> incoming [S_dst, block, W]."""
+    def rehash_dense(self, contrib: torch.Tensor, combiner: str, mesh=None
+                     ) -> torch.Tensor:
+        """contrib: this rank's [L_src, n_padded, W] -> incoming [L_dst,
+        block, W], combined over all S sources in source order; ``mesh``
+        None = this executor's."""
+        mesh = self._mesh(contrib) if mesh is None else mesh
         S, block = self.snapshot.num_shards, self.snapshot.block_size
-        seg = contrib.reshape(S, S, block, contrib.shape[-1])
-        return _dense_combine(seg.transpose(0, 1), combiner, dim=1)
+        L, world, w = mesh.shards_per_rank, mesh.world, contrib.shape[-1]
+        send = contrib.reshape(L, world, L, block, w).transpose(0, 1)
+        seg = mesh.all_to_all(send)
+        return _dense_combine(seg.reshape(S, L, block, w).transpose(0, 1),
+                              combiner, dim=1)
 
     # ------------------------------------------------------------------
     # Stratum assembly.
     # ------------------------------------------------------------------
-    def _check_supported(self) -> None:
+    def _check_resilient(self) -> None:
         if self.backend == "shard_map":
             raise NotImplementedError(
-                "backend='shard_map' is the torch.distributed backend of "
-                "ROADMAP queue 1, slice 3")
-        if self.backend != "simulated":
+                "resilient runs on backend='shard_map' replicate per-shard "
+                "state across processes that can die: ROADMAP queue 1, "
+                "slice 8")
+
+    def _mesh(self, tree):
+        """The mesh the strata run over: on the simulated backend every
+        shard in this process on the device of ``tree`` (the caller's
+        inputs); on shard_map ``mesh``, or with none given the flat mesh
+        over the default group on that device."""
+        from repro_torch.launch.mesh import flat_mesh, local_mesh
+        if self.backend == "simulated":
+            return local_mesh(self.snapshot.num_shards, _device_of(tree))
+        if self.backend != "shard_map":
             raise ValueError(self.backend)
+        if self.mesh is not None:
+            return self.mesh
+        return flat_mesh(self.snapshot.num_shards, device=_device_of(tree))
 
     def run(self, algo: DeltaAlgorithm, state0, live0, immutable,
             max_iters: int, mode: str = "delta",
             explicit_cond: Optional[Callable] = None) -> FixpointResult:
-        """state0 / immutable carry a leading [S] shard axis."""
+        """state0 / immutable carry a leading [S] shard axis on both
+        backends (shard_map takes each rank's block of it)."""
         if mode not in ("delta", "nodelta"):
             raise ValueError(mode)
-        stratum_fn = self.make_stratum_fn(algo, immutable, mode,
-                                          explicit_cond)
+        mesh = self._mesh(immutable)
+        state, immutable = _local(state0, mesh), _local(immutable, mesh)
+        stratum_fn = self._stratum(algo, immutable, mode, mesh,
+                                   explicit_cond)
         if self.tracer is not None:
             # Anchor the timeline here, so the first span excludes host
             # setup.
             self.tracer.mark_shards(self.snapshot.num_shards)
-        return run_strata(stratum_fn, state0, live0, max_iters,
-                          tracer=self.tracer)
+        res = run_strata(stratum_fn, state, live0, max_iters,
+                         tracer=self.tracer)
+        return res._replace(state=_gathered(res.state, mesh))
 
     def live_count(self, algo: DeltaAlgorithm, state, immutable
                    ) -> torch.Tensor:
         """Globally reduced |Δ₀| of ``state``: the seed live count for
         :meth:`resume`."""
-        S = self.snapshot.num_shards
-        return _i32(sum(algo.active_fn(_take(state, s), _take(immutable, s))
-                        [0].to(torch.int32).sum() for s in range(S)))
+        mesh = self._mesh(immutable)
+        state, immutable = _local(state, mesh), _local(immutable, mesh)
+        count = _i32(sum(
+            algo.active_fn(_take(state, i), _take(immutable, i))
+            [0].to(torch.int32).sum() for i in range(_n_local(state))))
+        return mesh.all_reduce(count, "sum")
 
     def resume(self, algo: DeltaAlgorithm, warm_state, immutable,
                max_iters: int, mode: str = "delta",
@@ -368,13 +429,18 @@ class ShardedExecutor:
     def make_stratum_fn(self, algo: DeltaAlgorithm, immutable,
                         mode: str = "delta",
                         explicit_cond: Optional[Callable] = None):
-        """One-stratum function (state, idx) -> (state', outcome), the same
-        body :meth:`run` loops over."""
-        self._check_supported()
-        fn = self._stratum_simulated(algo, immutable, mode)
-        if explicit_cond is not None:
-            fn = with_explicit_condition(fn, explicit_cond)
-        return fn
+        """One-stratum function (state, idx) -> (state', outcome) over the
+        global state, the same body :meth:`run` loops over (on shard_map
+        each call computes the rank's block and all-gathers the result)."""
+        mesh = self._mesh(immutable)
+        fn = self._stratum(algo, _local(immutable, mesh), mode, mesh,
+                           explicit_cond)
+
+        def one(state, idx):
+            new_state, outcome = fn(_local(state, mesh), idx)
+            return _gathered(new_state, mesh), outcome
+
+        return one
 
     # ------------------------------------------------------------------
     # Fault-tolerant elastic execution (runtime/recovery.py driver).
@@ -400,6 +466,7 @@ class ShardedExecutor:
         ``ckpt_root`` must be a dedicated directory: the replica chain
         owns it and DELETES any existing contents at query start.
         """
+        self._check_resilient()
         from repro_torch.runtime.recovery import ResilientDriver
         driver = ResilientDriver(
             self, algo, state0, live0, immutable, max_iters, mode=mode,
@@ -415,50 +482,64 @@ class ShardedExecutor:
                          **resilient_kw):
         """:meth:`resume` (warm re-entry, Δ₀ from ``active_fn``) through
         the fault-tolerant driver."""
+        self._check_resilient()
         live0 = self.live_count(algo, warm_state, immutable)
         return self.run_resilient(algo, warm_state, live0, immutable,
                                   max_iters, mode=mode,
                                   explicit_cond=explicit_cond,
                                   **resilient_kw)
 
-    # ---- simulated backend ------------------------------------------------
-    def _stratum_simulated(self, algo: DeltaAlgorithm, immutable, mode):
+    # ---- the stratum body, on either backend ------------------------------
+    def _stratum(self, algo: DeltaAlgorithm, immutable, mode, mesh,
+                 explicit_cond: Optional[Callable] = None):
+        """(state, idx) -> (state', outcome) over ``mesh``'s block of the
+        shards (all S on the simulated backend): ``state`` and
+        ``immutable`` hold that block, and the outcome's values are
+        reduced over every rank."""
+        from repro_torch.launch.mesh import local_shards
         S = self.snapshot.num_shards
         tiers = self.capacity_tiers(algo)
-        shards = range(S)
-        imm = [_take(immutable, s) for s in shards]
+        first = local_shards(mesh).start
+        shards = range(_n_local(immutable))
+        imm = [_take(immutable, i) for i in shards]
         tracer = self.tracer
         device = _device_of(immutable)
         # Sender-side combiner (§5.2) fused into the route.
         combiner = (algo.combiner
                     if algo.combiner in ("add", "min", "max") else None)
+        table = self.route_table
+        if self.route_strategy == "measured":
+            table = mesh.broadcast_object(table)   # every rank routes alike
+        reduced = mesh.all_reduce
 
         def apply_all(apply_fn, partial, incoming, stratum):
-            outs = [apply_fn(_take(partial, s), _take(incoming, s), imm[s],
-                             stratum, s) for s in shards]
+            outs = [apply_fn(_take(partial, i), _take(incoming, i), imm[i],
+                             stratum, first + i) for i in shards]
             return (_stack([o[0] for o in outs]),
                     _i32(sum(o[1] for o in outs)))
 
         def make_sparse_body(tier: CapacityTier, tier_idx: int):
             emit_fn = self._emit_fn(algo, tier)
-            strategy = self.pick_route_strategy(tier.edge, combiner, device)
+            strategy = self.pick_route_strategy(tier.edge, combiner, device,
+                                                table)
             route_code = ROUTE_SCATTER if strategy == "scatter" \
                 else ROUTE_SORT
 
             def sparse_body(state, stratum, active):
-                parts = [emit_fn(_take(state, s), imm[s], active[s], stratum,
-                                 s) for s in shards]
+                parts = [emit_fn(_take(state, i), imm[i], active[i], stratum,
+                                 first + i) for i in shards]
                 partial = _stack([p[0] for p in parts])
                 outgoing = _stack([p[1] for p in parts])
                 del parts
-                incoming, emitted = self.rehash_sparse_simulated(
-                    outgoing, seg_capacity=tier.seg, combiner=combiner,
-                    strategy=strategy)
+                kw = dict(seg_capacity=tier.seg, combiner=combiner,
+                          strategy=strategy)
+                incoming, emitted = self.rehash_sparse(outgoing, mesh=mesh,
+                                                       **kw)
                 del outgoing
                 new_state, live = apply_all(algo.apply_sparse, partial,
                                             incoming, stratum)
                 return new_state, StratumOutcome(
-                    live_count=live, used_dense=False,
+                    live_count=reduced(live, "sum"), used_dense=False,
                     rehash_bytes=emitted.to(torch.float32)
                     * algo.bytes_per_delta,
                     emitted=emitted, tier=tier_idx, route=route_code)
@@ -470,37 +551,39 @@ class ShardedExecutor:
                       else algo.dense_emit)
 
         def dense_body(state, stratum, active):
-            parts = [dense_emit(_take(state, s), imm[s], stratum, s)
-                     for s in shards]
+            parts = [dense_emit(_take(state, i), imm[i], stratum, first + i)
+                     for i in shards]
             partial = _stack([p[0] for p in parts])
             contrib = torch.stack([p[1] for p in parts])
             del parts
-            incoming = self.rehash_dense_simulated(contrib, algo.combiner)
+            incoming = self.rehash_dense(contrib, algo.combiner, mesh)
             n_padded = contrib.shape[1]
             del contrib
             new_state, live = apply_all(algo.apply_dense, partial, incoming,
                                         stratum)
+            emitted, live = reduced(torch.stack(
+                [_i32(active.to(torch.int32).sum()), live]), "sum")
             return new_state, StratumOutcome(
                 live_count=live, used_dense=True,
                 rehash_bytes=_f32(S * n_padded * algo.payload_width * 4),
-                emitted=_i32(active.to(torch.int32).sum()),
-                tier=-1, route=-1)
+                emitted=emitted, tier=-1, route=-1)
 
         bodies = [make_sparse_body(t, i) for i, t in enumerate(tiers)]
 
         def stratum(state, stratum_idx):
-            found = [algo.active_fn(_take(state, s), imm[s]) for s in shards]
+            found = [algo.active_fn(_take(state, i), imm[i]) for i in shards]
             active = torch.stack([f[0] for f in found])
             if mode == "nodelta":
                 return dense_body(state, stratum_idx, active)
             # Smallest rung whose budgets cover the exact predicted sizes;
-            # one host read of (max sources, max edges) per stratum.  The
-            # seg budget is guarded too: one shard's emission can land
-            # entirely in one destination segment.
-            max_src, max_edges = torch.stack([
+            # one host read of (max sources, max edges) per stratum, the
+            # same on every rank.  The seg budget is guarded too: one
+            # shard's emission can land entirely in one destination
+            # segment.
+            max_src, max_edges = reduced(torch.stack([
                 active.to(torch.int32).sum(1).max(),
                 torch.stack([f[1] for f in found]).max().to(torch.int32),
-            ]).tolist()
+            ]), "max").tolist()
             branch = sum(1 for t in tiers
                          if not (max_src <= t.src
                                  and max_edges <= min(t.edge, t.seg)))
@@ -508,27 +591,70 @@ class ShardedExecutor:
                 return dense_body(state, stratum_idx, active)
             return bodies[branch](state, stratum_idx, active)
 
-        if tracer is None:
-            return stratum
+        fn = stratum
+        if tracer is not None:
+            def fn(state, stratum_idx):
+                tracer.stratum_begin(device)
+                new_state, outcome = stratum(state, stratum_idx)
+                tracer.stratum_probe(stratum_idx, outcome)
+                return new_state, outcome
 
-        def traced(state, stratum_idx):
-            tracer.stratum_begin(device)
-            new_state, outcome = stratum(state, stratum_idx)
-            tracer.stratum_probe(stratum_idx, outcome)
-            return new_state, outcome
+        if explicit_cond is None:
+            return fn
 
-        return traced
+        def cond(new, old, i):
+            # Over the global states, so every rank decides alike, and as
+            # the simulated backend decides.
+            return explicit_cond(_gathered(new, mesh), _gathered(old, mesh),
+                                 i)
+
+        return with_explicit_condition(fn, cond)
+
+
+def _n_local(tree) -> int:
+    """The length of ``tree``'s leading shard axis."""
+    return _first_tensor(tree).shape[0]
+
+
+def _map(tree, fn):
+    """``fn`` over every tensor of a tensor / NamedTuple / dataclass."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        parts = [_map(x, fn) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _map(getattr(tree, f.name), fn)
+                             for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _local(tree, mesh):
+    """This rank's block of a global [S, ...] tree, on its device (a view
+    of the whole tree on the simulated backend)."""
+    from repro_torch.launch.mesh import local_shards
+    r = local_shards(mesh)
+    return _map(tree, lambda t: t[r.start:r.stop].to(mesh.device))
+
+
+def _gathered(tree, mesh):
+    """Every rank's block of ``tree`` concatenated into the global tree."""
+    return _map(tree, mesh.all_gather)
+
+
+def _first_tensor(tree) -> torch.Tensor:
+    if torch.is_tensor(tree):
+        return tree
+    parts = (tree if isinstance(tree, tuple) else
+             [getattr(tree, f.name) for f in dataclasses.fields(tree)])
+    return _first_tensor(next(p for p in parts
+                              if torch.is_tensor(p) or isinstance(p, tuple)
+                              or dataclasses.is_dataclass(p)))
 
 
 def _device_of(tree) -> torch.device:
     """The device of the first tensor in ``tree``."""
-    if torch.is_tensor(tree):
-        return tree.device
-    parts = (tree if isinstance(tree, tuple) else
-             [getattr(tree, f.name) for f in dataclasses.fields(tree)])
-    return _device_of(next(p for p in parts
-                           if torch.is_tensor(p) or isinstance(p, tuple)
-                           or dataclasses.is_dataclass(p)))
+    return _first_tensor(tree).device
 
 
 def _f32(x) -> float:

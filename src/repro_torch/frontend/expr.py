@@ -22,12 +22,23 @@ import dataclasses
 import operator as _operator
 from typing import Callable, Mapping, Optional, Set
 
+import torch
+
 #: builtin per-vertex attributes usable in terms: out-degree (clamped ≥1,
 #: as the handwritten algorithms do) and the global vertex id.
 BUILTINS = ("deg", "id")
 
+
+def _truediv(a, b):
+    """``a / b``, a true division also for a number over a tensor (which
+    ``Tensor.__rtruediv__`` computes as a product with a reciprocal)."""
+    if torch.is_tensor(b) and not torch.is_tensor(a):
+        a = torch.full_like(b, a)
+    return a / b
+
+
 _OPS: Mapping[str, Callable] = {"+": _operator.add, "-": _operator.sub,
-                                "*": _operator.mul, "/": _operator.truediv}
+                                "*": _operator.mul, "/": _truediv}
 _PREC = {"+": 1, "-": 1, "*": 2, "/": 2}
 
 

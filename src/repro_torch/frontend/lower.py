@@ -40,15 +40,20 @@ folds through ``kernels/delta_scatter`` (the incoming buffer's global keys,
 caches afresh per shard and graph; otherwise the torch-op functions of
 ``emission.py`` run.
 
-Rounding of the value view.  The reference compiles its strata, and its
-compiler contracts ``c0 + c1 * x`` (two constants) into one fused
-multiply-add, while ``values`` runs outside the strata and rounds the
-product and the sum apart.  So inside the five callables a view node of
-the shape ``Const + Const * e`` (either operand order of ``+`` and of
-``*``) is rounded once — computed in float64, where the float32 product is
+Rounding inside the strata.  The reference compiles its strata, and its
+compiler (XLA on the CPU) contracts a multiply that feeds an add or a
+subtract into one fused multiply-add, while ``values`` runs outside the
+strata and rounds each step.  So the five callables evaluate the view and
+the rule term through :func:`evaluate_contracted`, which follows the
+compiler's choices as read from the reference's output
+(``tests/test_torch_frontend_fma.py``): a constant-only subtree is one
+float32 constant; ``a * b + c``, ``c + a * b``, ``a * b - c`` and
+``c - a * b`` round once (computed in float64, where a float32 product is
 exact, then rounded to float32, as ``algorithms/pagerank.current_pr``
-does — and :meth:`CompiledProgram.values` rounds it twice.  Every other
-node is evaluated step by step in float32.
+does); ``a * b - c * d`` fuses the left product, and ``a * b + c * d`` the
+one that reads the recursive relation; in the nodelta strata a product of
+deg() and constants alone rounds by itself (the compiler hoists it out of
+the loop).  :meth:`CompiledProgram.values` evaluates step by step.
 """
 from __future__ import annotations
 
@@ -87,39 +92,55 @@ def _as_col(val, like: torch.Tensor) -> torch.Tensor:
         like.shape).clone()
 
 
-def _contracted(expr: E.Expr):
-    """``(c0, c1, e)`` when ``expr`` is ``c0 + c1 * e`` with constants
-    ``c0`` and ``c1`` (either operand order of ``+`` and of ``*``), else
-    None."""
-    if not (isinstance(expr, E.BinOp) and expr.op == "+"):
-        return None
-    for add, mul in ((expr.lhs, expr.rhs), (expr.rhs, expr.lhs)):
-        if not (isinstance(add, E.Const) and isinstance(mul, E.BinOp)
-                and mul.op == "*"):
-            continue
-        for c, e in ((mul.lhs, mul.rhs), (mul.rhs, mul.lhs)):
-            if isinstance(c, E.Const):
-                return add.value, c.value, e
-    return None
+def _const_only(expr: E.Expr) -> bool:
+    return not E.refs(expr)
 
 
-def evaluate_fused(expr: E.Expr, env):
-    """:func:`expr.evaluate`, but each ``c0 + c1 * e`` node whose ``e`` is
-    a tensor rounds once (a fused multiply-add, as the reference's compiled
-    strata do): float32 constants, the product exact in float64, one
-    rounding to the tensor's dtype."""
-    fused = _contracted(expr)
-    if fused is not None:
-        c0, c1, e = fused
-        x = evaluate_fused(e, env)
-        if torch.is_tensor(x):
-            return (x.double() * float(np.float32(c1))
-                    + float(np.float32(c0))).to(x.dtype)
-        return c0 + c1 * x
-    if isinstance(expr, E.BinOp):
-        return E._OPS[expr.op](evaluate_fused(expr.lhs, env),
-                               evaluate_fused(expr.rhs, env))
-    return E.evaluate(expr, env)
+def _invariant(expr: E.Expr) -> bool:
+    """Reads deg() and constants alone: the same in every stratum."""
+    return {r.rel for r in E.refs(expr)} <= {"deg"}
+
+
+def _wide(x):
+    """``x`` in float64 (a float32 tensor or product is exact there)."""
+    return x.double() if torch.is_tensor(x) else x
+
+
+def evaluate_contracted(expr: E.Expr, env, hoisted: bool = False):
+    """:func:`expr.evaluate` under the contraction rule of the reference's
+    compiled strata (module docstring).
+
+    A constant-only subtree folds in Python floats and rounds to float32
+    once.  A ``+`` or ``-`` node with a product operand rounds once, the
+    product and the sum taken in float64.  With two products, ``-`` fuses
+    its left one, and ``+`` the one that reads the recursive relation
+    (else its left one).  ``hoisted``: a product of deg() and constants
+    alone rounds by itself, as it does where the reference's compiler
+    hoists it out of the fixpoint loop (the nodelta strata)."""
+    if _const_only(expr):
+        return float(np.float32(E.evaluate(expr, {})))
+    if not isinstance(expr, E.BinOp):
+        return E.evaluate(expr, env)
+    lhs, rhs = expr.lhs, expr.rhs
+
+    def fusable(e):
+        return (isinstance(e, E.BinOp) and e.op == "*"
+                and not _const_only(e) and not (hoisted and _invariant(e)))
+
+    if expr.op in ("+", "-") and (fusable(lhs) or fusable(rhs)):
+        right = not fusable(lhs) or (
+            expr.op == "+" and fusable(rhs) and _invariant(lhs)
+            and not _invariant(rhs))
+        prod, other = (rhs, lhs) if right else (lhs, rhs)
+        sign = -1.0 if right and expr.op == "-" else 1.0
+        a, b, c = (evaluate_contracted(e, env, hoisted)
+                   for e in (prod.lhs, prod.rhs, other))
+        like = next(x for x in (a, b, c) if torch.is_tensor(x))
+        ab = _wide(a) * _wide(b) * sign
+        return (ab - _wide(c) if expr.op == "-" and not right
+                else ab + _wide(c)).to(like.dtype)
+    return E._OPS[expr.op](evaluate_contracted(lhs, env, hoisted),
+                           evaluate_contracted(rhs, env, hoisted))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,7 +246,7 @@ class CompiledProgram:
             return store
         tbl = operators.apply_function(
             operators.Table.from_columns(store=store),
-            lambda s: {"cur": evaluate_fused(spec.view, {spec.head: s})},
+            lambda s: {"cur": evaluate_contracted(spec.view, {spec.head: s})},
             ("store",))
         return tbl.column("cur")
 
@@ -299,7 +320,7 @@ class CompiledProgram:
         # torch would launch its clamp and cast in every stratum.
         uses_deg = any(r.rel == "deg" for r in E.refs(spec.term))
 
-        def term_payload(value_col, graph: CSRGraph):
+        def term_payload(value_col, graph: CSRGraph, hoisted=False):
             cols = {"value": value_col}
             if uses_deg:
                 cols["deg"] = torch.clamp(graph.out_degree, min=1).to(
@@ -307,7 +328,9 @@ class CompiledProgram:
             tbl = operators.apply_function(
                 operators.Table.from_columns(**cols),
                 lambda v, d=None: {"payload": _as_col(
-                    E.evaluate(spec.term, {spec.value_rel: v, "deg": d}), v)},
+                    evaluate_contracted(spec.term,
+                                        {spec.value_rel: v, "deg": d},
+                                        hoisted), v)},
                 tuple(cols))
             return tbl.column("payload")
 
@@ -333,19 +356,21 @@ class CompiledProgram:
                 return (store, new_sent), out
             return sparse_emit
 
-        def dense_emit(state, graph: CSRGraph, stratum, shard_id):
-            store, sent = state
-            cur = view_of(store)
-            payload = term_payload(cur, graph)
-            if use_kernels:
-                contrib = edge_propagate(payload, csc.get(shard_id, graph),
-                                         combiner)
-            else:
-                dst, pay = emission.dense_push(graph, payload)
-                contrib = emission.fold(
-                    pay.new_full((n_padded, 1), fill), dst, pay[:, None],
-                    combiner)[:, 0]
-            return (store, cur), contrib[:, None]
+        def make_dense_emit(hoisted: bool):
+            def dense_emit(state, graph: CSRGraph, stratum, shard_id):
+                store, sent = state
+                cur = view_of(store)
+                payload = term_payload(cur, graph, hoisted)
+                if use_kernels:
+                    contrib = edge_propagate(
+                        payload, csc.get(shard_id, graph), combiner)
+                else:
+                    dst, pay = emission.dense_push(graph, payload)
+                    contrib = emission.fold(
+                        pay.new_full((n_padded, 1), fill), dst,
+                        pay[:, None], combiner)[:, 0]
+                return (store, cur), contrib[:, None]
+            return dense_emit
 
         def fold_sparse(store, incoming: DeltaBuffer, shard_id):
             if not use_kernels:
@@ -388,9 +413,12 @@ class CompiledProgram:
         return DeltaAlgorithm(
             active_fn=active_fn,
             sparse_emit=make_sparse_emit(src_capacity, edge_capacity),
-            dense_emit=dense_emit, apply_sparse=apply_sparse,
+            dense_emit=make_dense_emit(False), apply_sparse=apply_sparse,
             apply_dense=apply_dense, combiner=combiner, payload_width=1,
-            bytes_per_delta=8, emit_factory=make_sparse_emit)
+            bytes_per_delta=8, emit_factory=make_sparse_emit,
+            # The nodelta stratum is the reference's loop body itself, so
+            # its compiler hoists the term's deg()-only products.
+            nodelta_dense_emit=make_dense_emit(True))
 
     # ------------------------------------------------------------------
     # End-to-end driver (mirrors algorithms/*.run).

@@ -168,17 +168,22 @@ class GraphRuleBase(IncrementalRule):
         # failures without losing the in-flight repair.
         self.resilient_root = p.get("resilient_root")
         self.use_kernels = bool(p.get("use_kernels", True))
-        # The simulated backend is the one the port runs; ``mesh`` and
-        # ``axis_name`` are accepted and mean nothing there.  shard_map
-        # raises here, before any run, as the engine does.
+        # backend / mesh / axis_name flow through to both executors.  On
+        # shard_map, mesh None = the flat mesh over the default process
+        # group on the view's device (a ValueError if no group is
+        # initialised); on the simulated backend they mean nothing, and
+        # the executors read no axis_name on either.
         backend = p.get("backend", "simulated")
-        if backend == "shard_map":
-            raise NotImplementedError(
-                "backend='shard_map' is the torch.distributed backend of "
-                "ROADMAP queue 1, slice 3")
-        if backend != "simulated":
+        if backend not in ("simulated", "shard_map"):
             raise ValueError(backend)
-        kw = dict(backend=backend, route_strategy=self.route_strategy,
+        axis_name = p.get("axis_name") or "shards"
+        mesh = p.get("mesh")
+        if backend == "shard_map" and mesh is None:
+            from repro_torch.launch.mesh import flat_mesh
+            mesh = flat_mesh(S, device=view.device)
+        kw = dict(backend=backend, axis_name=axis_name,
+                  mesh=mesh if backend == "shard_map" else None,
+                  route_strategy=self.route_strategy,
                   use_kernels=self.use_kernels)
         self.executor = ShardedExecutor(
             snapshot=self.snapshot, seg_capacity=self.edge_capacity,

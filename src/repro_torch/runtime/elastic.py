@@ -9,7 +9,8 @@ exactly, and ``migrate_route_buffers`` re-routes in-flight delta buffers
 through the engine's own ``combine_route`` under the new snapshot.
 
 ``reshard_tree`` (re-committing a parameter tree onto a new device mesh)
-needs the multi-device backend of ROADMAP slice 3 and raises.
+needs ``launch/sharding.py``'s partition specs (ROADMAP slice 9b) and
+raises.
 """
 from __future__ import annotations
 
@@ -97,5 +98,5 @@ def reshard_tree(tree, mesh, spec_fn):
     """Re-commit a parameter tree onto a new device mesh: the training-side
     elastic move."""
     raise NotImplementedError(
-        "reshard_tree needs a device mesh, the multi-device backend of "
-        "ROADMAP queue 1, slice 3")
+        "reshard_tree needs launch/sharding.py's partition specs: ROADMAP "
+        "queue 1, slice 9b (sharding.py)")

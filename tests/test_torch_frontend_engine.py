@@ -7,7 +7,7 @@ reference, a compiled program under the resilient driver against the
 reference's, a rerun on a second graph against a fresh run
 (edge_propagate's cached CSC must follow the graph), the raw plan against
 the optimized one, facts outside the key space, constant-only terms, and
-the shard_map backend, which raises.
+the shard_map backend on a world of one rank.
 """
 import gc
 
@@ -236,10 +236,22 @@ def test_constant_terms_and_inits(setup):
         assert set(tv.unique().tolist()) == {1.0, 2.0, 5.0}
 
 
-def test_shard_map_backend_raises(setup):
+def test_shard_map_world1_equals_reference(setup, tmp_path):
+    """A compiled program on the shard_map backend, a gloo world of one
+    rank, equals the reference's compiled program (the simulated one)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group
     cp = TFe.compile_program(TFe.sssp_program())
-    ex = ShardedExecutor(snapshot=setup["snap"], seg_capacity=1024,
-                         backend="shard_map", **CAP)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        cp.run(setup["tg"], setup["snap"], executor=ex, device="cpu",
-               max_iters=4)
+    jv, jres = JFe.compile_program(JFe.sssp_program()).run(
+        setup["jg"], setup["jsnap"], max_iters=40, ladder_tiers=4, **CAP)
+    init_shard_group("gloo", f"file://{tmp_path / 'pg'}", world_size=1,
+                     rank=0)
+    try:
+        ex = ShardedExecutor(snapshot=setup["snap"], seg_capacity=1024,
+                             backend="shard_map", ladder_tiers=4, **CAP)
+        tv, tres = cp.run(setup["tg"], setup["snap"], executor=ex,
+                          device="cpu", max_iters=40)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    assert_stats_equal(jres, tres)

@@ -817,3 +817,49 @@ def test_view_repair_on_card_matches_cpu(cuda, algo, resume):
                     getattr(views["cpu"].last_result.stats, f))
     if resume == "dense":
         assert dense_repairs == 2
+
+
+@pytest.mark.parametrize("route", ["auto", "sort"])
+def test_shard_map_world1_nccl_matches_simulated(cuda, route, tmp_path):
+    """The shard_map backend over NCCL, a world of one rank on cuda:0:
+    SSSP and CC equal the simulated backend's run exactly (values and
+    every stats column; min is order-free), nodelta PageRank too (the
+    dense body has no atomics), delta PageRank within 1e-5 relative at
+    threshold 1e-7; every graph kernel is launched."""
+    import torch.distributed as dist
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.core.fixpoint import StratumStats
+    from repro_torch.launch.mesh import flat_mesh, init_shard_group
+    n, S = 4096, 8
+    indptr, indices = make_powerlaw_graph(n, avg_degree=8.0, seed=1)
+    snap = PartitionSnapshot(n_keys=n, num_shards=S)
+    g = shard_csr(indptr, indices, S, device=cuda)
+    cap = dict(edge_capacity=4 * n, src_capacity=snap.block_size)
+    ex = dict(snapshot=snap, seg_capacity=4 * n, ladder_tiers=4,
+              route_strategy=route, **cap)
+    init_shard_group("nccl", f"file://{tmp_path / 'pg'}", world_size=1,
+                     rank=0)
+    try:
+        smap = ShardedExecutor(backend="shard_map", mesh=flat_mesh(S), **ex)
+        before = [c.launches for c in (sr_ops, dr_ops, ds_ops, ep_ops)]
+        for run, kw, exact in (
+                (sssp.run, dict(source=0), True),
+                (cc.run, {}, True),
+                (pagerank.run, dict(mode="nodelta"), True),
+                (pagerank.run, dict(threshold=1e-7, max_iters=200), False)):
+            want = run(g, snap, executor=ShardedExecutor(**ex), **cap, **kw)
+            got = run(g, snap, executor=smap, **cap, **kw)
+            if exact:
+                assert torch.equal(want[0], got[0])
+                for f in StratumStats._fields:
+                    assert torch.equal(getattr(want[1].stats, f),
+                                       getattr(got[1].stats, f)), f
+            else:
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                           atol=0)
+        after = [c.launches for c in (sr_ops, dr_ops, ds_ops, ep_ops)]
+    finally:
+        dist.destroy_process_group()
+    route_kernel = 0 if route == "auto" else 1
+    assert after[route_kernel] > before[route_kernel]
+    assert after[2] > before[2] and after[3] > before[3]

@@ -528,11 +528,31 @@ def test_query_cache_and_noop_refresh():
     assert mgr.query("pr") is not q0
 
 
-def test_shard_map_backend_raises():
+def test_shard_map_view_world1_equals_simulated(tmp_path):
+    """A view on the shard_map backend, a gloo world of one rank, replays
+    the simulated view's cold run and repair; without a process group it
+    raises, and an unknown backend raises."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group
     indptr, indices = make_powerlaw_graph(64, avg_degree=3, seed=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="process group"):
         port_view("sssp", indptr, indices, 64, True, backend="shard_map",
                   mesh=None, axis_name="shards")
+    init_shard_group("gloo", f"file://{tmp_path / 'pg'}", world_size=1,
+                     rank=0)
+    try:
+        got = []
+        for params in ({}, dict(backend="shard_map", mesh=None,
+                                axis_name="shards")):
+            mgr, view = port_view("sssp", indptr, indices, 64, True,
+                                  source=0, **params)
+            mgr.mutate("v", EdgeInsert(0, 9), EdgeInsert(9, 33))
+            mgr.refresh("v", force="repair")
+            got.append(snapshot(view))
+        assert view.rule.resume_executor.backend == "shard_map"
+    finally:
+        dist.destroy_process_group()
+    assert_same(*got)
     with pytest.raises(ValueError):
         port_view("sssp", indptr, indices, 64, True, backend="pmap")
     # mesh and axis_name mean nothing on the simulated backend.

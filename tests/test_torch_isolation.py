@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
 A subprocess imports ``repro_torch`` (observability and runtime included)
-and runs a tiny PageRank, a traced resilient PageRank with one failure and
+and runs a tiny PageRank (also on the shard_map backend, over a gloo world
+of one rank), a traced resilient PageRank with one failure and
 adsorption on the CPU, two journaled views restored, and reachability
 compiled from its rule text, then reports which modules were loaded; a
 source scan finds no import of ``jax`` or ``repro``; the entry points
@@ -85,7 +86,20 @@ cp = F.compile_program(F.parse_program(F.REACHABILITY_TEXT))
 reach, _ = cp.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
                   device="cpu", max_iters=40, route_strategy="auto",
                   ladder_tiers=2, edge_capacity=512, src_capacity=128)
+import torch.distributed as dist
+from repro_torch.launch.mesh import flat_mesh, init_shard_group
+with tempfile.TemporaryDirectory() as td:
+    init_shard_group("gloo", "file://" + td + "/pg", world_size=1, rank=0)
+    smap = ShardedExecutor(snapshot=snap, seg_capacity=512, edge_capacity=512,
+                           src_capacity=128, ladder_tiers=2,
+                           route_strategy="auto", backend="shard_map",
+                           mesh=flat_mesh(2, device="cpu"))
+    pr_smap, res_smap = pagerank.run(
+        shard_csr(indptr, indices, 2, device="cpu"), snap, device="cpu",
+        max_iters=5, edge_capacity=512, src_capacity=128, executor=smap)
+    dist.destroy_process_group()
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
+                  "shard_map_equal": bool(torch.equal(pr, pr_smap)),
                   "lm": list(toks.shape),
                   "resilient": rr.metrics["recoveries"],
                   "adsorption": list(vec.shape), "views": views,
@@ -105,6 +119,7 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["adsorption"] == [256, 4]
     assert got["views"] == {"km": 1, "sp": 1}
     assert got["reached"] > 1
+    assert got["shard_map_equal"]
     bad = [m for m in got["mods"]
            if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
            or m in ("repro", "ml_dtypes")]
@@ -134,6 +149,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     from repro_torch.frontend import compile_program, reachability_program
     from repro_torch.incremental import ViewManager
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_shard_group
     from repro_torch.models import transformer
     from repro_torch.obs import calibrate_route_table
     from repro_torch.runtime import chaos
@@ -154,6 +170,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                  lambda: reach.initial_state(snap),
                  lambda: adsorption.initial_state(snap, torch.zeros(64, 4)),
                  lambda: calibrate_route_table(snap, [64]),
+                 lambda: init_shard_group(),
                  lambda: chaos.main(["--quick", "--nodes", "64"]),
                  lambda: ViewManager().create_graph_view(
                      "v", "sssp", indptr, indices, 64, num_shards=2),

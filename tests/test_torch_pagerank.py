@@ -8,6 +8,7 @@ Iterations and every per-stratum statistic must be equal; the values
 within 1 ulp (float adds; the port keeps the reference's order, so they
 come out equal).
 """
+import dataclasses
 import gc
 
 import numpy as np
@@ -151,26 +152,72 @@ def test_stats_helpers_match_reference():
     assert int(e.iterations) == 0 and e.tiers.tolist() == [-1] * 4
 
 
+@pytest.fixture
+def world1(tmp_path):
+    """A gloo group of one rank, this process, for the shard_map backend."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group
+    init_shard_group("gloo", f"file://{tmp_path / 'pg'}", world_size=1,
+                     rank=0)
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kw,call", [
     (dict(backend="shard_map"), "run"),
     (dict(backend="shard_map", tracer="tracer"), "run"),
     (dict(backend="shard_map", route_strategy="measured"), "run"),
     (dict(backend="shard_map"), "run_resilient")])
-def test_unported_paths_raise(setup, kw, call, tmp_path):
-    """The shard_map backend (slice 3) raises on every entry path: plain,
-    traced, measured routing and resilient."""
+def test_shard_map_world1_equals_simulated(setup, kw, call, tmp_path,
+                                           world1):
+    """The shard_map backend on a world of one rank equals the simulated
+    backend bit for bit, and the reference's run (values within 1 ulp,
+    stats exactly), on the plain, traced and measured-routing paths; its
+    resilient runs raise (ROADMAP slice 8)."""
+    from repro_torch.launch.mesh import flat_mesh
     from repro_torch.obs import Tracer
+    from repro_torch.obs.calibrate import RouteCostTable
     snap = setup["snap"]
+    kw = dict(kw, mesh=flat_mesh(S, device="cpu"))
     if kw.get("tracer"):
         kw = dict(kw, tracer=Tracer())
+    route = "sort"
+    if kw.get("route_strategy") == "measured":
+        # Scatter measured faster on every rung: the routes "auto" picks.
+        route = "auto"
+        kw = dict(kw, route_table=RouteCostTable(
+            backend="cpu", combiner="add",
+            entries={c: (1.0, 0.5) for c in (128, 512, 2048)}))
     ex = ShardedExecutor(snapshot=snap, seg_capacity=2048, edge_capacity=2048,
-                         src_capacity=256, **kw)
-    algo = TP.make_algorithm(snap)
-    extra = ({"ckpt_root": str(tmp_path / "c")} if call == "run_resilient"
-             else {})
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        getattr(ex, call)(algo, TP.initial_state(snap, "cpu"), 1,
-                          setup["tg"], 2, **extra)
+                         src_capacity=256, ladder_tiers=4, **kw)
+    algo = TP.make_algorithm(snap, src_capacity=256, edge_capacity=2048)
+    args = (algo, TP.initial_state(snap, "cpu"), snap.padded_keys,
+            setup["tg"], 60)
+    if call == "run_resilient":
+        with pytest.raises(NotImplementedError, match="slice 8"):
+            ex.run_resilient(*args, ckpt_root=str(tmp_path / "c"))
+        return
+    sim = dataclasses.replace(ex, backend="simulated", mesh=None,
+                              tracer=None)
+    want, got = sim.run(*args), ex.run(*args)
+    for a, b in zip(want.state, got.state):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    for f in TF.StratumStats._fields:
+        np.testing.assert_array_equal(getattr(want.stats, f).numpy(),
+                                      getattr(got.stats, f).numpy())
+    _, jres = _reference(setup, "delta", route)
+    for f in JF.StratumStats._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jres.stats, f)),
+                                      getattr(got.stats, f).numpy(),
+                                      err_msg=f)
+    for f in ("acc", "sent"):
+        np.testing.assert_array_max_ulp(np.asarray(getattr(jres.state, f)),
+                                        getattr(got.state, f).numpy(),
+                                        maxulp=1)
+    it = int(got.stats.iterations)
+    assert it > 10 and set(got.stats.tiers[:it].tolist()) - {-1}
+    if kw.get("tracer"):
+        assert sum(e["ph"] == "X" for e in kw["tracer"].events) == it
 
 
 def test_types_are_pinned(setup):

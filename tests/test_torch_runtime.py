@@ -194,7 +194,7 @@ class TestLeftForSlice8:
             chaos.RealChaosInjector(FaultSchedule(), cluster=None)
         with pytest.raises(NotImplementedError, match="slice 8"):
             chaos.main(["--real", "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(NotImplementedError, match="slice 9b"):
             elastic.reshard_tree({}, None, None)
 
     def test_chaos_cli_on_the_cpu(self, capsys):

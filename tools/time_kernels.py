@@ -2,7 +2,7 @@
 """Times edge_propagate, kmeans_assign, flash_attention and delta_scatter as
 chip_smoke.py's rows do, for any tree.
 
-    python3 tools/time_kernels.py [--src DIR] [--sass] [--phases]
+    python3 tools/time_kernels.py [--src DIR] [--sass] [--phases] [--dist]
 
 ``--src`` is the directory holding the ``repro_torch`` package to time
 (default: this checkout's ``src``), so that two versions of the kernels can
@@ -57,6 +57,10 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
   the profiler's Chrome trace), their summed device time, and the
   ``aten`` operators it called, nested ones included.  The rule phases
   need a tree whose ``repro_torch`` has the frontend.
+* ``--dist``: each phase of chip_smoke.py's DIST_PHASES (the shard_map
+  backend on a world of one rank over NCCL, its group on a ``file://``
+  store under ``build/``) in turns with its simulated twin, as the rule
+  phases are above; needs a tree with ``repro_torch.launch.mesh``.
 
 Prints the card and one JSON line.  Exits non-zero without CUDA.
 """
@@ -204,12 +208,11 @@ def device_activity(fn) -> dict:
             "aten_ops": len(ops)}
 
 
-def rules_pair(twin, twin_fn, name, rules_fn) -> dict:
-    """A compiled rule phase and its handwritten twin in turns (see the
-    module docstring): host-clock walls, answer differences, one profiled
-    run of each."""
+def twin_pair(twin, twin_fn, name, fn) -> dict:
+    """Phase ``name`` and its twin in turns (see the module docstring):
+    host-clock walls, answer differences, one profiled run of each."""
     import torch
-    runs = {twin: twin_fn, name: rules_fn}
+    runs = {twin: twin_fn, name: fn}
     for fn in runs.values():
         fn()
         torch.cuda.synchronize()
@@ -236,7 +239,7 @@ def rules_pair(twin, twin_fn, name, rules_fn) -> dict:
     print(f"{name} vs {twin}: " + "; ".join(
         f"{label} walls {[round(w, 4) for w in ws]} "
         f"{pair['profiled'][label]}" for label, ws in walls.items())
-        + f"; max|rules - twin| {pair['max_abs_diff_vs_twin']:.3e}, twin "
+        + f"; max|{name} - twin| {pair['max_abs_diff_vs_twin']:.3e}, twin "
         f"spread {pair['twin_spread']:.3e}", flush=True)
     del answers
     torch.cuda.empty_cache()
@@ -312,11 +315,45 @@ def scatter_row(cs, state, db, shard, combiner) -> dict:
     return out
 
 
+def dist_pairs(cs, graph, snap, dev) -> dict:
+    """Each DIST_PHASES phase in turns with its simulated twin, on a world
+    of one rank over NCCL."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.launch.mesh import flat_mesh, init_shard_group
+    cap = cs.capacities(snap)
+    compiled = cs.compiled_programs()
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        init_shard_group("nccl", f"file://{d}/store", world_size=1, rank=0)
+        try:
+            mesh = flat_mesh(snap.num_shards, device=dev)
+            for name, (twin, _) in cs.DIST_PHASES.items():
+                ex = ShardedExecutor(
+                    snapshot=snap, seg_capacity=cap["edge_capacity"],
+                    edge_capacity=cap["edge_capacity"],
+                    src_capacity=cap["src_capacity"], ladder_tiers=4,
+                    route_strategy="sort" if twin == "sssp_sort" else "auto",
+                    backend="shard_map", mesh=mesh)
+                twin_fn = (cs.rules_phase(twin, compiled, graph, snap, dev)
+                           if twin in cs.RULES_PHASES else
+                           cs.graph_phase(twin, graph, snap, dev)[2])
+                out[name] = twin_pair(twin, twin_fn, name, cs.dist_phase(
+                    name, graph, snap, dev, ex))
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--dist", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -364,11 +401,13 @@ def main(argv=None) -> int:
                 **cs.capacities(snap)))
         compiled = cs.compiled_programs()
         out["rules_pairs"] = {
-            name: rules_pair(
+            name: twin_pair(
                 twin, cs.graph_phase(twin, graph, snap, dev)[2], name,
                 cs.rules_phase(name, compiled, graph, snap, dev))
             for name, (_, _, _, twin, _) in cs.RULES_PHASES.items()
             if twin is not None}
+    if args.dist:
+        out["dist_pairs"] = dist_pairs(cs, graph, snap, dev)
     del graph
     torch.cuda.empty_cache()
 
