@@ -47,7 +47,11 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     PageRank exactly, values and every stats column; delta PageRank within
     PAGERANK_TWIN_BOUND (float atomics); each wall printed beside its
     twin's, with its peak memory, the NCCL version and the world size;
-    their launches go to the twins' groups;
+    their launches go to the twins' groups; then ``run_resilient`` on
+    that backend, shard 3 lost at half the strata:
+    ``dist_sssp_resilient`` (exactly ``dist_sssp``'s state and stats) and
+    ``dist_pagerank_resilient`` (within PAGERANK_TWIN_BOUND of
+    ``dist_pagerank``), the replica chain under the group's directory;
   - adsorption with 4 labels (a seed on every 100th vertex; threshold
     1e-3, at most 60 strata): ``adsorption_auto`` (scatter_route +
     delta_scatter, add at W = 4), ``adsorption_sort`` (delta_route +
@@ -70,6 +74,18 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     exactly the failure-free one, incremental recovery at 75 % doing less
     work than restart there; checkpoints in a directory under ``build/``,
     removed after;
+  - the multi-process launch (``launch/distributed.py``), worker
+    channels and replica chains under ``build/launch_*``, removed after:
+    ``launch_selftest`` (a worker process forms a world of one NCCL rank
+    on cuda:0 and reports its rank, device, shards and one all_gather),
+    ``sssp_real_kill`` (4 workers whose acks compute on the card; worker 1
+    SIGKILLed at stratum 2, found by its lease, recovered from replicas
+    and replaced by a new process; state and stats exactly
+    ``sssp_auto``'s) and ``sssp_chaos_real`` (``sssp_chaos``'s schedule
+    as real signals against one protocol worker a shard; the final state
+    exactly the failure-free one), each with its detection latency,
+    respawn wall, acks and ack timeouts, its wall beside its simulated
+    twin's (``sssp_recover_25``, ``sssp_chaos``);
 * incremental views (``repro_torch.incremental``, ``bench_incremental.py``'s
   setting) over a ``GraphStore`` of that graph, each view on its own copy:
   ``ViewManager(fallback_threshold=2.0)`` (every batch repairs), the cold
@@ -322,6 +338,27 @@ ADS_F32 = 1e-3
 # fractions of the failure-free strata.
 RECOVER_AT = (0.25, 0.5, 0.75)
 FAILED_SHARD = 1
+# The multi-process launch (launch/distributed.py): sssp_real_kill's
+# cluster of LAUNCH_WORKERS local-mode workers (each acks with a sum
+# computed on cuda:0), worker KILLED_WORKER SIGKILLed at the barrier of
+# stratum KILL_AT (sssp_recover_25's failure stratum, on the worker that
+# leases its shard 1 and shard 5), found by its lease alone; sssp_chaos_real
+# runs sssp_chaos's schedule as signals against one protocol worker a
+# shard.  Leases and acks: tests/test_distributed.py's settings.
+LAUNCH_WORKERS = 4
+KILLED_WORKER = 1
+KILL_AT = 2
+LAUNCH_HEALTH = dict(lease_ttl=1.0, straggle_after=0.3,
+                     heartbeat_interval=0.05, ack_timeout=0.5,
+                     ready_timeout=180.0)
+# The shard_map backend's resilient runs: phase -> (its failure-free
+# shard_map run, its simulated twin, launch group); shard 3 lost at half
+# the failure-free strata (tests/test_resilient.py's shard_map case).
+DIST_RESILIENT = {
+    "dist_sssp_resilient": ("dist_sssp", "sssp_recover_50", "min"),
+    "dist_pagerank_resilient": ("dist_pagerank", "delta_auto", "add"),
+}
+DIST_FAILED_SHARD = 3
 
 # Incremental views (bench_incremental.py's setting): one warm-up batch,
 # then VIEW_BATCHES measured ones, each inserting and deleting VIEW_FRAC / 2
@@ -1096,6 +1133,7 @@ def graph_section(args, dev, phases, rows):
     rows += sssp_kernel_checks(graph, snap, ex, algo, auto_res.stats)
     sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
                           indices)
+    launch_section(graph, snap, dev, phases, auto_res, indptr, indices)
     del auto_res
 
     # Connected components, exactly equal to a dense min-label iteration.
@@ -1147,7 +1185,9 @@ def dist_section(graph, snap, dev, phases, answers, backend="nccl"):
     """The shard_map backend on a world of one rank over NCCL: each phase
     of DIST_PHASES against its simulated twin of this run (``answers``
     holds the twins' answers by phase, ``sssp_auto``'s standing for every
-    SSSP twin; ``phases`` their walls and stats)."""
+    SSSP twin; ``phases`` their walls and stats), then the resilient
+    phases of DIST_RESILIENT against ``dist_sssp``'s and
+    ``dist_pagerank``'s answers, which go into ``answers``."""
     import tempfile
 
     import torch
@@ -1212,12 +1252,90 @@ def dist_section(graph, snap, dev, phases, answers, backend="nccl"):
                       f"{(wall - hand) / hand:+.1%}) launches {counts} "
                       f"peak_mem {peak:.2f} GiB world {mesh.world} "
                       f"{verdict}", flush=True)
+                if name in ("dist_sssp", "dist_pagerank"):
+                    answers[name] = vals
                 del vals, res
                 torch.cuda.empty_cache()
+            dist_resilient_phases(graph, snap, dev, phases, answers, mesh,
+                                  f"{td}/ckpt")
             if dev.type == "cuda":
                 exchange_timing(mesh, snap.num_shards, cap["edge_capacity"])
         finally:
             dist.destroy_process_group()
+
+
+def dist_resilient_phases(graph, snap, dev, phases, answers, mesh, ckpt):
+    """``run_resilient`` on the shard_map backend (DIST_RESILIENT): shard
+    DIST_FAILED_SHARD lost at half the failure-free strata, the replica
+    chain under ``ckpt``/rank0.  SSSP must equal ``dist_sssp`` exactly,
+    state and stats; PageRank lie within PAGERANK_TWIN_BOUND of
+    ``dist_pagerank`` (float atomics)."""
+    import shutil
+    import torch
+    from repro_torch.algorithms import pagerank, sssp
+    from repro_torch.core.engine import ShardedExecutor
+    from repro_torch.runtime import FaultPlan
+
+    cap = capacities(snap)
+    ex = ShardedExecutor(snapshot=snap, seg_capacity=cap["edge_capacity"],
+                         edge_capacity=cap["edge_capacity"],
+                         src_capacity=cap["src_capacity"], ladder_tiers=4,
+                         route_strategy="auto", backend="shard_map",
+                         mesh=mesh)
+    runs = {
+        "dist_sssp_resilient": (
+            sssp.make_algorithm(snap, cap["src_capacity"],
+                                cap["edge_capacity"]),
+            sssp.initial_state(snap, RUN_SETTINGS["sssp"]["source"], dev),
+            1, RUN_SETTINGS["sssp"]["max_iters"],
+            lambda st: st.dist.reshape(-1)),
+        "dist_pagerank_resilient": (
+            pagerank.make_algorithm(snap,
+                                    RUN_SETTINGS["pagerank"]["threshold"],
+                                    cap["src_capacity"],
+                                    cap["edge_capacity"]),
+            pagerank.initial_state(snap, dev), snap.padded_keys,
+            RUN_SETTINGS["pagerank"]["max_iters"],
+            lambda st: (pagerank.BASE + pagerank.DAMPING * st.acc)
+            .reshape(-1)),
+    }
+    needs = ("scatter_route", "delta_scatter")
+    for name, (run, twin, group) in DIST_RESILIENT.items():
+        algo, state0, live0, max_iters, values = runs[name]
+        plan = FaultPlan(fail_at=max(int(phases.stats[run].iterations) // 2,
+                                     1), failed_shard=DIST_FAILED_SHARD)
+        rr, wall, counts, peak = phases.run(
+            name, group, needs, lambda: ex.run_resilient(
+                algo, state0, live0, graph, max_iters,
+                ckpt_root=f"{ckpt}/{name}", fault_plan=plan),
+            warm_up=False)
+        m = rr.metrics
+        vals, want = values(rr.result.state), answers[run]
+        check(m["recoveries"] == 1, f"{name}: {m['recoveries']} recoveries")
+        if run == "dist_sssp":
+            stats_same = all(torch.equal(getattr(rr.result.stats, f),
+                                         getattr(phases.stats[run], f))
+                             for f in rr.result.stats._fields)
+            same = bool(torch.equal(vals, want))
+            verdict = f"equal_to_{run} {same} stats_equal {stats_same}"
+            check(same and stats_same, f"{name}: differs from {run}")
+        else:
+            diff = (vals - want).abs()
+            err = float((diff / want.abs().clamp(min=1)).max())
+            verdict = (f"vs {run}: rel {err:.3e} (bound "
+                       f"{PAGERANK_TWIN_BOUND}), "
+                       f"{int((diff > 0).sum())} values differ")
+            check(err <= PAGERANK_TWIN_BOUND, f"{name}: {err:.3e} off {run}")
+        print(f"phase {name}: {stats_line(rr.result.stats)} lost shard "
+              f"{DIST_FAILED_SHARD} at stratum {plan.fail_at} recoveries "
+              f"{m['recoveries']} recovery_wall {m['recovery_wall_s']:.3f} s "
+              f"bytes_replicated {m['bytes_replicated']} wall {wall:.3f} s "
+              f"({run} {phases.walls[run]:.3f} s, {twin} "
+              f"{phases.walls[twin]:.3f} s) launches {counts} peak_mem "
+              f"{peak:.2f} GiB world {mesh.world} {verdict}", flush=True)
+        shutil.rmtree(f"{ckpt}/{name}", ignore_errors=True)
+        del rr, vals
+        torch.cuda.empty_cache()
 
 
 def exchange_timing(mesh, S, cap) -> None:
@@ -1566,6 +1684,42 @@ def pagerank_obs_phases(graph, snap, dev, phases, ref, values):
     torch.cuda.empty_cache()
 
 
+def sssp_setup(sn, **extra):
+    """SSSP's executor (route ``auto``, ``extra`` added) and algorithm at
+    the phases' capacities for the snapshot ``sn``."""
+    from repro_torch.algorithms import sssp
+    from repro_torch.core.engine import ShardedExecutor
+    cap = capacities(sn)
+    ex = ShardedExecutor(snapshot=sn, seg_capacity=cap["edge_capacity"],
+                         edge_capacity=cap["edge_capacity"],
+                         src_capacity=cap["src_capacity"], ladder_tiers=4,
+                         route_strategy="auto", **extra)
+    return ex, sssp.make_algorithm(sn, cap["src_capacity"],
+                                   cap["edge_capacity"])
+
+
+def sssp_remaker(indptr, indices, dev):
+    """The ``remake`` of a resilient SSSP run: a new snapshot's executor,
+    algorithm and re-sharded graph."""
+    from repro_torch.data.graphs import shard_csr
+
+    def remake(new_snap):
+        return (*sssp_setup(new_snap), shard_csr(
+            indptr, indices, new_snap.num_shards, device=dev))
+    return remake
+
+
+def sssp_chaos_schedule(num_shards):
+    """``sssp_chaos``'s schedule: the acceptance schedule (a failure, a
+    correlated replica loss, a failure during that recovery), then an
+    elastic rescale to 4 shards."""
+    from repro_torch.runtime import FaultEvent, FaultSchedule
+    from repro_torch.runtime.chaos import acceptance_schedule
+    return FaultSchedule(events=acceptance_schedule(num_shards).events
+                         + (FaultEvent(kind="rescale", at=3,
+                                       new_num_shards=4),))
+
+
 def sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
                           indices):
     """sssp_auto_traced, bit-identical to sssp_auto (``auto_res``); then
@@ -1575,27 +1729,16 @@ def sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
     import tempfile
     import torch
     from repro_torch.algorithms import sssp
-    from repro_torch.core.engine import ShardedExecutor
     from repro_torch.core.partition import unshard_dense_state
-    from repro_torch.data.graphs import shard_csr
-    from repro_torch.runtime import FaultEvent, FaultPlan, FaultSchedule
-    from repro_torch.runtime.chaos import acceptance_schedule
-
-    def setup(sn, **extra):
-        cap = capacities(sn)
-        ex = ShardedExecutor(snapshot=sn, seg_capacity=cap["edge_capacity"],
-                             edge_capacity=cap["edge_capacity"],
-                             src_capacity=cap["src_capacity"],
-                             ladder_tiers=4, route_strategy="auto", **extra)
-        return ex, sssp.make_algorithm(sn, cap["src_capacity"],
-                                       cap["edge_capacity"])
+    from repro_torch.runtime import FaultPlan
 
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
     needs = ("scatter_route", "delta_scatter")
     def traced(tracer, max_iters):
-        return sssp.run(graph, snap, executor=setup(snap, tracer=tracer)[0],
+        return sssp.run(graph, snap,
+                        executor=sssp_setup(snap, tracer=tracer)[0],
                         source=RUN_SETTINGS["sssp"]["source"],
                         max_iters=max_iters or RUN_SETTINGS["sssp"][
                             "max_iters"], device=dev,
@@ -1615,21 +1758,13 @@ def sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
     stratum_spans("sssp_auto_traced", tr)
     del dist, res, tr
 
-    ex, algo = setup(snap)
+    ex, algo = sssp_setup(snap)
     state0 = sssp.initial_state(snap, 0, dev)
     iters = int(auto_res.stats.iterations)
     at = {f: max(int(iters * f), 1) for f in RECOVER_AT}
 
-    def remake(new_snap):
-        e, a = setup(new_snap)
-        return e, a, shard_csr(indptr, indices, new_snap.num_shards,
-                               device=dev)
-
-    # The acceptance schedule (a failure, a correlated replica loss, a
-    # failure during that recovery), then an elastic rescale to 4 shards.
-    chaos = FaultSchedule(events=acceptance_schedule(snap.num_shards).events
-                          + (FaultEvent(kind="rescale", at=3,
-                                        new_num_shards=4),))
+    remake = sssp_remaker(indptr, indices, dev)
+    chaos = sssp_chaos_schedule(snap.num_shards)
     cases = {"sssp_resilient": None}
     for f in RECOVER_AT:
         cases[f"sssp_recover_{int(f * 100)}"] = FaultPlan(
@@ -1678,6 +1813,145 @@ def sssp_obs_and_recovery(graph, snap, dev, phases, auto_res, indptr,
           f"{work['sssp_resilient']}", flush=True)
     check(work["sssp_recover_75"] < work["sssp_restart_75"],
           "incremental recovery at 75 % did not do less work than restart")
+    torch.cuda.empty_cache()
+
+
+def launch_section(graph, snap, dev, phases, auto_res, indptr, indices):
+    """The multi-process launch on the card: ``launch_selftest`` (a world
+    of one NCCL rank on cuda:0, spawned as a worker process), then
+    ``sssp_real_kill`` and ``sssp_chaos_real`` through
+    ``DistributedResilientDriver``, each final state exactly the
+    failure-free one (``auto_res``).  Worker channels and replica chains
+    live under ``build/launch_*``, removed after; every cluster is shut
+    down in a ``finally``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.algorithms import sssp
+    from repro_torch.core.partition import unshard_dense_state
+    from repro_torch.launch.distributed import (Cluster,
+                                                DistributedResilientDriver,
+                                                selftest)
+    from repro_torch.runtime.chaos import RealChaosInjector
+    from repro_torch.runtime.health import HealthConfig
+
+    S = snap.num_shards
+    t0 = time.perf_counter()
+    rep = selftest(1, S, backend="nccl")
+    wall = time.perf_counter() - t0
+    check(rep["backend"] == "nccl" and rep["devices"] == {"0": "cuda:0"}
+          and rep["ownership"] == {"0": list(range(S))}
+          and rep["collective_ok"],
+          f"launch_selftest: {rep}")
+    print(f"phase launch_selftest: world 1 backend {rep['backend']} device "
+          f"{rep['devices']['0']} shards {rep['ownership']['0']} "
+          f"all_gather ok wall {wall:.3f} s (spawn, torch import, CUDA and "
+          f"NCCL init, one all_gather)", flush=True)
+
+    needs = ("scatter_route", "delta_scatter")
+    remake = sssp_remaker(indptr, indices, dev)
+    state0 = sssp.initial_state(snap, 0, dev)
+    max_iters = RUN_SETTINGS["sssp"]["max_iters"]
+    ref_flat = unshard_dense_state(snap, torch.stack(auto_res.state, -1))
+    cfg = HealthConfig(**LAUNCH_HEALTH)
+    root = tempfile.mkdtemp(prefix="launch_", dir=ROOT / "build")
+    clusters = []
+
+    def start(name, workers, torch_mode):
+        cluster = Cluster(f"{root}/{name}/cluster", workers, num_shards=S,
+                          config=cfg, torch_mode=torch_mode, detect="lease")
+        clusters.append(cluster)
+        t = time.perf_counter()
+        cluster.start()
+        return cluster, time.perf_counter() - t
+
+    def line(m):
+        dets = ", ".join(f"worker {d['worker']} at stratum {d['stratum']} "
+                         f"after {d['detection_s']:.3f} s"
+                         for d in m["worker_detections"])
+        respawn = [round(e["respawn_s"], 3) for e in m["events"]
+                   if e["event"] == "worker_replaced"]
+        return (f"strata {m['strata_executed']} detections [{dets}] "
+                f"recoveries {m['recoveries']} restarts {m['restarts']} "
+                f"respawn_s {respawn} acks {m['acks_collected']} "
+                f"ack_timeouts {m['ack_timeouts']} recovery_wall "
+                f"{m['recovery_wall_s']:.3f} s shards "
+                f"{m['final_num_shards']}")
+
+    try:
+        cluster, up = start("kill", LAUNCH_WORKERS, "local")
+        killed = []
+
+        def hook(drv):
+            if not killed and drv.stratum >= KILL_AT:
+                killed.append(drv.stratum)
+                cluster.kill(KILLED_WORKER)
+
+        rr, wall, counts, peak = phases.run(
+            "sssp_real_kill", "min", needs,
+            lambda: DistributedResilientDriver(
+                *sssp_setup(snap), state0, 1, graph, max_iters,
+                ckpt_root=f"{root}/kill/chain", cluster=cluster,
+                remake=remake, chaos_hook=hook).run(), warm_up=False)
+        cluster.shutdown()
+        m = rr.metrics
+        exact = (m["converged"] and all(
+            torch.equal(a, b) for a, b in zip(rr.result.state,
+                                              auto_res.state))
+            and all(torch.equal(getattr(rr.result.stats, f),
+                                getattr(auto_res.stats, f))
+                    for f in auto_res.stats._fields))
+        names = {e["event"] for e in m["events"]}
+        twin = phases.walls["sssp_recover_25"]
+        print(f"phase sssp_real_kill: workers {LAUNCH_WORKERS} (local, acks "
+              f"on cuda; started in {up:.3f} s) killed worker "
+              f"{KILLED_WORKER} at stratum {killed} {line(m)} wall "
+              f"{wall:.3f} s (sssp_recover_25 {twin:.3f} s) launches "
+              f"{counts} peak_mem {peak:.2f} GiB equal_to_sssp_auto "
+              f"{exact}", flush=True)
+        dets = m["worker_detections"]
+        check(killed == [KILL_AT], f"sssp_real_kill: killed at {killed}")
+        check([d["worker"] for d in dets] == [KILLED_WORKER]
+              and dets[0]["detection_s"] > 0,
+              f"sssp_real_kill: detections {dets}")
+        check({"worker_dead", "failure", "worker_replaced",
+               "recovery"} <= names and m["recoveries"] >= 1,
+              f"sssp_real_kill: events {sorted(names)}")
+        check(m["acks_collected"] > 0, "sssp_real_kill: no acks")
+        check(exact, "sssp_real_kill: state or stats differ from sssp_auto")
+        del rr
+
+        schedule = sssp_chaos_schedule(S)
+        cluster, up = start("chaos", S, "off")
+        injector = RealChaosInjector(schedule, cluster)
+        rr, wall, counts, peak = phases.run(
+            "sssp_chaos_real", "min", needs,
+            lambda: DistributedResilientDriver(
+                *sssp_setup(snap), state0, 1, graph, max_iters,
+                ckpt_root=f"{root}/chaos/chain", cluster=cluster,
+                strategy=schedule.strategy, remake=remake,
+                chaos_hook=injector).run(), warm_up=False)
+        cluster.shutdown()
+        m = rr.metrics
+        got = unshard_dense_state(snap.resnapshot(m["final_num_shards"]),
+                                  torch.stack(rr.result.state, -1))
+        exact = m["converged"] and torch.equal(got, ref_flat)
+        fired = [(f["kind"], f["at"], f.get("workers"))
+                 for f in injector.fired]
+        twin = phases.walls["sssp_chaos"]
+        print(f"phase sssp_chaos_real: workers {S} (protocol only; started "
+              f"in {up:.3f} s) signals {fired} skipped "
+              f"{len(injector.skipped)} {line(m)} wall {wall:.3f} s "
+              f"(sssp_chaos {twin:.3f} s) launches {counts} peak_mem "
+              f"{peak:.2f} GiB equal_to_failure_free {exact}", flush=True)
+        check(bool(injector.fired), "sssp_chaos_real: no signal fired")
+        check(exact, "sssp_chaos_real: final state differs from the "
+                     "failure-free run")
+        del rr, got
+    finally:
+        for cluster in clusters:
+            cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -174,9 +175,9 @@ class ShardedExecutor:
     ``route_table`` decides the measured routes of every rank.  An
     ``explicit_cond`` reads the all-gathered new and old states, so every
     rank stops where the simulated backend stops.  A ``tracer`` gets one
-    span a stratum for the rank's own shards.  The resilient driver runs
-    on the simulated backend only (the shard_map twin is ROADMAP slice
-    8's).  ``axis_name`` is accepted for parity with the reference's
+    span a stratum for the rank's own shards.  :meth:`run_resilient`
+    runs on every rank of the group (see there).  ``axis_name`` is
+    accepted for parity with the reference's
     executor and read by nothing: a ``torch.distributed`` collective
     addresses its group, not a named axis.
     """
@@ -366,13 +367,6 @@ class ShardedExecutor:
     # ------------------------------------------------------------------
     # Stratum assembly.
     # ------------------------------------------------------------------
-    def _check_resilient(self) -> None:
-        if self.backend == "shard_map":
-            raise NotImplementedError(
-                "resilient runs on backend='shard_map' replicate per-shard "
-                "state across processes that can die: ROADMAP queue 1, "
-                "slice 8")
-
     def _mesh(self, tree):
         """The mesh the strata run over: on the simulated backend every
         shard in this process on the device of ``tree`` (the caller's
@@ -384,6 +378,10 @@ class ShardedExecutor:
         if self.backend != "shard_map":
             raise ValueError(self.backend)
         if self.mesh is not None:
+            if self.mesh.num_shards != self.snapshot.num_shards:
+                raise ValueError(
+                    f"the mesh holds {self.mesh.num_shards} shards, the "
+                    f"snapshot {self.snapshot.num_shards}")
             return self.mesh
         return flat_mesh(self.snapshot.num_shards, device=_device_of(tree))
 
@@ -465,9 +463,21 @@ class ShardedExecutor:
 
         ``ckpt_root`` must be a dedicated directory: the replica chain
         owns it and DELETES any existing contents at query start.
+
+        On ``backend="shard_map"`` every rank calls this with the same
+        arguments and runs the same driver: each stratum computes the
+        rank's block and all-gathers the state (:meth:`make_stratum_fn`),
+        so every rank replicates, restores and rescales the global state
+        in its own replica chain, ``ckpt_root/rank{r}``.  The decisions
+        the driver takes from a wall clock (measured latencies, and so
+        speculation and straggle handling) are rank 0's, broadcast; the
+        result equals the simulated backend's.  A rescale to a shard
+        count that does not split over the ranks raises.
         """
-        self._check_resilient()
         from repro_torch.runtime.recovery import ResilientDriver
+        if self.backend == "shard_map":
+            ckpt_root = os.path.join(
+                ckpt_root, f"rank{self._mesh(immutable).rank}")
         driver = ResilientDriver(
             self, algo, state0, live0, immutable, max_iters, mode=mode,
             explicit_cond=explicit_cond, ckpt_root=ckpt_root,
@@ -482,7 +492,6 @@ class ShardedExecutor:
                          **resilient_kw):
         """:meth:`resume` (warm re-entry, Δ₀ from ``active_fn``) through
         the fault-tolerant driver."""
-        self._check_resilient()
         live0 = self.live_count(algo, warm_state, immutable)
         return self.run_resilient(algo, warm_state, live0, immutable,
                                   max_iters, mode=mode,

@@ -1,8 +1,6 @@
 """Fault tolerance: checkpoints, replica chains, recovery, elasticity,
-straggler speculation, retries and seeded chaos schedules.
-
-``runtime/health.py`` (worker leases and heartbeats) waits for the
-multi-process launch of ROADMAP slice 8.
+straggler speculation, retries, seeded chaos schedules, and the worker
+leases and heartbeats of the multi-process launch (``health.py``).
 """
 from repro_torch.runtime.checkpoint import (CheckpointCorruption,
                                             CheckpointManager,
@@ -11,6 +9,9 @@ from repro_torch.runtime.chaos import ChaosConfig, generate_schedule
 from repro_torch.runtime.elastic import (apply_route_buffer, grow,
                                          migrate_route_buffers, remap_state,
                                          reshard_tree)
+from repro_torch.runtime.health import (HealthConfig, HealthMonitor,
+                                        HealthReport, WorkerStatus,
+                                        write_heartbeat)
 from repro_torch.runtime.recovery import (FaultEvent, FaultPlan,
                                           FaultSchedule, ReplicaChain,
                                           ResilientDriver, ResilientResult,
@@ -25,6 +26,8 @@ from repro_torch.runtime.straggler import (SpeculationPolicy,
 
 __all__ = ["CheckpointManager", "CheckpointCorruption", "atomic_write_json",
            "ChaosConfig", "generate_schedule",
+           "HealthConfig", "HealthMonitor", "HealthReport",
+           "WorkerStatus", "write_heartbeat",
            "grow", "remap_state", "reshard_tree",
            "migrate_route_buffers", "apply_route_buffer",
            "StratumRunner", "run_with_failure", "FaultPlan", "FaultEvent",

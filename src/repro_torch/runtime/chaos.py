@@ -23,8 +23,16 @@ card; ``--device cpu`` for the CPU)::
 
     python -m repro_torch.runtime.chaos --seed 7 --events 4 --quick
 
-``--real`` (executing the schedule as signals against live worker
-processes) needs the multi-process launch of ROADMAP slice 8 and raises.
+``--real`` executes the SAME seeded schedule against live worker
+processes (``launch/distributed.py``): a ``fail`` event SIGKILLs the
+worker leasing that shard (correlated: its first ring replica's worker
+too), a ``straggle`` SIGSTOPs it past the straggle threshold, a
+``rescale`` permanently retires a worker, and the run must STILL
+bit-match the failure-free single-process run (chaos parity).  The
+engine runs on ``--device`` (CUDA by default); on the CPU:
+
+    python -m repro_torch.runtime.chaos --seed 0 --events 2 --quick \\
+        --nodes 1024 --real --device cpu
 """
 from __future__ import annotations
 
@@ -144,13 +152,84 @@ def acceptance_schedule(num_shards: int = 4,
 # ---------------------------------------------------------------------------
 
 class RealChaosInjector:
-    """Executes a :class:`FaultSchedule` against live worker processes
-    (SIGKILL / SIGSTOP / retire at each punctuation barrier)."""
+    """Executes a :class:`FaultSchedule` against live worker processes.
+
+    Installed as the distributed driver's ``chaos_hook``; at every
+    punctuation barrier it fires all events whose stratum is due:
+
+      * ``fail``     → SIGKILL the worker leasing the shard (correlated:
+        also the worker leasing the shard's first ring replica) — the
+        driver must DETECT the loss via the lease table, not be told;
+      * ``straggle`` → SIGSTOP the owner past the straggle threshold
+        (auto-SIGCONT before its lease expires): late heartbeats, a
+        missed ack, a straggle signal — never a death;
+      * ``rescale``  → permanently retire one surviving worker with the
+        event's target shard count; the driver's elastic rescale
+        absorbs it.
+
+    ``during='recovery'/'rescale'`` windows are a simulation-only
+    concept (real failures cannot be injected INSIDE the coordinator's
+    handler from the outside); those events fire as ordinary barrier
+    kills at their stratum — same-barrier multiples still exercise the
+    multi-entry recovery queue.  Every event fires at most once;
+    ``fired``/``skipped`` keep the accounting for the summary.
+    """
 
     def __init__(self, schedule: FaultSchedule, cluster):
-        raise NotImplementedError(
-            "RealChaosInjector drives live worker processes, the "
-            "multi-process launch of ROADMAP queue 1, slice 8")
+        self.pending = list(schedule.events)
+        self.cluster = cluster
+        self.fired: list = []
+        self.skipped: list = []
+
+    def _owner(self, shard: int):
+        try:
+            return self.cluster.worker_of(shard)
+        except KeyError:
+            return None
+
+    def _alive_workers(self) -> list:
+        return [w for w, p in self.cluster.procs.items()
+                if p.alive() and w not in self.cluster.retired]
+
+    def __call__(self, driver) -> None:
+        while self.pending and self.pending[0].at <= driver.stratum:
+            ev = self.pending.pop(0)
+            record = {"kind": ev.kind, "at": ev.at, "shard": ev.shard,
+                      "stratum": driver.stratum}
+            if ev.kind == "fail":
+                targets = {self._owner(ev.shard)}
+                if ev.correlated:
+                    reps = driver.snapshot.replicas_of(ev.shard)
+                    if reps:
+                        targets.add(self._owner(reps[0]))
+                targets.discard(None)
+                if not targets:
+                    self.skipped.append(record)
+                    continue
+                for w in sorted(targets):
+                    self.cluster.kill(w)
+                record["workers"] = sorted(targets)
+            elif ev.kind == "straggle":
+                w = self._owner(ev.shard)
+                if w is None:
+                    self.skipped.append(record)
+                    continue
+                cfg = self.cluster.config
+                pause_s = cfg.straggle_after + 0.3 * (
+                    cfg.lease_ttl - cfg.straggle_after)
+                self.cluster.pause(w, pause_s)
+                record["workers"] = [w]
+                record["pause_s"] = round(pause_s, 3)
+            else:                       # rescale → retire one worker
+                alive = self._alive_workers()
+                if len(alive) < 2:      # never retire the last worker
+                    self.skipped.append(record)
+                    continue
+                w = alive[-1]
+                self.cluster.retire(w, new_num_shards=ev.new_num_shards)
+                record["workers"] = [w]
+                record["to_shards"] = ev.new_num_shards
+            self.fired.append(record)
 
 
 # ---------------------------------------------------------------------------
@@ -183,18 +262,30 @@ def main(argv: Optional[list] = None) -> int:
                         help="override the dataset node count (tiny "
                              "graphs for smoke tests)")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda)")
-    parser.add_argument("--real", "--distributed", action="store_true",
-                        help="execute the schedule as real signals "
-                             "against live worker processes (ROADMAP "
-                             "slice 8; raises)")
+                        help="torch device of the engine and of local "
+                             "workers (default: cuda)")
+    parser.add_argument("--real", action="store_true",
+                        help="execute the schedule as REAL signals "
+                             "(SIGKILL/SIGSTOP/retire) against live "
+                             "worker processes")
+    parser.add_argument("--workers", type=int, default=None,
+                        help="worker process count in --real mode "
+                             "(default: one per shard)")
+    parser.add_argument("--worker-torch", default="off",
+                        choices=("off", "local"),
+                        help="per-worker torch runtime in --real mode "
+                             "(local: acks compute on --device)")
+    parser.add_argument("--detect", default="lease",
+                        choices=("lease", "poll"),
+                        help="death detection in --real mode: missed "
+                             "lease deadline only, or also Popen.poll")
+    parser.add_argument("--lease-ttl", type=float, default=1.2)
+    parser.add_argument("--hb-interval", type=float, default=0.05)
+    parser.add_argument("--ack-timeout", type=float, default=0.8)
     parser.add_argument("--trace-out", default=None,
-                        help="directory for Chrome trace + metrics JSON")
+                        help="directory for Chrome trace + metrics JSON "
+                             "(per-worker timeline rows)")
     args = parser.parse_args(argv)
-    if args.real:
-        raise NotImplementedError(
-            "--real / --distributed drive live worker processes, the "
-            "multi-process launch of ROADMAP queue 1, slice 8")
 
     import torch
 
@@ -250,10 +341,34 @@ def main(argv: Optional[list] = None) -> int:
             from repro_torch.obs.trace import Tracer
             tracer, metrics_reg = Tracer(), MetricsRegistry()
         t0 = time.perf_counter()
-        res = ex.run_resilient(algo, state0, 1, g, 80,
-                               ckpt_root=f"{tmp}/chaos",
-                               fault_plan=schedule, remake=remake,
-                               tracer=tracer, metrics=metrics_reg)
+        if args.real:
+            from repro_torch.launch.distributed import (
+                Cluster, DistributedResilientDriver)
+            from repro_torch.runtime.health import HealthConfig
+            cfg = HealthConfig(lease_ttl=args.lease_ttl,
+                               straggle_after=min(0.35, args.lease_ttl / 3),
+                               heartbeat_interval=args.hb_interval,
+                               ack_timeout=args.ack_timeout)
+            cluster = Cluster(f"{tmp}/cluster", args.workers or S,
+                              num_shards=S, config=cfg,
+                              torch_mode=args.worker_torch,
+                              device=str(dev), detect=args.detect,
+                              tracer=tracer, metrics=metrics_reg)
+            try:
+                cluster.start()
+                injector = RealChaosInjector(schedule, cluster)
+                res = DistributedResilientDriver(
+                    ex, algo, state0, 1, g, 80, ckpt_root=f"{tmp}/chaos",
+                    cluster=cluster, strategy=schedule.strategy,
+                    remake=remake, chaos_hook=injector, tracer=tracer,
+                    metrics=metrics_reg).run()
+            finally:
+                cluster.shutdown()
+        else:
+            res = ex.run_resilient(algo, state0, 1, g, 80,
+                                   ckpt_root=f"{tmp}/chaos",
+                                   fault_plan=schedule, remake=remake,
+                                   tracer=tracer, metrics=metrics_reg)
         wall = time.perf_counter() - t0
         # Compare in GLOBAL key space: a rescale changes leaf shapes but
         # never values — unshard both sides and demand bit equality.
@@ -264,7 +379,7 @@ def main(argv: Optional[list] = None) -> int:
         identical = bool(torch.equal(ref_flat, got_flat))
         summary = {
             "seed": args.seed,
-            "mode": "simulated",
+            "mode": "real" if args.real else "simulated",
             "device": str(dev),
             "strategy": schedule.strategy,
             "events": [dataclasses.asdict(e) for e in schedule.events],
@@ -276,18 +391,26 @@ def main(argv: Optional[list] = None) -> int:
             "wall_s": round(wall, 3),
             "identical": bool(identical),
         }
+        if args.real:
+            summary["workers"] = res.metrics["workers"]
+            summary["detect"] = args.detect
+            summary["signals_fired"] = injector.fired
+            summary["signals_skipped"] = injector.skipped
+            summary["detections"] = res.metrics["worker_detections"]
+            summary["ack_timeouts"] = res.metrics["ack_timeouts"]
         if args.trace_out:
             import os
 
             from repro_torch.obs.export import (write_chrome_trace,
                                                 write_metrics)
             os.makedirs(args.trace_out, exist_ok=True)
+            mode = "real" if args.real else "sim"
             write_chrome_trace(
                 tracer, os.path.join(args.trace_out,
-                                     f"chaos_sim_{args.seed}.trace.json"))
+                                     f"chaos_{mode}_{args.seed}.trace.json"))
             write_metrics(
                 metrics_reg, os.path.join(
-                    args.trace_out, f"chaos_sim_{args.seed}.metrics.json"))
+                    args.trace_out, f"chaos_{mode}_{args.seed}.metrics.json"))
         print(json.dumps(summary, indent=2))
         return 0 if identical else 1
     finally:

@@ -606,6 +606,14 @@ class ResilientDriver:
     failure-free resilient run equals ``executor.run``, stratum for
     stratum (bit for bit where the strata are deterministic: on the CPU,
     and for min/max on the card).
+
+    On an executor of ``backend="shard_map"`` every rank runs this driver
+    over the global state that ``make_stratum_fn`` all-gathers, so every
+    rank takes the same steps; the one input that differs between ranks,
+    the wall clock, reaches the driver's decisions only through
+    :meth:`_observe_straggler`, which takes rank 0's latencies and
+    timeout flags (``mesh.broadcast_object``; the identity on the
+    simulated backend's one-rank mesh).
     """
 
     def __init__(self, executor, algo, state0, live0, immutable,
@@ -648,6 +656,7 @@ class ResilientDriver:
         self.snapshot = executor.snapshot
         self.stratum_fn = executor.make_stratum_fn(
             algo, immutable, mode, explicit_cond=explicit_cond)
+        self.mesh = executor._mesh(immutable)
         self.state = state0
         self.live = int(live0)
         self.live0 = int(live0)
@@ -887,6 +896,10 @@ class ResilientDriver:
             raise ValueError(
                 "rescale requires remake(new_snapshot) -> (executor, "
                 "algo, immutable)")
+        if ev.new_num_shards % self.mesh.world:
+            raise ValueError(
+                f"a rescale to {ev.new_num_shards} shards does not split "
+                f"over the {self.mesh.world} ranks of the shard_map group")
         new_snap = self.snapshot.resnapshot(ev.new_num_shards)
         new_exec, new_algo, new_imm = self.remake(new_snap)
         if new_exec.snapshot != new_snap:
@@ -912,6 +925,7 @@ class ResilientDriver:
         self.stratum_fn = new_exec.make_stratum_fn(
             self.algo, new_imm, self.mode,
             explicit_cond=self.explicit_cond)
+        self.mesh = new_exec._mesh(new_imm)
         if self.mitigator is not None:
             self.mitigator = StragglerMitigator(
                 new_snap.num_shards, self.policy,
@@ -945,6 +959,11 @@ class ResilientDriver:
             # recorded for the completed stratum (every shard gets the
             # stratum's wall: the shards share one device).
             latencies = self.measured(self.stratum - 1)
+        # Rank 0's clock decides for every rank: its latencies, and its
+        # timeout flags (a slow replica read), so speculation runs alike
+        # on every rank of a shard_map group.
+        latencies, self.mitigator.timeouts = self.mesh.broadcast_object(
+            (latencies, self.mitigator.timeouts))
         # Armed transient-straggler injections (chaos schedule): inflate
         # the affected shard's measured latency for exactly this stratum
         # — the policy sees a real outlier, speculates, verifies; results
@@ -981,9 +1000,9 @@ class ResilientDriver:
     def _external_events(self) -> bool:
         """Barrier hook for drivers that bridge REAL failure signals —
         process death, missed leases, late heartbeats — into this
-        driver's recovery machinery (multi-process launch, ROADMAP slice
-        8).  Called once per punctuation barrier, after scheduled
-        injections.
+        driver's recovery machinery (``launch/distributed.py``
+        ``DistributedResilientDriver``).  Called once per punctuation
+        barrier, after scheduled injections.
         Returns True when handling ended in a restart (the caller
         re-enters the loop from stratum 0).  The base driver has no
         external signal source."""

@@ -10,15 +10,20 @@ backend bit for bit on every rank: values, state and every per-stratum
 statistic.  Compiled PageRank, SSSP and CC on the shard_map backend must
 equal the handwritten runs there, and graph views (SSSP, PageRank) on
 shard_map must equal simulated views through a cold run and warm repairs.
+Resilient SSSP and PageRank (shard 3 lost at half the strata) on
+shard_map must equal the shard_map ``run`` and the simulated
+``run_resilient``: state, stats, and metrics but the walls.
 The twins of the reference's ``test_shard_map_identical_to_simulated``,
-``test_ladder_bit_identical_shard_map``, ``test_bit_identical_shard_map``
+``test_ladder_bit_identical_shard_map``, ``test_bit_identical_shard_map``,
+``test_resilient_shard_map_bit_identical``
 and ``test_resume_shard_map_bit_identical_to_simulated`` (which fails on
 jax 0.9.0, so the port's own simulated backend is the oracle of the view
 cases).
 
 Each rank also keeps its shard_map answers to PageRank (delta, nodelta),
-SSSP, CC and adsorption, and the test process holds them to ``repro``'s
-simulated backend on the same graph and executor settings: every stats
+SSSP, CC, adsorption and resilient SSSP, and the test process holds them
+to ``repro``'s simulated backend on the same graph and executor settings
+(resilient SSSP: ``run_resilient`` with the same failure): every stats
 column exactly, SSSP and CC values exactly, float adds within 1 ulp.
 
 The harness spawns the ranks with ``init_method=file://`` (no ports),
@@ -48,11 +53,15 @@ EX = dict(seg_capacity=384, edge_capacity=384, src_capacity=48,
 CASES = ["pagerank_delta", "pagerank_nodelta", "pagerank_torch_ops",
          "pagerank_traced_measured_cond", "pagerank_state_cond", "sssp",
          "cc", "adsorption", "stratum_fn", "rules_pagerank", "rules_sssp",
-         "rules_cc", "view_sssp", "view_pagerank"]
+         "rules_cc", "view_sssp", "view_pagerank", "resilient_sssp",
+         "resilient_pagerank"]
 # The cases whose shard_map answers are also held to ``repro``, with the
 # ulps their values may differ by (float adds: 1).
 ANCHORED = {"pagerank_delta": 1, "pagerank_nodelta": 1, "sssp": 0, "cc": 0,
-            "adsorption": 1}
+            "adsorption": 1, "resilient_sssp": 0}
+# The resilient cases' failure: shard 3 lost at half the failure-free
+# strata (``tests/test_resilient.py``'s shard_map case).
+FAILED_SHARD = 3
 SEEDS = (0, 5, 77, 300)   # adsorption's labelled vertices
 
 
@@ -90,6 +99,7 @@ def _rank_cases(rank: int, world: int, out_dir: str) -> dict:
     from repro_torch.launch.mesh import flat_mesh
     from repro_torch.obs import Tracer
     from repro_torch.obs.calibrate import RouteCostTable
+    from repro_torch.runtime import FaultPlan
 
     indptr, indices = make_powerlaw_graph(N, avg_degree=8.0, seed=0)
     snap = PartitionSnapshot(n_keys=N, num_shards=S)
@@ -300,6 +310,92 @@ def _rank_cases(rank: int, world: int, out_dir: str) -> dict:
                           views[1].last_result.stats, f"batch {batch}")
         return msgs
 
+    def resilient_case(mod, state0, live0):
+        """``run_resilient`` with one failure on the shard_map backend
+        against its ``run`` and against the simulated ``run_resilient``:
+        state, stats, and metrics but the walls, bit for bit; each rank's
+        replica chain in its own directory."""
+        algo = mod.make_algorithm(snap, src_capacity=EX["src_capacity"],
+                                  edge_capacity=EX["edge_capacity"])
+        sim, smap = executors()
+        ref = smap.run(algo, state0, live0, g, 80)
+        plan = FaultPlan(fail_at=max(int(ref.stats.iterations) // 2, 1),
+                         failed_shard=FAILED_SHARD)
+        ckpt = Path(out_dir, f"ckpt_{mod.__name__.rsplit('.', 1)[1]}")
+        runs = [ex.run_resilient(algo, state0, live0, g, 80,
+                                 ckpt_root=str(ckpt / name), fault_plan=plan)
+                for name, ex in ((f"sim{rank}", sim), ("smap", smap))]
+        msgs = _same(tuple(ref), tuple(runs[1].result), "vs run")
+        msgs += _same(tuple(runs[0].result), tuple(runs[1].result),
+                      "vs simulated")
+        metrics = [{k: v for k, v in r.metrics.items() if "wall" not in k}
+                   for r in runs]
+        msgs += [f"metrics[{k!r}] differ" for k in metrics[0]
+                 if metrics[0][k] != metrics[1].get(k)]
+        if runs[1].metrics["recoveries"] != 1:
+            msgs.append(f"{runs[1].metrics['recoveries']} recoveries")
+        # shard_map keeps one chain a rank, in ckpt_root/rank{r}.
+        chains = os.listdir(ckpt / "smap")
+        if f"rank{rank}" not in chains or not all(
+                c.startswith("rank") for c in chains):
+            msgs.append(f"chain directories {chains}")
+        return msgs, runs[1].result
+
+    def rescale_case():
+        """A rescale to 4 shards mid-run on shard_map equals the simulated
+        driver's; one to 3 shards, which do not split over the ranks,
+        raises before any collective."""
+        def remaker(**kw):
+            def remake(new_snap):
+                if kw:
+                    kw["mesh"] = flat_mesh(new_snap.num_shards, device="cpu")
+                return (ShardedExecutor(snapshot=new_snap, **EX, **kw),
+                        sssp.make_algorithm(new_snap, EX["src_capacity"],
+                                            EX["edge_capacity"]),
+                        shard_csr(indptr, indices, new_snap.num_shards,
+                                  device="cpu"))
+            return remake
+
+        algo = sssp.make_algorithm(snap, EX["src_capacity"],
+                                   EX["edge_capacity"])
+        state0 = sssp.initial_state(snap, 0, "cpu")
+        sim, smap = executors()
+        ckpt = Path(out_dir, "ckpt_rescale")
+        runs = [ex.run_resilient(
+            algo, state0, 1, g, 80, ckpt_root=str(ckpt / name),
+            remake=remake, fault_plan=FaultPlan(rescale_at=2,
+                                                new_num_shards=4))
+            for name, ex, remake in (
+                (f"sim{rank}", sim, remaker()),
+                ("smap", smap, remaker(backend="shard_map")))]
+        msgs = _same(tuple(runs[0].result), tuple(runs[1].result),
+                     "rescaled")
+        if runs[1].metrics["final_num_shards"] != 4:
+            msgs.append(f"{runs[1].metrics['final_num_shards']} shards")
+        try:
+            smap.run_resilient(algo, state0, 1, g, 80,
+                               ckpt_root=str(ckpt / "odd"),
+                               remake=remaker(backend="shard_map"),
+                               fault_plan=FaultPlan(rescale_at=2,
+                                                    new_num_shards=3))
+            msgs.append("a rescale to 3 shards did not raise")
+        except ValueError as e:
+            if "does not split" not in str(e):
+                msgs.append(f"ValueError: {e}")
+        return msgs
+
+    @case("resilient_sssp")
+    def _():
+        msgs, got = resilient_case(sssp, sssp.initial_state(snap, 0, "cpu"),
+                                   1)
+        keep("resilient_sssp", (got.state.dist.reshape(-1), got))
+        return msgs + rescale_case()
+
+    @case("resilient_pagerank")
+    def _():
+        return resilient_case(pagerank, pagerank.initial_state(snap, "cpu"),
+                              snap.padded_keys)[0]
+
     @case("view_sssp")
     def _():
         return view_case("sssp", source=0)
@@ -391,12 +487,15 @@ def reference():
     backend, the ranks' graph and executor settings (run on first use)."""
     import gc
 
+    import tempfile
+
     import jax
     from repro.algorithms import adsorption, connected_components
     from repro.algorithms import pagerank, sssp
     from repro.core.engine import ShardedExecutor
     from repro.core.partition import PartitionSnapshot
     from repro.data.graphs import make_powerlaw_graph, shard_csr
+    from repro.runtime import FaultPlan
 
     indptr, indices = make_powerlaw_graph(N, avg_degree=8.0, seed=0)
     snap = PartitionSnapshot(n_keys=N, num_shards=S)
@@ -411,8 +510,21 @@ def reference():
         "sssp": lambda: sssp.run(g, snap, source=0, **kw),
         "cc": lambda: connected_components.run(g, snap, **kw),
         "adsorption": lambda: adsorption.run(
-            g, snap, _seeds(snap.padded_keys), **kw)}
+            g, snap, _seeds(snap.padded_keys), **kw),
+        "resilient_sssp": lambda: resilient_sssp(get("sssp")[1])}
     done = {}
+
+    def resilient_sssp(run):
+        algo = sssp.make_algorithm(snap, src_capacity=EX["src_capacity"],
+                                   edge_capacity=EX["edge_capacity"])
+        plan = FaultPlan(fail_at=max(int(run.stats.iterations) // 2, 1),
+                         failed_shard=FAILED_SHARD)
+        with tempfile.TemporaryDirectory() as td:
+            rr = kw["executor"].run_resilient(
+                algo, sssp.initial_state(snap, 0), 1, g, 80, ckpt_root=td,
+                fault_plan=plan)
+        assert rr.metrics["recoveries"] == 1
+        return rr.result.state.dist.reshape(-1), rr.result
 
     def get(case):
         if case not in done:

@@ -28,7 +28,9 @@ A 2-layer full-width bf16
 Llama-3 forward through it is within 5e-2 of the plain path relative to
 the largest logit, chip_smoke.py's bound for the bf16 model at full depth
 (a last-bit difference in an attention output flips a bf16 rounding of
-the residual stream).
+the residual stream).  The multi-process launch: a ``local``-mode worker
+process brings CUDA up and acks with sums computed on the card, and the
+bring-up selftest forms a world of one NCCL rank on ``cuda:0``.
 """
 import dataclasses
 
@@ -863,3 +865,39 @@ def test_shard_map_world1_nccl_matches_simulated(cuda, route, tmp_path):
     route_kernel = 0 if route == "auto" else 1
     assert after[route_kernel] > before[route_kernel]
     assert after[2] > before[2] and after[3] > before[3]
+
+
+def test_local_worker_acks_with_work_on_the_card(cuda, tmp_path):
+    """A ``torch_mode="local"`` worker brings CUDA up before its first
+    heartbeat, and each of its acks carries a sum computed on the card."""
+    from repro_torch.launch.distributed import Cluster
+    from repro_torch.runtime.health import HealthConfig, ack_path, read_json
+    cluster = Cluster(str(tmp_path / "cluster"), 1, num_shards=2,
+                      torch_mode="local",
+                      config=HealthConfig(ack_timeout=30.0,
+                                          ready_timeout=120.0))
+    try:
+        cluster.start()
+        ready = read_json(str(tmp_path / "cluster" / "worker0" /
+                              "ready.json"))
+        assert ready["device"] == "cuda" and ready["torch"] == "local"
+        for stratum in range(3):
+            bseq, t0 = cluster.broadcast_stratum(stratum)
+            walls = cluster.collect_acks(bseq, t0)
+            assert walls[0] is not None and walls[0] >= 0
+            ack = read_json(ack_path(cluster.root, 0, bseq))
+            assert ack["stratum"] == stratum
+            assert ack["device_work"] == 255 * 256 / 2 + 256 * bseq
+    finally:
+        cluster.shutdown()
+    assert not cluster.procs[0].alive()
+
+
+def test_selftest_forms_an_nccl_world_of_one(cuda):
+    """The bring-up selftest as chip_smoke.py's ``launch_selftest`` runs
+    it: one NCCL rank on ``cuda:0`` owning every shard."""
+    from repro_torch.launch.distributed import selftest
+    rep = selftest(1, 4, backend="nccl")
+    assert rep["backend"] == "nccl" and rep["collective_ok"]
+    assert rep["devices"] == {"0": "cuda:0"}
+    assert rep["ownership"] == {"0": [0, 1, 2, 3]}

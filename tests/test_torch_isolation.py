@@ -1,10 +1,11 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
-A subprocess imports ``repro_torch`` (observability and runtime included)
-and runs a tiny PageRank (also on the shard_map backend, over a gloo world
-of one rank), a traced resilient PageRank with one failure and
-adsorption on the CPU, two journaled views restored, and reachability
-compiled from its rule text, then reports which modules were loaded; a
+A subprocess imports ``repro_torch`` (observability, runtime and the
+multi-process launch included) and runs a tiny PageRank (also on the
+shard_map backend, over a gloo world of one rank), a traced resilient
+PageRank with one failure and adsorption on the CPU, two journaled views
+restored, and reachability compiled from its rule text, then reports
+which modules were loaded; a
 source scan finds no import of ``jax`` or ``repro``; the entry points
 refuse to fall back to the CPU when no device is named and CUDA is
 missing.
@@ -39,6 +40,10 @@ import repro_torch.launch.serve
 import repro_torch.models.transformer
 import repro_torch.serve.serve_step
 import repro_torch.incremental
+import repro_torch.launch.channel
+import repro_torch.launch._worker
+import repro_torch.launch.distributed
+import repro_torch.runtime.health
 indptr, indices = make_powerlaw_graph(256, 6.0, seed=0)
 snap = PartitionSnapshot(n_keys=256, num_shards=2)
 pr, res = pagerank.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
@@ -138,7 +143,7 @@ def test_sources_import_neither_jax_nor_reference():
     assert not pattern.search(smoke)
 
 
-def test_entry_points_need_cuda_unless_told_otherwise():
+def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
     from repro_torch.algorithms import adsorption, pagerank
@@ -148,7 +153,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.frontend import compile_program, reachability_program
     from repro_torch.incremental import ViewManager
-    from repro_torch.launch import serve
+    from repro_torch.launch import _worker, distributed, serve
     from repro_torch.launch.mesh import init_shard_group
     from repro_torch.models import transformer
     from repro_torch.obs import calibrate_route_table
@@ -172,6 +177,12 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                  lambda: calibrate_route_table(snap, [64]),
                  lambda: init_shard_group(),
                  lambda: chaos.main(["--quick", "--nodes", "64"]),
+                 lambda: chaos.main(["--quick", "--nodes", "64", "--real"]),
+                 lambda: _worker.main(["--id", "0", "--root", str(tmp_path),
+                                       "--torch", "local", "--oneshot"]),
+                 lambda: distributed.selftest(1, backend="nccl"),
+                 lambda: distributed.selftest(1, backend="gloo"),
+                 lambda: distributed.initialize_from_env(2, env={}),
                  lambda: ViewManager().create_graph_view(
                      "v", "sssp", indptr, indices, 64, num_shards=2),
                  lambda: ViewManager().create_kmeans_view(

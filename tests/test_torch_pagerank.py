@@ -172,8 +172,9 @@ def test_shard_map_world1_equals_simulated(setup, kw, call, tmp_path,
                                            world1):
     """The shard_map backend on a world of one rank equals the simulated
     backend bit for bit, and the reference's run (values within 1 ulp,
-    stats exactly), on the plain, traced and measured-routing paths; its
-    resilient runs raise (ROADMAP slice 8)."""
+    stats exactly), on the plain, traced and measured-routing paths, and
+    through ``run_resilient`` (failure-free, its replica chain under
+    ``ckpt_root/rank0``)."""
     from repro_torch.launch.mesh import flat_mesh
     from repro_torch.obs import Tracer
     from repro_torch.obs.calibrate import RouteCostTable
@@ -193,13 +194,14 @@ def test_shard_map_world1_equals_simulated(setup, kw, call, tmp_path,
     algo = TP.make_algorithm(snap, src_capacity=256, edge_capacity=2048)
     args = (algo, TP.initial_state(snap, "cpu"), snap.padded_keys,
             setup["tg"], 60)
-    if call == "run_resilient":
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            ex.run_resilient(*args, ckpt_root=str(tmp_path / "c"))
-        return
     sim = dataclasses.replace(ex, backend="simulated", mesh=None,
                               tracer=None)
-    want, got = sim.run(*args), ex.run(*args)
+    want = sim.run(*args)
+    if call == "run_resilient":
+        got = ex.run_resilient(*args, ckpt_root=str(tmp_path / "c")).result
+        assert [p.name for p in (tmp_path / "c").iterdir()] == ["rank0"]
+    else:
+        got = ex.run(*args)
     for a, b in zip(want.state, got.state):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     for f in TF.StratumStats._fields:
