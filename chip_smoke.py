@@ -138,7 +138,28 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     the largest logit) and against the prefill's plain attention path
     (``use_kernel=False``, 5e-2), and 8 teacher-forced decode steps
     against a forward over the extended sequence (5e-2); each bound's
-    reason is stated beside it below.
+    reason is stated beside it below;
+* training at OLMo-1B's full width and depth (16 layers, d 2048, 16 heads
+  of 128, d_ff 8192, vocab 50,304, tied embeddings, bf16, remat) through
+  ``launch/train.py``'s ``train``: 32,768 tokens a step (16 x 2048 in 4
+  microbatches), warm-up 10, lr TRAIN_LR:
+  - ``lm_train``: 6 steps, compression none; each step 128 launches of the
+    bf16 flash kernel (forward and remat recompute) and 64 calls of
+    flash_attention_bwd (192 launches); every loss finite, the last below
+    the first; step walls, tokens/s and peak memory printed; then the bf16
+    check below, on the trained weights;
+  - ``lm_train_delta``: 2 steps with REX-delta gradient compression, its
+    wire bytes equal to 8 * sum(max(1, floor(0.01 * size))) over the
+    reference's stacked leaves, counted on the host;
+  - one microbatch's loss and gradients through the kernels against the
+    plain attention path (``use_flash_kernel=False``): float32 at 2
+    layers (TF32 off) and bf16 at full depth (at init and after
+    ``lm_train``), within the bounds stated at TRAIN_TIGHT_BOUND and
+    TRAIN_BF16_GRAD_BOUND;
+  - ``lm_train_resume``: 2 layers, 4 steps straight against 2 steps, a
+    checkpoint under ``build/`` (removed after), a restore equal to the
+    saved state bit for bit and 2 more steps, the losses within
+    TRAIN_RESUME_BOUND.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -151,8 +172,12 @@ FLASH_BF16_TOL) at the forward's and the prefill's shapes (layer 0's
 inputs), and the float32 kernel within 2e-4 abs + 2e-4 rel (the
 reference's kernel-vs-oracle bound) at the forward's shape (layer 0's
 inputs in float32, a shape no LM phase runs it at); each also at a
-ragged causal shape and a non-causal one.  Bounds count float32
-operations at 67 TFLOP/s, bf16 ones at 989 TFLOP/s.
+ragged causal shape and a non-causal one.  The bf16 forward kernel is
+also held at ``lm_train``'s layer-0 shape, and flash_attention_bwd there
+(bf16) against attention_bwd_ref on the float32 values (the reason for
+its bound is stated at FLASH_BWD_TOL), in float32 at the same shape and
+at D = 16 (off the path).  Bounds count float32 operations at 67 TFLOP/s,
+bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
 scatter_route and delta_scatter are also held at W = 4, at the first
@@ -236,6 +261,50 @@ LM_BF16_BOUND = 5e-2        # bf16, kernel vs plain path, full depth
 LM_DECODE_BOUND = 5e-2      # bf16, teacher-forced decode vs the forward
 LM_PREFILL_BOUND = 2 ** -8  # bf16, prefill vs the forward (one ulp)
 OFF_PATH = "off_path"       # flash rows at shapes no LM phase runs
+TRAIN_ARCH = "olmo-1b"
+# The training phases' shapes: launch/train.py's train at olmo-1b's full
+# width and depth, sequence 2048, global batch 16 in 4 microbatches (32,768
+# tokens a step), 6 steps (2 with delta compression); the float32 gradient
+# check and the resume at 2 layers, the resume over 4 steps.
+TRAIN_SHAPES = dict(seq=2048, batch=16, microbatches=4, steps=6,
+                    delta_steps=2, tight_layers=2, resume_layers=2,
+                    resume_steps=4)
+# OLMo-1B's published peak learning rate (arXiv:2402.00838), under
+# launch/train.py's warm-up of 10 steps.  launch/train.py's default of
+# 3e-3, sized for the reduced configs, makes the loss rise from the second
+# step at this width on the H100 (11.16, 10.04, 13.94, 14.75, 20.31, 11.93
+# over 6 steps) through the bf16 kernels, the plain attention path and the
+# float32 kernels alike (tools/train_lr_witness.py): Adam's first steps
+# move every weight by about the learning rate, 8-16 % of these init
+# scales at 1.8e-3, and overshoot.
+TRAIN_LR = 4e-4
+# Gradients of one microbatch, kernel path against plain path.  Float32 at
+# full width, 2 layers, TF32 off: each leaf within 1e-4 of its largest |g|
+# (tests/test_torch_train.py's bound against the reference).  Bf16 at full
+# depth: the kernel path rounds P to bf16 in each forward and each
+# attention output and gradient to bf16, 2^-8 relative apiece, of random
+# sign; 16 layers add them in quadrature to about 4 * 2^-8 = 1.6e-2 of the
+# gradients' L2 norm, hence 2e-2.  The loss is a mean over the 8,192
+# tokens of a microbatch, whose log-likelihoods move by such errors of
+# random sign; 1e-3 of it leaves room for 4 * 2^-8 on the logits.  One
+# reading at init: 3.341e-3 (gradients) and 1.668e-5 (loss); after
+# lm_train's 6 steps: 6.225e-4 and 9.499e-6.
+TRAIN_TIGHT_BOUND = 1e-4
+TRAIN_BF16_LOSS_BOUND = 1e-3   # |loss_kernel - loss_plain| / loss_plain
+TRAIN_BF16_GRAD_BOUND = 2e-2   # relative L2 error over all gradients
+# A resumed run against the straight one, final losses: the same data and
+# weights, so only reordered float adds (the embedding gradient's
+# scatter-add) part them, and Adam's sqrt(nu) turns a near-zero gradient
+# rounded apart into a full step; the CPU tests' bound for 3 steps.
+TRAIN_RESUME_BOUND = 1e-3
+# The backward kernel against attention_bwd_ref on the same values: both
+# compute in float32 and sum the same products in other orders, so each
+# gradient is within 1e-4 of its largest |g|; a bf16 gradient is rounded
+# once more, by at most 2^-8 of itself.
+FLASH_BWD_TOL = 1e-4
+# flash_attention_bwd's device launches a call (the row statistics, dK and
+# dV, dQ); its counter counts launches.
+BWD_LAUNCHES = 3
 # The flash rows at shapes no LM phase runs: label -> ((B, H, H_kv, T, S,
 # D), causal, dtype), float32 for the float32 kernel, bfloat16 for the bf16
 # one.
@@ -244,6 +313,10 @@ FLASH_OFF_PATH = {
     "noncausal": ((2, 16, 16, 512, 768, 64), False, "float32"),
     "ragged_bf16": ((2, 32, 8, 1000, 1000, 128), True, "bfloat16"),
     "noncausal_bf16": ((2, 16, 16, 512, 768, 128), False, "bfloat16")}
+# flash_attention_bwd's float32 row at a head dim no model here trains at:
+# ((B, H, H_kv, T, S, D), causal, dtype).
+FLASH_BWD_OFF_PATH = {
+    "d16_f32": ((2, 8, 2, 1000, 1000, 16), True, "float32")}
 # The graph phases: name -> (algorithm module, mode, route, combiner,
 # kernels its path must launch), run at RUN_SETTINGS (bench_pagerank.py's
 # and bench_sssp.py's).
@@ -420,6 +493,11 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                              "flash_attention_bf16.cu",
                              "src/repro/kernels/flash_attention/"
                              "flash_attention.py:80"),
+    # No Pallas backward exists: the reference trains through attention_ref
+    # and XLA differentiates it.
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/ref.py:8"),
 }
 
 
@@ -2855,6 +2933,330 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     torch.cuda.empty_cache()
 
 
+def flash_bwd_row(label, phase, q, k, v, causal, generator):
+    """The flash_attention_bwd kernel at q [B, H, T, D], k/v [B, H_kv, S,
+    D] (o the forward kernel's output, do drawn from ``generator``) against
+    attention_bwd_ref on the float32 values, timed beside it and beside
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = q.dtype == torch.bfloat16
+    o = fa.attention(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=generator, device=o.device).to(
+        q.dtype)
+    got = fa.attention_bwd(q, k, v, o, do, causal=causal)
+    f32 = [x.float() for x in (q, k, v, o, do)]
+    ref = fa.attention_bwd_ref(*f32, causal=causal)
+    err = worst = 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        tol = FLASH_BWD_TOL * float(r.abs().max()) + (
+            FLASH_BF16_TOL * r.abs() if bf16 else 0.0)
+        diff = (a.float() - r).abs()
+        err = max(err, float(diff.max()))
+        worst = max(worst, float((diff / tol).max()))
+        check(bool((diff <= tol).all()) and bool(torch.isfinite(a).all()),
+              f"flash_attention_bwd/{label}: {name} off its plain version "
+              f"by up to {float(diff.max()):.3e}")
+    del got, ref, diff, tol
+    b, h, t, d = q.shape
+    h_kv, s = k.shape[1], k.shape[2]
+    pairs = t * (t + 1) // 2 if causal else t * s
+    # q k^T, do v^T, P^T do, dS k and dS^T q: 10 D operations a pair.
+    bnd = bound(nbytes(q, k, v, o, do) + nbytes(q, k, v),
+                10 * d * b * h * pairs,
+                BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+    plain = (lambda: [g.to(q.dtype) for g in fa.attention_bwd_ref(
+        *f32, causal=causal)])
+    plain_ms = time_ms(plain, reps=2)
+    del f32
+    leaf = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaf, is_causal=causal, enable_gqa=h != h_kv)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, leaf, do,
+                                                 retain_graph=True))
+    del out, leaf
+    ms = time_ms(lambda: fa.attention_bwd(q, k, v, o, do, causal=causal))
+    return row("flash_attention_bwd", phase, err, ms, plain_ms, bnd, lib_ms,
+               f"B={b} H={h} H_kv={h_kv} T={t} S={s} D={d} {q.dtype} "
+               f"{'causal' if causal else 'non-causal'}"
+               f"{' (off the path)' if phase == OFF_PATH else ''}; error "
+               f"at {worst:.3f} of its tolerance; library: autograd.grad "
+               f"through SDPA", label=f"flash_attention_bwd/{label}")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a TrainState tree (NamedTuples and dicts, keys
+    sorted), in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def leaf_grads(params, total) -> dict:
+    """{reference leaf: [its parameters' gradients]} of ``total``."""
+    import torch
+    from repro_torch.models.transformer import stacked_leaves
+    leaves = stacked_leaves(params)
+    got = iter(torch.autograd.grad(total, [p for ps in leaves.values()
+                                           for p in ps]))
+    return {name: [next(got) for _ in ps] for name, ps in leaves.items()}
+
+
+def kernel_and_plain(cfg, params, mbatch) -> dict:
+    """{use_flash_kernel: (loss, leaf_grads)} of one microbatch."""
+    from repro_torch.train.train_step import TrainConfig, make_loss_fn
+    out = {}
+    for kernel in (True, False):
+        loss_fn = make_loss_fn(cfg, TrainConfig(use_flash_kernel=kernel))
+        total, (loss, _) = loss_fn(params, mbatch)
+        out[kernel] = (float(loss.detach()), leaf_grads(params, total))
+        del total, loss
+    return out
+
+
+def bf16_grad_check(cfg, params, mbatch, label) -> None:
+    """The bf16 kernel path's loss and gradients against the plain path's
+    at ``params``, within TRAIN_BF16_LOSS_BOUND and TRAIN_BF16_GRAD_BOUND."""
+    import torch
+    out = kernel_and_plain(cfg, params, mbatch)
+    num = den = 0.0
+    worst_leaf = ("", 0.0)
+    for name, gk in out[True][1].items():
+        gp = out[False][1][name]
+        n = sum(float((a.float() - b.float()).square().sum())
+                for a, b in zip(gk, gp))
+        m = sum(float(b.float().square().sum()) for b in gp)
+        num, den = num + n, den + m
+        if m > 0 and math.sqrt(n / m) > worst_leaf[1]:
+            worst_leaf = (name, math.sqrt(n / m))
+    rel = math.sqrt(num / den)
+    loss_rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    finite = all(bool(torch.isfinite(g).all()) for gs in
+                 out[True][1].values() for g in gs)
+    print(f"lm_train bf16 gradients at full depth ({cfg.n_layers} layers), "
+          f"{label}, one microbatch: loss kernel {out[True][0]:.6f} plain "
+          f"{out[False][0]:.6f} (relative {loss_rel:.3e}, bound "
+          f"{TRAIN_BF16_LOSS_BOUND}); gradients' relative L2 error "
+          f"{rel:.3e} (bound {TRAIN_BF16_GRAD_BOUND}), worst leaf "
+          f"{worst_leaf[0]} {worst_leaf[1]:.3e}", flush=True)
+    check(finite, f"lm_train bf16 gradients {label}: not finite")
+    check(loss_rel <= TRAIN_BF16_LOSS_BOUND, f"lm_train bf16 {label}: "
+                                             f"kernel-path loss off the "
+                                             f"plain path")
+    check(rel <= TRAIN_BF16_GRAD_BOUND, f"lm_train bf16 {label}: "
+                                        f"kernel-path gradients off the "
+                                        f"plain path")
+
+
+def train_grad_checks(cfg, dev, seed, mbatch, sh):
+    """One microbatch's loss and gradients through the kernels against the
+    plain attention path: full width, ``tight_layers``, float32; and full
+    depth in the config's bf16.  Returns the bf16 model (for the kernel
+    rows at its layer 0)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer
+
+    cfg32 = dataclasses.replace(cfg, n_layers=sh["tight_layers"],
+                                dtype="float32")
+    p32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+    p32.requires_grad_(True)
+    before = (fa_ops.launches, fa_ops.launches_bwd, fa_ops.launches_bf16)
+    out = kernel_and_plain(cfg32, p32, mbatch)
+    after = (fa_ops.launches, fa_ops.launches_bwd, fa_ops.launches_bf16)
+    runs = 2 if cfg32.remat else 1
+    check(after[0] - before[0] == runs * cfg32.n_layers and
+          after[1] - before[1] == BWD_LAUNCHES * cfg32.n_layers and
+          after[2] == before[2],
+          f"lm_train float32 gradients: {after[0] - before[0]} float32 "
+          f"forward and {after[1] - before[1]} backward launches for "
+          f"{cfg32.n_layers} layers")
+    worst = 0.0
+    for name, gk in out[True][1].items():
+        gp = out[False][1][name]
+        scale = max(float(g.abs().max()) for g in gp)
+        diff = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+        worst = max(worst, diff / scale)
+    loss32 = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    print(f"lm_train float32 gradients at {cfg32.n_layers} layers, full "
+          f"width, one microbatch {tuple(mbatch['tokens'].shape)}: worst "
+          f"leaf max|kernel - plain| / max|g| {worst:.3e} (bound "
+          f"{TRAIN_TIGHT_BOUND}), loss {loss32:.3e}", flush=True)
+    check(worst <= TRAIN_TIGHT_BOUND and loss32 <= TRAIN_TIGHT_BOUND,
+          "lm_train float32 gradients: kernel path off the plain path")
+    del p32, out
+    torch.cuda.empty_cache()
+
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 3), dev)
+    params.requires_grad_(True)
+    bf16_grad_check(cfg, params, mbatch, "at init")
+    params.requires_grad_(False)
+    return params
+
+
+def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
+    """Training at olmo-1b's full width and depth through
+    ``launch/train.py``'s ``train`` (``cfg`` and ``shapes`` shrink it for
+    a rehearsal on the CPU)."""
+    import dataclasses
+    import os
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import WARMUP_STEPS, train
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import stacked_leaves
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import leaf_shape
+    from repro_torch.train.train_step import checkpoint_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or get_arch(TRAIN_ARCH)
+    T, B, mb = sh["seq"], sh["batch"], sh["microbatches"]
+    quiet = lambda *_: None
+    needs = ("flash_attention_bf16", "flash_attention_bwd")
+    print(f"lm_train: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} {cfg.dtype} remat={cfg.remat}: "
+          f"{T}x{B} tokens a step in {mb} microbatches, lr {TRAIN_LR}, "
+          f"warm-up {WARMUP_STEPS}", flush=True)
+
+    def launches_per_step(c):
+        fwd = c.n_layers * mb * (2 if c.remat else 1)
+        return fwd, c.n_layers * mb * BWD_LAUNCHES
+
+    def train_phase(name, steps, compression):
+        res, wall, counts, peak = phases.run(
+            name, name, needs, lambda: train(
+                cfg, steps, seq_len=T, global_batch=B, lr=TRAIN_LR,
+                microbatches=mb, compression=compression, ckpt_every=0,
+                seed=args.seed, device=dev, log=quiet), warm_up=False)
+        fwd, bwd = launches_per_step(cfg)
+        check(counts["flash_attention_bf16"] == steps * fwd and
+              counts["flash_attention_bwd"] == steps * bwd and
+              counts["flash_attention"] == 0,
+              f"{name}: {counts['flash_attention_bf16']} bf16 forward, "
+              f"{counts['flash_attention_bwd']} backward and "
+              f"{counts['flash_attention']} float32 flash launches in "
+              f"{steps} steps (want {fwd} and {bwd} a step)")
+        losses = res.losses
+        check(all(math.isfinite(x) for x in losses), f"{name}: a loss is "
+                                                     f"not finite")
+        warm = res.walls[1:] or res.walls
+        print(f"phase {name}: [{B}x{T}, {mb} microbatches] {steps} steps "
+              f"wall {wall:.3f} s step walls "
+              f"{[round(w, 3) for w in res.walls]} s, "
+              f"{T * B * len(warm) / sum(warm):.0f} tok/s after the first "
+              f"step; losses {[round(x, 4) for x in losses]} grad_norm "
+              f"{[round(m['grad_norm'], 3) for m in res.metrics]} lr "
+              f"{[m['lr'] for m in res.metrics]} wire_bytes "
+              f"{[m['wire_bytes'] for m in res.metrics]} launches {counts} "
+              f"peak_mem {peak:.2f} GiB", flush=True)
+        return res
+
+    # lm_train's first microbatch; the kernel path is held to the plain
+    # path on it after the steps here and at init in train_grad_checks.
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
+                           device=dev).batch_at(0)
+    mbatch = {k: v[:B // mb] for k, v in tokens.items()}
+    res = train_phase("lm_train", sh["steps"], "none")
+    check(res.losses[-1] < res.losses[0], "lm_train: the loss did not fall")
+    bf16_grad_check(cfg, res.state.params, mbatch,
+                    f"after lm_train's {sh['steps']} steps")
+    del res
+    torch.cuda.empty_cache()
+
+    res = train_phase("lm_train_delta", sh["delta_steps"], "delta")
+    want = 8 * sum(max(1, int(math.prod(leaf_shape(name, ps)) * 0.01))
+                   for name, ps in stacked_leaves(res.state.params).items())
+    got = [m["wire_bytes"] for m in res.metrics]
+    print(f"lm_train_delta: wire_bytes {got} a step, host count "
+          f"8 * sum(max(1, floor(0.01 * size))) = {want}", flush=True)
+    check(all(g == want for g in got), "lm_train_delta: wire_bytes off the "
+                                       "stacked leaves' count")
+    del res
+    torch.cuda.empty_cache()
+
+    params = train_grad_checks(cfg, dev, args.seed, mbatch, sh)
+
+    # Kernel rows at lm_train's layer-0 shape (the bf16 model above).
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    with torch.no_grad():
+        qkv = layer0_qkv(cfg, params, mbatch["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    groups = ("lm_train", "lm_train_delta", "lm_train_resume")
+    rows.append(flash_row("train", groups, *qkv, True))
+    rows.append(flash_bwd_row("train", groups, *qkv, True, g))
+    rows.append(flash_bwd_row("train_f32", OFF_PATH,
+                              *(a.float() for a in qkv), True, g))
+    del qkv
+    for label, (shape, causal, dtype) in FLASH_BWD_OFF_PATH.items():
+        rows.append(flash_bwd_row(label, OFF_PATH,
+                                  *random_qkv(shape, g, dtype), causal, g))
+    torch.cuda.empty_cache()
+
+    # lm_train_resume: 4 steps straight, and 2 steps, a checkpoint, a
+    # restore and 2 more, at full width and 2 layers.
+    # Each run's schedule ends at its own last step; the lr of steps 0-3
+    # is the same in all of them (the cosine starts after the warm-up).
+    cfg2 = dataclasses.replace(cfg, n_layers=sh["resume_layers"])
+    n = sh["resume_steps"]
+    assert n <= WARMUP_STEPS
+    ckdir = str(ROOT / "build" / f"ckpt_train_{os.getpid()}")
+    kw = dict(seq_len=T, global_batch=B, lr=TRAIN_LR, microbatches=mb,
+              seed=args.seed, device=dev, log=quiet)
+
+    def resume_runs():
+        straight = train(cfg2, n, ckpt_every=0, **kw)
+        half = train(cfg2, n // 2, ckpt_dir=ckdir, ckpt_every=n // 2, **kw)
+        saved = checkpoint_tree(half.state)
+        tree, step = CheckpointManager(ckdir).load_full(0, saved)
+        same = step == n // 2 and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(tree_leaves(saved), tree_leaves(tree)))
+        del saved, tree
+        resumed = train(cfg2, n, ckpt_dir=ckdir, ckpt_every=0, resume=True,
+                        **kw)
+        return straight, half, resumed, same
+
+    try:
+        (straight, half, resumed, same), wall, counts, peak = phases.run(
+            "lm_train_resume", "lm_train_resume", needs, resume_runs,
+            warm_up=False)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    fwd, bwd = launches_per_step(cfg2)
+    check(counts["flash_attention_bwd"] == 2 * n * bwd and
+          counts["flash_attention_bf16"] == 2 * n * fwd,
+          f"lm_train_resume: launches {counts}")
+    check(same, "lm_train_resume: the restored state is not the saved one")
+    check(resumed.start_step == n // 2, "lm_train_resume: did not resume")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        half.losses + resumed.losses, straight.losses))
+    print(f"phase lm_train_resume: [{cfg2.n_layers} layers, {B}x{T}] wall "
+          f"{wall:.3f} s straight losses "
+          f"{[round(x, 6) for x in straight.losses]}, cut at {n // 2} and "
+          f"resumed {[round(x, 6) for x in half.losses + resumed.losses]}; "
+          f"restored state equal to the saved one bit for bit; max "
+          f"relative loss difference {rel:.3e} (bound "
+          f"{TRAIN_RESUME_BOUND}) launches {counts} peak_mem {peak:.2f} GiB",
+          flush=True)
+    check(rel <= TRAIN_RESUME_BOUND, "lm_train_resume: the resumed losses "
+                                     "are off the straight run's")
+    del straight, half, resumed
+    torch.cuda.empty_cache()
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -2896,6 +3298,7 @@ def main(argv=None) -> int:
         ("delta_scatter", ds_ops), ("edge_propagate", ep_ops),
         ("kmeans_assign", ka_ops), ("flash_attention", fa_ops))})
     phases.counters["flash_attention_bf16"] = (fa_ops, "launches_bf16")
+    phases.counters["flash_attention_bwd"] = (fa_ops, "launches_bwd")
     rows: list = []
     graph_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
@@ -2904,6 +3307,8 @@ def main(argv=None) -> int:
     kmeans_view_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     lm_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    train_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

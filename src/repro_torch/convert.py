@@ -7,7 +7,10 @@ given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
 
 ``lm_params_from_jax`` carries the reference's dense-LM parameter tree
-into a ``models.transformer.DenseLM``.
+into a ``models.transformer.DenseLM``; ``train_state_from_jax`` a whole
+TrainState (parameters, AdamW's step, μ and ν, the compression residuals)
+into the port's, and ``train_state_to_jax`` back into the reference's
+tree of numpy arrays.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, stacked_name
 
 # Field -> pinned dtype, per port type.
 DTYPES = {
@@ -107,19 +110,74 @@ def lm_params_from_jax(cfg, params, device=None) -> DenseLM:
     n_leaves = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
+            src = leaf(params, stacked_name(name))
             if name.startswith("layers."):
-                _, u, rest = name.split(".", 2)
-                stacked = np.asarray(leaf(params["units"]["b0_dense"], rest))
-                put(p, stacked[int(u)], name)
-                n_leaves += int(u) == 0
+                u = int(name.split(".")[1])
+                put(p, np.asarray(src)[u], name)
+                n_leaves += u == 0
             else:
-                put(p, leaf(params, name), name)
+                put(p, src, name)
                 n_leaves += 1
     want = sum(len(_leaves(params[k])) for k in params)
     if n_leaves != want:
         raise ValueError(f"the reference tree has {want} leaves, the port "
                          f"filled {n_leaves}")
     return model
+
+
+def train_state_from_jax(cfg, state, device=None):
+    """The port's ``train_step.TrainState`` holding the reference's
+    ``state`` (its ``TrainState``, or anything with the same fields): the
+    parameters through :func:`lm_params_from_jax`, asking for gradients;
+    μ, ν and the residuals as float32 tensors of the stacked leaves, by
+    leaf name; the step as int32."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState, unnest
+    dev = resolve_device(device)
+    params = lm_params_from_jax(cfg, _field(state, "params"), dev)
+    params.requires_grad_(True)
+
+    def leaves(tree):
+        return {name: _array_to_torch(x).to(dev)
+                for name, x in unnest(tree).items()}
+
+    opt = _field(state, "opt")
+    res = _field(state, "residuals")
+    return TrainState(
+        params=params,
+        opt=AdamWState(step=_array_to_torch(_field(opt, "step")).to(
+            device=dev, dtype=torch.int32),
+            mu=leaves(_field(opt, "mu")), nu=leaves(_field(opt, "nu"))),
+        residuals=None if res is None else leaves(res))
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy; bfloat16 (which numpy lacks) as its 2-byte bits,
+    dtype 'V2', which ``.view(ml_dtypes.bfloat16)`` reads."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def train_state_to_jax(state):
+    """The port's TrainState as the reference's tree: the same NamedTuple
+    fields (``params``, ``opt.step``, ``opt.mu``, ``opt.nu``,
+    ``residuals``), each a nested dict of numpy arrays with the stacked
+    leaves' shapes (bfloat16 as its bits, see :func:`_tensor_to_numpy`)."""
+    from repro_torch.train.train_step import checkpoint_tree
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return _tensor_to_numpy(tree)
+
+    tree = checkpoint_tree(state)
+    return type(tree)(
+        params=host(tree.params),
+        opt=type(tree.opt)(step=_tensor_to_numpy(tree.opt.step),
+                           mu=host(tree.opt.mu), nu=host(tree.opt.nu)),
+        residuals=None if tree.residuals is None else host(tree.residuals))
 
 
 def _leaves(tree) -> list:

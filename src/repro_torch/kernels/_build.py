@@ -58,6 +58,10 @@ SIGNATURES = {
     "flash_attention": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P, P],
     "flash_attention_bf16": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P,
                              P],
+    # q, k, v, o, do, B, H, H_kv, T, S, D, causal, bf16, dq, dk, dv,
+    # lse, delta (scratch), stream
+    "flash_attention_bwd": [P, P, P, P, P, I64, I64, I64, I64, I64, I64,
+                            I64, I64, P, P, P, P, P, P],
 }
 
 

@@ -1,6 +1,7 @@
-"""Public op: attention through the flash_attention kernels.
+"""Public ops: attention through the flash_attention kernels, and its
+gradient through the flash_attention_bwd kernel.
 
-Two kernels, chosen by dtype.  float32 q, k, v launch
+Two forward kernels, chosen by dtype.  float32 q, k, v launch
 ``csrc/flash_attention.cu`` (float32 FMA on the CUDA cores, D in {16, 32,
 64, 128}); bfloat16 ones launch ``csrc/flash_attention_bf16.cu`` (bf16
 ``wgmma`` with float32 sums, P rounded to bf16 before P·V as the Pallas
@@ -13,18 +14,30 @@ T = S when causal (the kernels align the diagonal top-left, the plain
 version bottom-right; they agree only at T = S).  Any T and S otherwise:
 the kernels mask their ragged edges, so there is no block-multiple
 condition.
+
+:func:`attention` is differentiable (a ``torch.autograd.Function``): it
+saves q, k, v and the output, and its backward is :func:`attention_bwd`,
+which launches ``csrc/flash_attention_bwd.cu`` on CUDA tensors (float32
+arithmetic in either dtype, dq, dk and dv in the input dtype, the same
+contract as the forward) and runs ``attention_bwd_ref`` on CPU tensors.
+For bf16 the gradient is that of the float32 attention of the bf16 values:
+the forward's rounding of P to bf16 has no derivative of its own, and
+enters only through the saved output, in ``Delta = rowsum(do * o)``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (128,)}
 TILE = {torch.float32: 64, torch.bfloat16: 128}   # query rows of one block
+BWD_TILE = 64          # query and key rows of a backward block
 
 launches = 0           # float32 kernel launches since the last reset
 launches_bf16 = 0      # bf16 kernel launches since the last reset
+launches_bwd = 0       # backward kernel launches (3 a call), either dtype
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -49,11 +62,7 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention needs T == S, got T={t} S={s}")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
-    """q [B, H, T, D]; k/v [B, H_kv, S, D], all float32 or all bfloat16
-    -> [B, H, T, D] in that dtype."""
-    _check_shapes(q, k, v, causal)
+def _forward(q, k, v, causal: bool) -> torch.Tensor:
     bf16 = q.dtype == torch.bfloat16
     if not q.is_cuda:
         if bf16:
@@ -87,3 +96,77 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.check(err, "flash_attention")
         launches += 1
     return out
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, causal: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`attention`: q, o, do [B, H, T, D], k, v
+    [B, H_kv, S, D], all float32 or all bfloat16, ``o`` the forward's
+    output and ``do`` the gradient reaching it -> (dq, dk, dv) in that
+    dtype."""
+    _check_shapes(q, k, v, causal)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+            do.dtype != q.dtype:
+        raise ValueError(f"attention_bwd takes o and do like q "
+                         f"{q.dtype}{tuple(q.shape)}; got "
+                         f"{o.dtype}{tuple(o.shape)}, "
+                         f"{do.dtype}{tuple(do.shape)}")
+    bf16 = q.dtype == torch.bfloat16
+    if not q.is_cuda:
+        if bf16:
+            return tuple(g.to(torch.bfloat16) for g in attention_bwd_ref(
+                *(x.float() for x in (q, k, v, o, do)), causal=causal))
+        return attention_bwd_ref(q, k, v, o, do, causal=causal)
+    b, h, t, d = q.shape
+    _, h_kv, s, _ = k.shape
+    if b * h >= 2 ** 31 or max(-(-t // BWD_TILE), -(-s // BWD_TILE)) \
+            >= 2 ** 16:
+        raise ValueError(f"grid too large: B*H={b * h}, T={t}, S={s}")
+    from repro_torch.kernels import _build
+    global launches_bwd
+    lib = _build.library()
+    p = _build.ptr
+    args = [p(x, q.dtype, name) for x, name in
+            ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
+    # Four elements a load: 16 bytes of float32, 8 of bf16.
+    if any(a % 16 for a in args):
+        raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, "
+                         "v, o, do")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = lib.flash_attention_bwd(*args, b, h, h_kv, t, s, d, int(causal),
+                                  int(bf16), dq.data_ptr(), dk.data_ptr(),
+                                  dv.data_ptr(), lse.data_ptr(),
+                                  delta.data_ptr(), _build.stream_of(q))
+    _build.check(err, "flash_attention_bwd")
+    # The row statistics and dQ launch where T > 0, dK and dV where S > 0.
+    if b * h:
+        launches_bwd += 2 * (t > 0) + (s > 0)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, do.contiguous(),
+                                   causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """q [B, H, T, D]; k/v [B, H_kv, S, D], all float32 or all bfloat16
+    -> [B, H, T, D] in that dtype; differentiable in q, k and v."""
+    _check_shapes(q, k, v, causal)
+    return _Attention.apply(q, k, v, causal)

@@ -40,10 +40,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def serve(cfg, params, prompt: torch.Tensor, new_tokens: int
           ) -> ServeResult:
     """Prefill ``prompt`` int32[B, T] into a cache of ``T + new_tokens``
-    slots, then decode greedily to ``new_tokens`` new tokens."""
+    slots, then decode greedily to ``new_tokens`` new tokens, under
+    ``torch.inference_mode()`` (no autograd graph)."""
     b, t = prompt.shape
     dev = prompt.device
     t0 = time.perf_counter()

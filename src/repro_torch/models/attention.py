@@ -16,7 +16,7 @@ passed in.
 
 Not ported here, each raising ``NotImplementedError`` with its ROADMAP
 slice (queue 1): sliding windows (9c/9g), M-RoPE (9e), ``flash=True``
-decode, which is the reference's ``shard_map`` flash-decoding (slice 9b,
+decode, which is the reference's ``shard_map`` flash-decoding (slice 9h,
 with ``launch/sharding.py``),
 MLA with ``blocked_attention`` (9d) and cross-attention (9f).  The
 reference's prefill switches to ``blocked_attention`` above
@@ -145,7 +145,7 @@ def gqa_decode(cfg, params: GQA, x: torch.Tensor, cache: dict,
     the token's k/v and position into ``cache`` in place."""
     if flash:
         raise _not_ported("flash decoding over a sequence-sharded cache",
-                          "slice 9b (sharding.py)")
+                          "slice 9h (sharding.py)")
     b = x.shape[0]
     posb = pos.reshape(1, 1).expand(b, 1)
     q, k_new, v_new = gqa_qkv(cfg, params, x, posb)

@@ -33,8 +33,8 @@ def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
-    # Serving only: the flash kernel has no backward yet (training is
-    # ROADMAP queue 1, slice 9b), so no parameter asks for a gradient.
+    # No parameter asks for a gradient at init, so serving records no
+    # autograd graph; training turns them on (train_step.init_train_state).
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -5,11 +5,14 @@ prefill and single-token decode (the ``"dense"`` part of the reference's
 The parameters live in a :class:`DenseLM` (``nn.Module``): ``embed``,
 ``final_norm``, ``lm_head`` (untied configs) and ``layers``, an
 ``nn.ModuleList`` with one :class:`DenseBlock` per layer in place of the
-reference's stacked leading U axis.  The forward functions are plain
-functions on tensors that mirror the reference's signatures; ``remat``
-(a config field) and ``unroll`` have no meaning in eager PyTorch and are
-accepted and ignored.  Caches are ``{"layers": [{"attn": {k, v, pos}},
-...]}``, one dict per layer.
+reference's stacked leading U axis (:func:`stacked_leaves` names each
+parameter by its reference leaf).  The forward functions are plain
+functions on tensors that mirror the reference's signatures.  Where the
+config sets ``remat`` and a parameter asks for a gradient, the forward
+recomputes each block in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` per unit); ``unroll`` has no meaning in
+eager PyTorch and is accepted and ignored.  Caches are ``{"layers":
+[{"attn": {k, v, pos}}, ...]}``, one dict per layer.
 
 A dense block is pre-norm GQA attention plus a SwiGLU MLP, both residual.
 Other block kinds raise ``NotImplementedError`` naming their ROADMAP
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -123,6 +127,34 @@ def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+UNIT = "units.b0_dense"     # the reference's stacked dense unit
+
+
+def stacked_name(name: str) -> str:
+    """The reference leaf that a parameter of the port belongs to:
+    ``layers.3.attn.wq`` -> ``units.b0_dense.attn.wq`` (row 3 of the
+    stacked leaf), any other name as it is."""
+    if name.startswith("layers."):
+        return f"{UNIT}.{name.split('.', 2)[2]}"
+    return name
+
+
+def stacked_leaves(params: DenseLM) -> dict:
+    """{reference leaf name: [the port's parameters that make it]}, the
+    per-layer ones in layer order, the leaves in the order in which
+    ``jax.tree`` flattens the reference's tree (dict keys sorted at every
+    level).  A leaf under ``units`` is stacked: its shape is
+    ``(n_layers, *parameter shape)``."""
+    groups: dict = {}
+    for name, p in params.named_parameters():
+        groups.setdefault(stacked_name(name), []).append(p)
+    return {k: groups[k] for k in sorted(groups, key=lambda n: n.split("."))}
+
+
+def is_stacked(leaf: str) -> bool:
+    return leaf.startswith(UNIT + ".")
+
+
 # ---------------------------------------------------------------------------
 # Blocks.
 # ---------------------------------------------------------------------------
@@ -196,9 +228,16 @@ def forward(cfg, params: DenseLM, tokens: torch.Tensor,
     if positions is None:
         positions = _default_positions(b, t, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
     for block in params.layers:
-        x, a = apply_block("dense", cfg, block, x, positions,
-                           use_kernel=use_kernel)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                apply_block, "dense", cfg, block, x, positions, use_kernel,
+                use_reentrant=False)
+        else:
+            x, a = apply_block("dense", cfg, block, x, positions,
+                               use_kernel=use_kernel)
         aux = aux + a
     x = apply_norm(cfg.norm_kind, params.final_norm, x)
     return (x @ _head(cfg, params)).float(), aux

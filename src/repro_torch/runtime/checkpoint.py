@@ -40,7 +40,10 @@ The on-disk format is the reference package's (``repro.runtime.
 checkpoint``): the same file names, manifest, array names (a leaf's tree
 path, written as ``jax.tree_util`` writes it: ``['key']``, ``[0]``,
 ``.field``, joined by ``/``) and ``__sum__`` digest, so each package reads
-the other's checkpoints.
+the other's checkpoints.  A bfloat16 leaf is written as the reference
+writes it (its bits under '<V2', digested as ``bfloat16``) and restored by
+the template leaf's dtype; the reference itself cannot restore such a file
+(its digest reads the dtype back as '|V2').
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import json
 import os
 import shutil
 import tempfile
+import zipfile
 from typing import Optional
 
 import dataclasses
@@ -67,6 +71,17 @@ class CheckpointCorruption(RuntimeError):
         self.reason = reason
 
 
+# A bfloat16 leaf is held as its 2-byte bits (numpy has no bfloat16 of its
+# own), written under the descr '<V2' and digested as "bfloat16", exactly
+# as the reference writes an ml_dtypes bfloat16 array.  A '|V2' array read
+# back is such a leaf.
+BF16_BITS = np.dtype("V2")
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_BITS else str(arr.dtype)
+
+
 def _digest(arrays: dict) -> np.ndarray:
     """sha256 over array contents + dtypes + shapes, name-sorted —
     stored inside the npz so the checkpoint is self-verifying."""
@@ -74,7 +89,7 @@ def _digest(arrays: dict) -> np.ndarray:
     for key in sorted(arrays):
         arr = np.ascontiguousarray(arrays[key])
         h.update(key.encode())
-        h.update(str(arr.dtype).encode())
+        h.update(_dtype_name(arr).encode())
         h.update(str(arr.shape).encode())
         h.update(arr.tobytes())
     return np.frombuffer(h.digest(), np.uint8)
@@ -139,7 +154,10 @@ def atomic_write_json(path: str, payload: dict) -> None:
 
 def _children(tree):
     """(path step, child) pairs of an inner node, or None for a leaf.
-    Dict keys go in sorted order, as ``jax.tree_util`` visits them."""
+    Dict keys go in sorted order, as ``jax.tree_util`` visits them; None
+    is a node without children, as in ``jax.tree_util``."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -154,6 +172,9 @@ def _children(tree):
 
 def _to_host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
+        if leaf.dtype == torch.bfloat16:
+            return leaf.detach().cpu().view(torch.int16).numpy().view(
+                BF16_BITS)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -177,10 +198,15 @@ def _tree_like(tree, arrays: dict, prefix: str = ""):
     """``tree``'s structure with each leaf read from ``arrays``: a tensor
     on the template leaf's device where that leaf is a tensor, else an
     array."""
+    if tree is None:
+        return None
     kids = _children(tree)
     if kids is None:
         arr = arrays[prefix]
         if torch.is_tensor(tree):
+            if arr.dtype == BF16_BITS and tree.dtype == torch.bfloat16:
+                return torch.from_numpy(np.array(arr).view(np.int16)).view(
+                    torch.bfloat16).to(tree.device)
             return torch.from_numpy(np.array(arr)).to(tree.device)
         return np.array(arr)
     vals = [_tree_like(child, arrays, f"{prefix}/{step}" if prefix
@@ -195,6 +221,22 @@ def _tree_like(tree, arrays: dict, prefix: str = ""):
                          zip(dataclasses.fields(tree), vals)})
 
 
+def _savez(path: str, arrays: dict) -> None:
+    """``np.savez``'s archive (stored, zip64 entries ``<name>.npy``), with
+    each bfloat16 leaf's bits under the descr '<V2'."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if arr.dtype == BF16_BITS:
+                    np.lib.format.write_array_header_1_0(
+                        f, {"descr": "<V2", "fortran_order": False,
+                            "shape": arr.shape})
+                    f.write(np.ascontiguousarray(arr).tobytes())
+                else:
+                    np.lib.format.write_array(f, arr)
+
+
 def _atomic_savez(path: str, **arrays):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     # suffix must end in .npz or np.savez appends it and the rename
@@ -203,7 +245,7 @@ def _atomic_savez(path: str, **arrays):
     os.close(fd)
     try:
         arrays = {k: np.asarray(v) for k, v in arrays.items()}
-        np.savez(tmp, __sum__=_digest(arrays), **arrays)
+        _savez(tmp, {"__sum__": _digest(arrays), **arrays})
         # fsync file THEN replace THEN fsync dir: after a crash the final
         # path holds either the old complete file or the new complete
         # file — never torn bytes.

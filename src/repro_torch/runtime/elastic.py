@@ -9,7 +9,7 @@ exactly, and ``migrate_route_buffers`` re-routes in-flight delta buffers
 through the engine's own ``combine_route`` under the new snapshot.
 
 ``reshard_tree`` (re-committing a parameter tree onto a new device mesh)
-needs ``launch/sharding.py``'s partition specs (ROADMAP slice 9b) and
+needs ``launch/sharding.py``'s partition specs (ROADMAP slice 9h) and
 raises.
 """
 from __future__ import annotations
@@ -99,4 +99,4 @@ def reshard_tree(tree, mesh, spec_fn):
     elastic move."""
     raise NotImplementedError(
         "reshard_tree needs launch/sharding.py's partition specs: ROADMAP "
-        "queue 1, slice 9b (sharding.py)")
+        "queue 1, slice 9h (sharding.py)")

@@ -13,7 +13,8 @@
 
 The cache is updated in place (``transformer.decode_step``); a
 ``ServeState`` passed to ``serve_step`` shares its cache with the one
-returned.  ``fill_cross_kv`` waits for Whisper (ROADMAP queue 1,
+returned.  Each function runs under ``torch.inference_mode()``, so serving
+records no autograd graph, even of parameters that ask for gradients.  ``fill_cross_kv`` waits for Whisper (ROADMAP queue 1,
 slice 9f).
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
 
 
+@torch.inference_mode()
 def prefill(cfg, params, tokens: torch.Tensor, max_len: int
             ) -> tuple[torch.Tensor, ServeState]:
     """Teacher-force ``tokens`` int32[B, T] through ``decode_step``; returns
@@ -52,6 +54,7 @@ def prefill(cfg, params, tokens: torch.Tensor, max_len: int
         last_token=_greedy(logits))
 
 
+@torch.inference_mode()
 def serve_step(cfg, params, state: ServeState
                ) -> tuple[torch.Tensor, ServeState]:
     """One decode step for the whole batch: returns (token int32[B, 1],
@@ -62,6 +65,7 @@ def serve_step(cfg, params, state: ServeState
     return nxt, ServeState(cache=cache, pos=state.pos + 1, last_token=nxt)
 
 
+@torch.inference_mode()
 def generate(cfg, params, prompt: torch.Tensor, n_new: int, max_len: int
              ) -> torch.Tensor:
     """Greedy generation: int32[B, T + n_new], the prompt and the

@@ -28,7 +28,11 @@ A 2-layer full-width bf16
 Llama-3 forward through it is within 5e-2 of the plain path relative to
 the largest logit, chip_smoke.py's bound for the bf16 model at full depth
 (a last-bit difference in an attention output flips a bf16 rounding of
-the residual stream).  The multi-process launch: a ``local``-mode worker
+the residual stream).  flash_attention_bwd is within 1e-4 of each
+gradient's largest |g| of attention_bwd_ref on the same float32 values
+(reordered float32 sums), plus 2^-8 |g| for a bf16 gradient's rounding;
+a reduced train step on the card matches the CPU's.  The multi-process
+launch: a ``local``-mode worker
 process brings CUDA up and acks with sums computed on the card, and the
 bring-up selftest forms a world of one NCCL rank on ``cuda:0``.
 """
@@ -758,6 +762,153 @@ def test_llama3_full_width_two_layers_prefill_kernel_matches_plain(cuda):
             scale = float(b["attn"][key].abs().max())
             assert float((a["attn"][key] - b["attn"][key]).abs().max()) \
                 <= 1e-4 * scale
+
+
+# The backward kernel against attention_bwd_ref on the same values (for
+# bf16 their float32 copies).  Both compute in float32 and sum the same
+# products in other orders, with expf against torch.exp: each gradient is
+# within 1e-4 of its largest |g|.  A bf16 gradient is rounded once more,
+# by at most 2^-8 of itself (8 significant bits).
+BWD_TOL = 1e-4
+
+
+def check_bwd(q, k, v, causal):
+    o = t_fa.attention(q, k, v, causal=causal)
+    g = torch.Generator(device=q.device).manual_seed(q.shape[2])
+    do = torch.randn(o.shape, device=q.device, generator=g).to(q.dtype)
+    before = fa_ops.launches_bwd
+    got = fa_ops.attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_bwd == before + 3   # statistics, dK/dV, dQ
+    ref = t_fa.attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)),
+                                 causal=causal)
+    for name, a, r in zip("qkv", got, ref):
+        assert a.dtype == q.dtype and a.shape == r.shape, name
+        bound = BWD_TOL * float(r.abs().max()) + (
+            BF16_TOL * r.abs() if q.dtype == torch.bfloat16 else 0.0)
+        diff = (a.float() - r).abs()
+        assert bool((diff <= bound).all()), (name, float(diff.max()))
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, fa_ops.attention_bwd(q, k, v, o, do, causal=causal)))
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal", [
+    (2, 4, 4, 200, 200, 16, True), (1, 8, 2, 333, 333, 32, True),
+    (2, 8, 2, 257, 257, 64, True), (1, 8, 2, 1000, 1000, 128, True),
+    (1, 4, 1, 130, 517, 16, False), (2, 8, 8, 64, 100, 32, False),
+    (1, 4, 4, 512, 768, 64, False), (1, 8, 2, 1, 300, 128, False),
+    (1, 4, 1, 300, 65, 128, False)])
+def test_flash_attention_bwd(cuda, b, h, hkv, t, s, d, causal):
+    g = torch.Generator(device=cuda).manual_seed(t * 7 + s + d)
+    q = torch.randn(b, h, t, d, device=cuda, generator=g)
+    k = torch.randn(b, hkv, s, d, device=cuda, generator=g)
+    v = torch.randn(b, hkv, s, d, device=cuda, generator=g)
+    check_bwd(q, k, v, causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,causal", [
+    (2, 4, 4, 200, 200, True), (1, 8, 2, 333, 333, True),
+    (1, 8, 2, 1000, 1000, True), (1, 16, 4, 2048, 2048, True),
+    (1, 4, 1, 130, 517, False), (2, 8, 8, 64, 100, False)])
+def test_flash_attention_bwd_bf16(cuda, b, h, hkv, t, s, causal):
+    check_bwd(*bf16_qkv(cuda, b, h, hkv, t, s, 128), causal)
+
+
+def test_flash_attention_bwd_single_key(cuda):
+    """At S = 1 the softmax is 1 whatever q and k are: dq and dk are 0
+    (the kernel's dS = P (dP - Delta) cancels to rounding, within 1e-6 of
+    the terms' scale max|do| max|v|) and dv sums do over the group's
+    heads, within 1e-4 of its largest |g|."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(1, 4, 300, 128, device=cuda, generator=g)
+    k, v = (torch.randn(1, 1, 1, 128, device=cuda, generator=g)
+            for _ in range(2))
+    o = t_fa.attention(q, k, v, causal=False)
+    do = torch.randn(o.shape, device=cuda, generator=g)
+    dq, dk, dv = fa_ops.attention_bwd(q, k, v, o, do, causal=False)
+    terms = float(do.abs().max() * v.abs().max())
+    assert float(dq.abs().max()) <= 1e-6 * terms * float(k.abs().max())
+    assert float(dk.abs().max()) <= 1e-6 * terms * 300 * float(
+        q.abs().max())
+    want = do.sum(dim=(1, 2), keepdim=True)
+    assert float((dv - want).abs().max()) <= BWD_TOL * float(
+        want.abs().max())
+
+
+def test_flash_attention_grad_goes_through_the_bwd_kernel(cuda):
+    """attention's autograd backward is one call of the kernel, equal to
+    calling it on the saved output."""
+    q, k, v = (x.requires_grad_() for x in bf16_qkv(cuda, 2, 8, 2, 300,
+                                                    300, 128))
+    o = t_fa.attention(q, k, v)
+    do = torch.randn_like(o)
+    before = fa_ops.launches_bwd
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert fa_ops.launches_bwd == before + 3
+    want = fa_ops.attention_bwd(q.detach(), k.detach(), v.detach(),
+                                o.detach(), do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_flash_attention_bwd_raises_outside_its_contract(cuda):
+    x = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.attention_bwd(x, x, x, x, x.transpose(2, 3), causal=False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        h = x.half()
+        fa_ops.attention_bwd(h, h, h, h, h)
+    with pytest.raises(ValueError, match="head dims"):
+        y = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+        fa_ops.attention_bwd(y, y, y, y, y)
+    with pytest.raises(ValueError, match="T == S"):
+        kv = torch.zeros(1, 2, 65, 64, device=cuda)
+        fa_ops.attention_bwd(x, kv, kv, x, x, causal=True)
+    with pytest.raises(ValueError, match="o and do"):
+        fa_ops.attention_bwd(x, x, x, x, x[:, :, :32].contiguous())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(2 * 64 * 64 + 1, device=cuda)
+        y = flat[1:].view(1, 2, 64, 64)
+        fa_ops.attention_bwd(y, y, y, y, y)
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """Three train steps of llama3-8b's reduced config (float32, head dim
+    16, GQA group 2), 2 microbatches, delta compression, on the card (the
+    float32 flash kernels forward and backward, TF32 off) against the CPU
+    from the same weights and batches: step 0's loss and grad_norm within
+    1e-5 relative, wire_bytes equal, the loss after 3 steps within 1e-3
+    (tests/test_torch_train.py's bounds against the reference)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.optimizer import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(), n_kv_heads=2)
+    tcfg = tts.TrainConfig(adamw=AdamWConfig(lr=3e-3, warmup_steps=10,
+                                             total_steps=3),
+                           microbatches=2, compression="delta")
+    cpu = tts.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                               "cpu")
+    card = tts.init_train_state(
+        cfg, tcfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with torch.no_grad():
+        for a, b in zip(card.params.parameters(), cpu.params.parameters()):
+            a.copy_(b)
+    steps = {s: tts.make_train_step(cfg, tcfg) for s in ("cpu", "cuda")}
+    for i in range(3):
+        batch = TokenPipeline(cfg.vocab, 64, 4, device="cpu").batch_at(i)
+        cpu, met_cpu = steps["cpu"](cpu, batch)
+        before = (fa_ops.launches, fa_ops.launches_bwd)
+        card, met = steps["cuda"](card, {k: v.to(cuda)
+                                         for k, v in batch.items()})
+        assert (fa_ops.launches - before[0], fa_ops.launches_bwd -
+                before[1]) == (2 * cfg.n_layers, 3 * 2 * cfg.n_layers)
+        if i == 0:
+            for key in ("loss", "grad_norm"):
+                assert abs(float(met[key]) - float(met_cpu[key])) <= \
+                    1e-5 * abs(float(met_cpu[key])), key
+            assert float(met["wire_bytes"]) == float(met_cpu["wire_bytes"])
+    assert abs(float(met["loss"]) - float(met_cpu["loss"])) <= \
+        1e-3 * abs(float(met_cpu["loss"]))
 
 
 @pytest.mark.parametrize("resume", ["sparse", "dense"])

@@ -44,6 +44,8 @@ import repro_torch.launch.channel
 import repro_torch.launch._worker
 import repro_torch.launch.distributed
 import repro_torch.runtime.health
+import repro_torch.train
+import repro_torch.launch.train
 indptr, indices = make_powerlaw_graph(256, 6.0, seed=0)
 snap = PartitionSnapshot(n_keys=256, num_shards=2)
 pr, res = pagerank.run(shard_csr(indptr, indices, 2, device="cpu"), snap,
@@ -153,7 +155,7 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.frontend import compile_program, reachability_program
     from repro_torch.incremental import ViewManager
-    from repro_torch.launch import _worker, distributed, serve
+    from repro_torch.launch import _worker, distributed, serve, train
     from repro_torch.launch.mesh import init_shard_group
     from repro_torch.models import transformer
     from repro_torch.obs import calibrate_route_table
@@ -170,6 +172,7 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
                      get_arch("olmo-1b").reduced(), 1, 4),
                  lambda: TokenPipeline(256, 8, 1).batch_at(0),
                  lambda: serve.main(["--reduced"]),
+                 lambda: train.main(["--reduced", "--steps", "1"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: reach.run(g, snap),
                  lambda: reach.initial_state(snap),

@@ -361,7 +361,7 @@ def test_unported_paths_name_their_slice():
         tt.DenseLM(dataclasses.replace(cfg, rope_kind="mrope"), "cpu")
     m = model("llama3-8b")
     cache = tt.init_cache(m.cfg, B, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9b"):
+    with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.decode_step(m.cfg, m.params, m.tokens[:, :1], cache,
                        torch.tensor(0), flash_decode=True)
     with pytest.raises(NotImplementedError, match="slice 9"):

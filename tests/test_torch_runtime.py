@@ -193,7 +193,7 @@ class TestLeftForSlice8:
         """Slice 8 is ported: the real chaos executor fires nothing on an
         empty schedule and ``--real`` refuses the CPU unless asked
         (``tests/test_torch_launch.py`` runs it); ``reshard_tree`` still
-        raises, naming slice 9b."""
+        raises, naming slice 9h."""
         inj = chaos.RealChaosInjector(FaultSchedule(), cluster=None)
 
         class _Driver:
@@ -203,7 +203,7 @@ class TestLeftForSlice8:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 chaos.main(["--real", "--quick", "--nodes", "64"])
-        with pytest.raises(NotImplementedError, match="slice 9b"):
+        with pytest.raises(NotImplementedError, match="slice 9h"):
             elastic.reshard_tree({}, None, None)
 
     def test_chaos_cli_on_the_cpu(self, capsys):
