@@ -144,10 +144,11 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   ``launch/train.py``'s ``train``: 32,768 tokens a step (16 x 2048 in 4
   microbatches), warm-up 10, lr TRAIN_LR:
   - ``lm_train``: 6 steps, compression none; each step 128 launches of the
-    bf16 flash kernel (forward and remat recompute) and 64 calls of
-    flash_attention_bwd (192 launches); every loss finite, the last below
-    the first; step walls, tokens/s and peak memory printed; then the bf16
-    check below, on the trained weights;
+    bf16 flash kernel (forward and remat recompute), each writing the
+    rows' log-sum-exp, and 64 calls of flash_attention_bwd's bf16
+    tensor-core kernel (192 launches), which reads it; every loss finite,
+    the last below the first; step walls, tokens/s and peak memory
+    printed; then the bf16 check below, on the trained weights;
   - ``lm_train_delta``: 2 steps with REX-delta gradient compression, its
     wire bytes equal to 8 * sum(max(1, floor(0.01 * size))) over the
     reference's stacked leaves, counted on the host;
@@ -174,10 +175,12 @@ reference's kernel-vs-oracle bound) at the forward's shape (layer 0's
 inputs in float32, a shape no LM phase runs it at); each also at a
 ragged causal shape and a non-causal one.  The bf16 forward kernel is
 also held at ``lm_train``'s layer-0 shape, and flash_attention_bwd there
-(bf16) against attention_bwd_ref on the float32 values (the reason for
-its bound is stated at FLASH_BWD_TOL), in float32 at the same shape and
-at D = 16 (off the path).  Bounds count float32 operations at 67 TFLOP/s,
-bf16 ones at 989 TFLOP/s.
+(bf16, from the forward kernel's log-sum-exp) against attention_bwd_ref
+on the float32 values (the reason for its bound is stated at
+FLASH_BWD_TOL; two calls bitwise equal), in float32 at the same shape
+and at D = 16 (off the path).  ``lm_forward`` and ``lm_serve`` launch no
+backward and write no log-sum-exp.  Bounds count float32 operations at
+67 TFLOP/s, bf16 ones at 989 TFLOP/s.
 edge_propagate's row bins (light rows, heavy rows of more than 32 edges,
 and the heavy rows' edges) are printed beside its checks.
 scatter_route and delta_scatter are also held at W = 4, at the first
@@ -297,13 +300,22 @@ TRAIN_BF16_GRAD_BOUND = 2e-2   # relative L2 error over all gradients
 # scatter-add) part them, and Adam's sqrt(nu) turns a near-zero gradient
 # rounded apart into a full step; the CPU tests' bound for 3 steps.
 TRAIN_RESUME_BOUND = 1e-3
-# The backward kernel against attention_bwd_ref on the same values: both
-# compute in float32 and sum the same products in other orders, so each
-# gradient is within 1e-4 of its largest |g|; a bf16 gradient is rounded
-# once more, by at most 2^-8 of itself.
+# The backward kernels against attention_bwd_ref on the same values (for
+# bf16 their float32 copies).  Float32: both compute in float32 and sum the
+# same products in other orders, so each gradient is within 1e-4 of its
+# largest |g|.  Bf16 adds one term a rounding of the tensor-core kernel: a
+# gradient is rounded to bf16 at the end, by at most 2^-8 of itself, and P
+# and dS are rounded to bf16 before their products, each operand by at
+# most 2^-9 of itself, so a product moves by at most 2^-9 of the product
+# of magnitudes: dV by 2^-8 sum_heads |P|^T |do|, dK by 2^-8 scale
+# sum_heads |dS|^T |q|, dQ by 2^-8 scale |dS| |k| (scale = 1/sqrt(D),
+# computed in float32 by the plain version, bf16_rounding_terms; 2^-8
+# leaves a factor 2).  tests/test_torch_flash_grad.py holds the plain
+# emulation of those roundings within this bound on the CPU.
 FLASH_BWD_TOL = 1e-4
-# flash_attention_bwd's device launches a call (the row statistics, dK and
-# dV, dQ); its counter counts launches.
+# flash_attention_bwd's device launches a call (float32: the row
+# statistics, dK and dV, dQ; bf16: Delta, dK and dV, dQ); its counter
+# counts launches.
 BWD_LAUNCHES = 3
 # The flash rows at shapes no LM phase runs: label -> ((B, H, H_kv, T, S,
 # D), causal, dtype), float32 for the float32 kernel, bfloat16 for the bf16
@@ -494,11 +506,14 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                              "src/repro/kernels/flash_attention/"
                              "flash_attention.py:80"),
     # No Pallas backward exists: the reference trains through attention_ref
-    # and XLA differentiates it.
+    # and XLA differentiates it.  Two files: bf16 (tensor cores, the main
+    # path) here, float32 (CUDA cores) at BWD_F32_SOURCE; a row names the
+    # file of its dtype.
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
-                            "flash_attention_bwd.cu",
+                            "flash_attention_bwd_bf16.cu",
                             "src/repro/kernels/flash_attention/ref.py:8"),
 }
+BWD_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 
 
 class CheckFailed(RuntimeError):
@@ -593,16 +608,17 @@ def compare(name: str, got, ref, float_idx=(), scale=None) -> float:
 
 
 def row(name, combiner, err, ms, plain_ms, b, library_ms, shape,
-        label=None):
+        label=None, source=None):
     """One kernel check.  ``combiner`` groups the phases whose launches
     the row reports: a combiner, an LM phase's name or a tuple of them
     (None: every phase); ``label`` names the row when it is not the
-    kernel's name with its combiner.  ``seq_ms``, set by a builder, is
-    printed on a line beside the row."""
+    kernel's name with its combiner; ``source`` its file when it is not
+    the kernel's in KERNELS.  ``seq_ms``, set by a row function, is printed on
+    a line beside the row."""
     return dict(name=name, combiner=combiner, err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                 library_ms=library_ms, shape=shape, label=label,
-                seq_ms=None)
+                seq_ms=None, source=source)
 
 
 def row_name(r) -> str:
@@ -2791,12 +2807,22 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sh = shapes
     cfg = cfg or get_arch(LM_ARCH)
+
+    def no_training_work(name, counts, stats_before):
+        # Serving needs no gradient: no backward launch, no statistic.
+        check(counts["flash_attention_bwd"] == 0 and
+              fa_ops.lse_written == stats_before,
+              f"{name}: {counts['flash_attention_bwd']} backward launches, "
+              f"{fa_ops.lse_written - stats_before} forward launches that "
+              f"wrote the log-sum-exp")
+
     t0 = time.perf_counter()
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -2812,9 +2838,11 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     B, T = sh["fwd_batch"], sh["fwd_seq"]
     tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
                            device=dev).batch_at(0)["tokens"]
+    stats_before = fa_ops.lse_written
     (logits, _), wall, counts, peak = phases.run(
         "lm_forward", "lm_forward", ("flash_attention_bf16",),
         lambda: transformer.forward(cfg, params, tokens))
+    no_training_work("lm_forward", counts, stats_before)
     check(counts["flash_attention_bf16"] == cfg.n_layers and
           counts["flash_attention"] == 0,
           f"lm_forward: {counts['flash_attention_bf16']} bf16 and "
@@ -2879,9 +2907,11 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 1,
                         device=dev).batch_at(0)["tokens"]
     prompt = ext[:, :P].contiguous()
+    stats_before = fa_ops.lse_written
     res, wall, counts, peak = phases.run(
         "lm_serve", "lm_serve", ("flash_attention_bf16",),
         lambda: serve(cfg, params, prompt, new))
+    no_training_work("lm_serve", counts, stats_before)
     check(counts["flash_attention_bf16"] == cfg.n_layers and
           counts["flash_attention"] == 0,
           f"lm_serve: {counts['flash_attention_bf16']} bf16 and "
@@ -2934,30 +2964,41 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
 
 
 def flash_bwd_row(label, phase, q, k, v, causal, generator):
-    """The flash_attention_bwd kernel at q [B, H, T, D], k/v [B, H_kv, S,
-    D] (o the forward kernel's output, do drawn from ``generator``) against
-    attention_bwd_ref on the float32 values, timed beside it and beside
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention``."""
+    """The flash_attention_bwd kernel of q's dtype at q [B, H, T, D], k/v
+    [B, H_kv, S, D] (o, and for bf16 the log-sum-exp, the forward kernel's;
+    do drawn from ``generator``) against attention_bwd_ref on the float32
+    values (the bound stated at FLASH_BWD_TOL), two calls bitwise equal,
+    timed beside it and beside ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     bf16 = q.dtype == torch.bfloat16
-    o = fa.attention(q, k, v, causal=causal)
+    o, lse = (fa.attention_with_lse(q, k, v, causal=causal) if bf16 else
+              (fa.attention(q, k, v, causal=causal), None))
     do = torch.randn(o.shape, generator=generator, device=o.device).to(
         q.dtype)
-    got = fa.attention_bwd(q, k, v, o, do, causal=causal)
+
+    def run():
+        return fa.attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+
+    got = run()
+    check(all(torch.equal(a, b) for a, b in zip(got, run())),
+          f"flash_attention_bwd/{label}: two calls differ")
     f32 = [x.float() for x in (q, k, v, o, do)]
     ref = fa.attention_bwd_ref(*f32, causal=causal)
+    terms = (fa.bf16_rounding_terms(*f32, causal=causal) if bf16 else
+             (0.0, 0.0, 0.0))
     err = worst = 0.0
-    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+    for name, a, r, term in zip(("dq", "dk", "dv"), got, ref, terms):
         tol = FLASH_BWD_TOL * float(r.abs().max()) + (
-            FLASH_BF16_TOL * r.abs() if bf16 else 0.0)
+            FLASH_BF16_TOL * r.abs() + term if bf16 else 0.0)
         diff = (a.float() - r).abs()
         err = max(err, float(diff.max()))
         worst = max(worst, float((diff / tol).max()))
         check(bool((diff <= tol).all()) and bool(torch.isfinite(a).all()),
               f"flash_attention_bwd/{label}: {name} off its plain version "
               f"by up to {float(diff.max()):.3e}")
-    del got, ref, diff, tol
+    del got, ref, terms, diff, tol
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     pairs = t * (t + 1) // 2 if causal else t * s
@@ -2975,13 +3016,19 @@ def flash_bwd_row(label, phase, q, k, v, causal, generator):
     lib_ms = time_ms(lambda: torch.autograd.grad(out, leaf, do,
                                                  retain_graph=True))
     del out, leaf
-    ms = time_ms(lambda: fa.attention_bwd(q, k, v, o, do, causal=causal))
+    ms = time_ms(run)
+    # The bf16 design computes q k^T and do v^T in both passes: 7 products
+    # of the 5 the bound counts.
+    floor = (f"; the design's 7 products {bnd[0] * 7 / 5:.3f} ms" if bf16
+             else "")
     return row("flash_attention_bwd", phase, err, ms, plain_ms, bnd, lib_ms,
                f"B={b} H={h} H_kv={h_kv} T={t} S={s} D={d} {q.dtype} "
                f"{'causal' if causal else 'non-causal'}"
                f"{' (off the path)' if phase == OFF_PATH else ''}; error "
-               f"at {worst:.3f} of its tolerance; library: autograd.grad "
-               f"through SDPA", label=f"flash_attention_bwd/{label}")
+               f"at {worst:.3f} of its tolerance{floor}; library: "
+               f"autograd.grad through SDPA",
+               label=f"flash_attention_bwd/{label}",
+               source=None if bf16 else BWD_F32_SOURCE)
 
 
 def tree_leaves(tree) -> list:
@@ -3111,6 +3158,7 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.train import WARMUP_STEPS, train
     from repro_torch.models import transformer
     from repro_torch.models.transformer import stacked_leaves
@@ -3135,6 +3183,7 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
         return fwd, c.n_layers * mb * BWD_LAUNCHES
 
     def train_phase(name, steps, compression):
+        stats_before = fa_ops.lse_written
         res, wall, counts, peak = phases.run(
             name, name, needs, lambda: train(
                 cfg, steps, seq_len=T, global_batch=B, lr=TRAIN_LR,
@@ -3148,6 +3197,13 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
               f"{counts['flash_attention_bwd']} backward and "
               f"{counts['flash_attention']} float32 flash launches in "
               f"{steps} steps (want {fwd} and {bwd} a step)")
+        # The bf16 backward reads the forward's log-sum-exp: every forward
+        # launch of a step (remat's recompute too) writes it.
+        check(fa_ops.lse_written - stats_before ==
+              counts["flash_attention_bf16"],
+              f"{name}: {fa_ops.lse_written - stats_before} of "
+              f"{counts['flash_attention_bf16']} bf16 forward launches "
+              f"wrote the log-sum-exp")
         losses = res.losses
         check(all(math.isfinite(x) for x in losses), f"{name}: a loss is "
                                                      f"not finite")
@@ -3313,7 +3369,8 @@ def main(argv=None) -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [dict(
-        name=row_name(r), route="cuda", source=KERNELS[r["name"]][0],
+        name=row_name(r), route="cuda",
+        source=r["source"] or KERNELS[r["name"]][0],
         replaces=KERNELS[r["name"]][1],
         launches=phases.of(r["name"], r["combiner"]),
         max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],

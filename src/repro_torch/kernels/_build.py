@@ -56,12 +56,17 @@ SIGNATURES = {
     "kmeans_assign": [P, P, I64, I64, I64, P, P, P, P],
     # q, k, v, B, H, H_kv, T, S, D, causal, out, stream
     "flash_attention": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P, P],
+    # the same, then lse2 (NULL: not written), device, stream
     "flash_attention_bf16": [P, P, P, I64, I64, I64, I64, I64, I64, I64, P,
-                             P],
-    # q, k, v, o, do, B, H, H_kv, T, S, D, causal, bf16, dq, dk, dv,
+                             P, I64, P],
+    # q, k, v, o, do, B, H, H_kv, T, S, D, causal, dq, dk, dv,
     # lse, delta (scratch), stream
     "flash_attention_bwd": [P, P, P, P, P, I64, I64, I64, I64, I64, I64,
-                            I64, I64, P, P, P, P, P, P],
+                            I64, P, P, P, P, P, P],
+    # q, k, v, o, do, lse2 (the forward's), B, H, H_kv, T, S, D, causal,
+    # dq, dk, dv, delta (scratch), device, stream
+    "flash_attention_bwd_bf16": [P, P, P, P, P, P, I64, I64, I64, I64, I64,
+                                 I64, I64, P, P, P, P, I64, P],
 }
 
 

@@ -11,7 +11,13 @@
 // operands summed in float32 (each product is exact in float32), P rounded
 // to bf16 before P.V (the Pallas kernel's p.astype(v.dtype)), the output
 // rounded to bf16 (its out_shape is q.dtype).  D = 128, the head dim of
-// every dense config.
+// every dense config.  Given a statistic pointer (training asks for it), the
+// epilogue also stores each query row's log-sum-exp in the log2 domain the
+// kernel works in, lse2 = m + log2 l = log2 sum_s 2^(q.k scale log2 e), as
+// float32 [B H, Tp] with Tp = T rounded up to 128: every row of every tile,
+// so rows past T hold finite values too.  flash_attention_bwd_bf16.cu reads
+// it as P = 2^(s scale log2 e - lse2).  Serving passes a null pointer and
+// stores nothing more.
 //
 // What bounds it: operations.  The work is 4 * D * B * H * pairs, pairs the
 // (t, s) the mask keeps (T (T + 1) / 2 when causal): 275 GFLOP at B = 2,
@@ -76,8 +82,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int H, int group, int T,
-                   int S, int causal, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse2, int H, int group, int T, int S,
+                   int causal, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -221,6 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float denom = fmaxf(sum, 1e-30f);
       const int row = row0 + 8 * r;
+      if (lse2 && lane % 4 == 0)
+        lse2[(long long)bh * gridDim.y * kRows + row] = m[r] + log2f(denom);
       if (row >= T) continue;
 #pragma unroll
       for (int jn = 0; jn < kD / 8; ++jn) {
@@ -235,19 +244,34 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// q bf16[B, H, T, D], k/v bf16[B, H_kv, S, D] -> o bf16[B, H, T, D].  The
-// wrapper has checked D = 128, H % H_kv == 0, T = S when causal, 16-byte
-// aligned pointers, B * H < 2^31 and ceil(T / 128) < 65536.
+// q bf16[B, H, T, D], k/v bf16[B, H_kv, S, D] -> o bf16[B, H, T, D], and
+// where lse2 is not null the rows' log-sum-exp, float32 [B H, Tp] (Tp = T
+// rounded up to 128; 0 when S = 0), on card `device` (made current first:
+// a thread with no current context cannot encode tensor maps, as autograd's
+// worker thread, whose first CUDA work this may be).  The wrapper has
+// checked D = 128,
+// H % H_kv == 0, T = S when causal, 16-byte aligned pointers, B * H < 2^31
+// and ceil(T / 128) < 65536.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, long long B, long long H,
                                     long long H_kv, long long T, long long S,
                                     long long D, long long causal, void* o,
+                                    void* lse2, long long device,
                                     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int dev_err = (int)cudaSetDevice((int)device);
+  if (dev_err) return dev_err;
   if (B * H * T == 0) return (int)cudaGetLastError();
   if (D != kD) return (int)cudaErrorInvalidValue;
-  if (S == 0)   // no keys: every row's weights are empty, o = 0
+  if (S == 0) {  // no keys: every row's weights are empty, o = 0
+    const long long tp = (T + kRows - 1) / kRows * kRows;
+    if (lse2) {
+      const int e = (int)cudaMemsetAsync(lse2, 0, (size_t)(B * H * tp) * 4,
+                                         stream);
+      if (e) return e;
+    }
     return (int)cudaMemsetAsync(o, 0, (size_t)(B * H * T * D) * 2, stream);
+  }
   CUtensorMap tq, tk, tv;
   int err = bf16_map_3d(&tq, q, B * H, T, kD, kRows);
   if (!err) err = bf16_map_3d(&tk, k, B * H_kv, S, kD, kRows);
@@ -260,7 +284,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                        kSmemBytes);
   const dim3 grid((unsigned)(B * H), (unsigned)((T + kRows - 1) / kRows));
   fa_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (int)H, (int)(H / H_kv), (int)T,
-      (int)S, causal ? 1 : 0, scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse2, (int)H, (int)(H / H_kv),
+      (int)T, (int)S, causal ? 1 : 0, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // flash_attention_bwd: the gradient of blocked online-softmax attention
-// (GQA, causal or not) with respect to q, k and v, float32 arithmetic on the
-// CUDA cores, float32 or bf16 operands.
+// (GQA, causal or not) with respect to float32 q, k and v, float32
+// arithmetic on the CUDA cores.  bf16 operands go to
+// flash_attention_bwd_bf16.cu (tensor cores, the forward's statistic).
 //
 // Replaces no Pallas kernel: the reference has no attention backward and
 // trains through its plain attention_ref, which XLA differentiates
@@ -20,11 +21,10 @@
 // 2 D multiply-adds a product; this design computes q k^T three times and
 // do v^T twice, so 8 products in all against the 5 that the function needs
 // (10 D FLOP a pair): 172 GFLOP needed at B = 4, H = 16, T = S = 2048,
-// D = 128, causal, which is 0.17 ms at the 989 TFLOP/s of bf16 tensor cores
-// or 2.6 ms at the 67 TFLOP/s of float32 FMA, against 134 MB of bf16 q, k,
-// v, o, do, dq, dk, dv (0.04 ms at 3.35 TB/s).  This first kernel computes
-// in float32 on the CUDA cores, with no tensor cores, and recomputes the
-// softmax statistics because the forward kernels do not emit them.
+// D = 128, causal, which is 2.6 ms at the 67 TFLOP/s of float32 FMA,
+// against 268 MB of float32 q, k, v, o, do, dq, dk, dv (0.08 ms at
+// 3.35 TB/s).  It recomputes the softmax statistics because the float32
+// forward kernel does not emit them.
 //
 // Design: three launches, no atomics, so a run is deterministic and
 // independent of B.  Each block has 256 threads in a 16 x 16 layout; a
@@ -46,9 +46,8 @@
 //      and dO^T stay; for each key tile, S and dP from K^T and V^T, dS to
 //      shared memory, K reloaded as rows, dQ += dS K.  157 KB at D = 128.
 // Ragged T and S are masked in the kernels (zero-filled tiles, masked
-// pairs).  Not done here: tensor cores (wgmma on bf16 operands), TMA, one
-// pass over the pairs for dK, dV and dQ.
-#include <cuda_bf16.h>
+// pairs).  Not done here: one pass over the pairs for dK, dV and dQ; the
+// forward's statistic (the float32 forward does not write it).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -64,32 +63,15 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Four consecutive bf16 values (8 bytes) widened to float32.
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows [row0, row0 + 64) of a [n_rows, D] matrix into shared memory,
 // transposed (dst[d * kLd + r]), zero past n_rows.  A warp takes 16 rows by
 // two 4-column groups, so its 32 stores of one component land in 32 banks
 // (flash_attention.cu's layout).
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_transposed(float* dst,
-                                                const T* __restrict__ src,
+                                                const float* __restrict__ src,
                                                 int row0, int n_rows) {
   constexpr int kVec = D / 4;
   constexpr int kRowGroups = kTile / 16;
@@ -110,9 +92,9 @@ __device__ __forceinline__ void load_transposed(float* dst,
 
 // Rows [row0, row0 + 64) of a [n_rows, D] matrix into shared memory as rows
 // (dst[r * D + d]), zero past n_rows.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int n_rows) {
   constexpr int kVec = D / 4;
   for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
@@ -186,10 +168,10 @@ __device__ __forceinline__ void store_transposed(float* dst, int ty, int tx,
 
 // ---- 1. row statistics ----------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ o, const T* __restrict__ dout,
+    bwd_stats(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ o, const float* __restrict__ dout,
               float* __restrict__ lse, float* __restrict__ delta, int H,
               int group, int Tq, int S, int causal, float scale) {
   extern __shared__ float4 smem4[];
@@ -203,7 +185,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const long long q_off = (long long)bh * Tq * D;
-  const T* kb = k + ((long long)b * (H / group) + hk) * S * D;
+  const float* kb = k + ((long long)b * (H / group) + hk) * S * D;
 
   // Delta: four threads a row, D/4 columns each.
   {
@@ -224,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
     if (part == 0 && q0 + r < Tq) delta[(long long)bh * Tq + q0 + r] = sum;
   }
 
-  load_transposed<T, D>(qt, q + q_off, q0, Tq);
+  load_transposed<D>(qt, q + q_off, q0, Tq);
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -236,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int kj = 0; kj < n_kv; ++kj) {
     const int k0 = kj * kTile;
     __syncthreads();
-    load_transposed<T, D>(kt, kb, k0, S);
+    load_transposed<D>(kt, kb, k0, S);
     __syncthreads();
     float s[4][4] = {};
     dot_tile<D>(qt, kt, ty, tx, s);
@@ -277,13 +259,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- 2. dK and dV -----------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dk, T* __restrict__ dv, int H, int group, int Tq,
-             int S, int causal, float scale) {
+             float* __restrict__ dk, float* __restrict__ dv, int H,
+             int group, int Tq, int S, int causal, float scale) {
   constexpr int kCols = D / 16;
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // [D][kLd]
@@ -302,8 +284,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ty = threadIdx.x / 16;  // key rows ty*4 .., output rows
   const long long kv_off = (long long)bhk * S * D;
 
-  load_transposed<T, D>(kt, k + kv_off, k0, S);
-  load_transposed<T, D>(vt, v + kv_off, k0, S);
+  load_transposed<D>(kt, k + kv_off, k0, S);
+  load_transposed<D>(vt, v + kv_off, k0, S);
 
   float acc_dk[4][kCols], acc_dv[4][kCols];
 #pragma unroll
@@ -315,15 +297,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_first = causal ? k0 / kTile : 0;
   for (int hh = 0; hh < group; ++hh) {
     const long long bh = (long long)b * H + hk * group + hh;
-    const T* qb = q + bh * Tq * D;
-    const T* dob = dout + bh * Tq * D;
+    const float* qb = q + bh * Tq * D;
+    const float* dob = dout + bh * Tq * D;
     const float* lse_b = lse + bh * Tq;
     const float* delta_b = delta + bh * Tq;
     for (int qi = q_first; qi < n_q; ++qi) {
       const int q0 = qi * kTile;
       __syncthreads();              // the last tile's rows are consumed
-      load_transposed<T, D>(ra, qb, q0, Tq);
-      load_transposed<T, D>(rb, dob, q0, Tq);
+      load_transposed<D>(ra, qb, q0, Tq);
+      load_transposed<D>(rb, dob, q0, Tq);
       __syncthreads();
       float st[4][4] = {}, dpt[4][4] = {};
       dot_tile<D>(kt, ra, ty, tx, st);    // S^T[key][query]
@@ -346,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();              // every thread is done with Q^T, dO^T
       store_transposed(ps, ty, tx, p);
       store_transposed(dss, ty, tx, ds);
-      load_rows<T, D>(ra, qb, q0, Tq);
-      load_rows<T, D>(rb, dob, q0, Tq);
+      load_rows<D>(ra, qb, q0, Tq);
+      load_rows<D>(rb, dob, q0, Tq);
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < kTile; ++r) {
@@ -386,12 +368,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- 3. dQ ------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dq, int H, int group, int Tq, int S, int causal,
+           float* __restrict__ dq, int H, int group, int Tq, int S, int causal,
            float scale) {
   constexpr int kCols = D / 16;
   extern __shared__ float4 smem4[];
@@ -410,8 +392,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long q_off = (long long)bh * Tq * D;
   const long long kv_off = ((long long)b * (H / group) + hk) * S * D;
 
-  load_transposed<T, D>(qt, q + q_off, q0, Tq);
-  load_transposed<T, D>(dot, dout + q_off, q0, Tq);
+  load_transposed<D>(qt, q + q_off, q0, Tq);
+  load_transposed<D>(dot, dout + q_off, q0, Tq);
   float lse_r[4], dl_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -430,8 +412,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int kj = 0; kj < n_kv; ++kj) {
     const int k0 = kj * kTile;
     __syncthreads();                // the last tile's K rows are consumed
-    load_transposed<T, D>(kt, k + kv_off, k0, S);
-    load_transposed<T, D>(vt, v + kv_off, k0, S);
+    load_transposed<D>(kt, k + kv_off, k0, S);
+    load_transposed<D>(vt, v + kv_off, k0, S);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     dot_tile<D>(qt, kt, ty, tx, s);
@@ -450,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();                // every thread is done with K^T
     store_transposed(dst, ty, tx, ds);
-    load_rows<T, D>(kt, k + kv_off, k0, S);
+    load_rows<D>(kt, k + kv_off, k0, S);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kTile; ++c) {
@@ -485,10 +467,11 @@ void allow_smem(K kernel, size_t bytes) {
                          (int)bytes);
 }
 
-template <typename T, int D>
-int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
-           int B, int H, int H_kv, int Tq, int S, int causal, T* dq, T* dk,
-           T* dv, float* lse, float* delta, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, int B, int H, int H_kv, int Tq, int S,
+           int causal, float* dq, float* dk, float* dv, float* lse,
+           float* delta, cudaStream_t stream) {
   // 1/sqrt(D) rounded once, as the forward kernels' scale is.
   const float scale = (float)(1.0 / sqrt((double)D));
   const int group = H / H_kv;
@@ -497,23 +480,23 @@ int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
   const size_t tile = sizeof(float) * D * kLd;
   const size_t rows = sizeof(float) * kTile * kLd;
   if (n_q > 0) {
-    allow_smem(bwd_stats<T, D>, 2 * tile);
-    bwd_stats<T, D><<<dim3(B * H, n_q), kThreads, 2 * tile, stream>>>(
+    allow_smem(bwd_stats<D>, 2 * tile);
+    bwd_stats<D><<<dim3(B * H, n_q), kThreads, 2 * tile, stream>>>(
         q, k, o, dout, lse, delta, H, group, Tq, S, causal, scale);
     int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (n_k > 0) {
-    allow_smem(bwd_dkdv<T, D>, 4 * tile + 2 * rows);
-    bwd_dkdv<T, D><<<dim3(B * H_kv, n_k), kThreads, 4 * tile + 2 * rows,
+    allow_smem(bwd_dkdv<D>, 4 * tile + 2 * rows);
+    bwd_dkdv<D><<<dim3(B * H_kv, n_k), kThreads, 4 * tile + 2 * rows,
                      stream>>>(q, k, v, dout, lse, delta, dk, dv, H, group,
                                Tq, S, causal, scale);
     int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (n_q > 0) {
-    allow_smem(bwd_dq<T, D>, 4 * tile + rows);
-    bwd_dq<T, D><<<dim3(B * H, n_q), kThreads, 4 * tile + rows, stream>>>(
+    allow_smem(bwd_dq<D>, 4 * tile + rows);
+    bwd_dq<D><<<dim3(B * H, n_q), kThreads, 4 * tile + rows, stream>>>(
         q, k, v, dout, lse, delta, dq, H, group, Tq, S, causal, scale);
   }
   return (int)cudaGetLastError();
@@ -521,32 +504,23 @@ int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
 
 }  // namespace
 
-// q, o, do [B, H, T, D], k, v [B, H_kv, S, D] -> dq [B, H, T, D], dk, dv
-// [B, H_kv, S, D], all float32 (bf16 = 0) or all bf16 (bf16 = 1); lse and
-// delta are float32 [B, H, T] scratch.  The wrapper has checked D in {16,
-// 32, 64, 128} for float32 and D = 128 for bf16, H % H_kv == 0, T = S when
-// causal, B * H < 2^31, ceil(T / 64) and ceil(S / 64) < 65536, and 16-byte
-// aligned operands.
+// q, o, do float32[B, H, T, D], k, v float32[B, H_kv, S, D] -> dq [B, H,
+// T, D], dk, dv [B, H_kv, S, D]; lse and delta are float32 [B, H, T]
+// scratch.  The wrapper has checked D in {16, 32, 64, 128}, H % H_kv == 0,
+// T = S when causal, B * H < 2^31, ceil(T / 64) and ceil(S / 64) < 65536,
+// and 16-byte aligned operands.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, long long B, long long H,
                                    long long H_kv, long long T, long long S,
-                                   long long D, long long causal,
-                                   long long bf16, void* dq, void* dk,
-                                   void* dv, void* lse, void* delta,
-                                   void* stream_ptr) {
+                                   long long D, long long causal, void* dq,
+                                   void* dk, void* dv, void* lse,
+                                   void* delta, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (B * H == 0) return (int)cudaGetLastError();
   const int c = causal ? 1 : 0;
   float* ls = (float*)lse;
   float* dl = (float*)delta;
-  if (bf16) {
-    using bf = __nv_bfloat16;
-    if (D != 128) return (int)cudaErrorInvalidValue;
-    return launch<bf, 128>((const bf*)q, (const bf*)k, (const bf*)v,
-                           (const bf*)o, (const bf*)dout, B, H, H_kv, T, S,
-                           c, (bf*)dq, (bf*)dk, (bf*)dv, ls, dl, stream);
-  }
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
@@ -557,16 +531,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   float* dvf = (float*)dv;
   switch (D) {
     case 16:
-      return launch<float, 16>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
+      return launch<16>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
                                dkf, dvf, ls, dl, stream);
     case 32:
-      return launch<float, 32>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
+      return launch<32>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
                                dkf, dvf, ls, dl, stream);
     case 64:
-      return launch<float, 64>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
+      return launch<64>(qf, kf, vf, of, df, B, H, H_kv, T, S, c, dqf,
                                dkf, dvf, ls, dl, stream);
     case 128:
-      return launch<float, 128>(qf, kf, vf, of, df, B, H, H_kv, T, S, c,
+      return launch<128>(qf, kf, vf, of, df, B, H, H_kv, T, S, c,
                                 dqf, dkf, dvf, ls, dl, stream);
     default:
       return (int)cudaErrorInvalidValue;

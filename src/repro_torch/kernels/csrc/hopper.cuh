@@ -123,6 +123,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory
+// at `dst`, both 16-byte aligned; completes on `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Register reallocation between warpgroups (all 128 threads execute it).
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -190,6 +201,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define HOPPER_ACC8(d, i)                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_ACC32(d)                                                \
+  HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),            \
+      HOPPER_ACC8(d, 24)
 #define HOPPER_ACC64(d)                                                \
   HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),            \
       HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),      \
@@ -212,6 +226,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B for A [64 x 16] and B [16 x 64], both from shared memory,
+// both K-major; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : HOPPER_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d += A B for A [64 x 16] bf16 in registers and B [16 x 128] from shared
 // memory, MN-major (transpose bit set).
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
@@ -231,6 +260,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
 }
 
 #undef HOPPER_ACC64
+#undef HOPPER_ACC32
 #undef HOPPER_ACC8
 
 }  // namespace

@@ -17,27 +17,45 @@ condition.
 
 :func:`attention` is differentiable (a ``torch.autograd.Function``): it
 saves q, k, v and the output, and its backward is :func:`attention_bwd`,
-which launches ``csrc/flash_attention_bwd.cu`` on CUDA tensors (float32
-arithmetic in either dtype, dq, dk and dv in the input dtype, the same
-contract as the forward) and runs ``attention_bwd_ref`` on CPU tensors.
-For bf16 the gradient is that of the float32 attention of the bf16 values:
-the forward's rounding of P to bf16 has no derivative of its own, and
-enters only through the saved output, in ``Delta = rowsum(do * o)``.
+with the same contract as the forward, dq, dk and dv in the input dtype.
+On CPU tensors it runs ``attention_bwd_ref``.  On CUDA tensors float32
+launches ``csrc/flash_attention_bwd.cu`` (float32 FMA on the CUDA cores,
+its own pass for the softmax statistics) and bfloat16 launches
+``csrc/flash_attention_bwd_bf16.cu`` (bf16 ``wgmma``, P and dS rounded
+to bf16 before their products, float32 sums), which reads the forward's
+log-sum-exp: when grad is enabled and q, k or v needs a gradient, the
+bf16 forward kernel also writes each query row's log-sum-exp in the log2
+domain (``lse2 = log2 sum_s 2^(q.k log2(e) / sqrt(D))``, float32
+[B, H, Tp], Tp = T rounded up to STAT_ROWS), and the Function saves it
+with q, k, v and the output.  A forward that needs no gradient (serving,
+``no_grad``) writes and allocates nothing more.  A bf16 backward on the
+card without the statistic raises; nothing falls back.  The gradient is
+that of the float32 attention of the bf16 values: the forward's rounding
+of P to bf16 has no derivative of its own, and enters only through the
+saved output, in ``Delta = rowsum(do * o)``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                     attention_ref)
+                                                     attention_ref, lse2_ref)
 
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (128,)}
 TILE = {torch.float32: 64, torch.bfloat16: 128}   # query rows of one block
-BWD_TILE = 64          # query and key rows of a backward block
+BWD_TILE = {torch.float32: 64, torch.bfloat16: 128}   # largest backward tile
+STAT_ROWS = 128        # the statistic's rows: T rounded up to this
 
 launches = 0           # float32 kernel launches since the last reset
 launches_bf16 = 0      # bf16 kernel launches since the last reset
 launches_bwd = 0       # backward kernel launches (3 a call), either dtype
+lse_written = 0        # bf16 forward launches that wrote the statistic
+
+
+def stat_rows(t: int) -> int:
+    """Rows of the statistic for T query rows (T rounded up to
+    STAT_ROWS)."""
+    return -(-t // STAT_ROWS) * STAT_ROWS
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -62,21 +80,25 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention needs T == S, got T={t} S={s}")
 
 
-def _forward(q, k, v, causal: bool) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, want_lse: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(output, the statistic when ``want_lse`` and q is bf16 on the
+    card, else None)."""
     bf16 = q.dtype == torch.bfloat16
     if not q.is_cuda:
         if bf16:
             return attention_ref(q.float(), k.float(), v.float(),
-                                 causal=causal).to(torch.bfloat16)
-        return attention_ref(q, k, v, causal=causal)
+                                 causal=causal).to(torch.bfloat16), None
+        return attention_ref(q, k, v, causal=causal), None
     b, h, t, d = q.shape
     _, h_kv, s, _ = k.shape
     if b * h >= 2 ** 31 or -(-t // TILE[q.dtype]) >= 2 ** 16:
         raise ValueError(f"grid too large: B*H={b * h}, T={t}")
     from repro_torch.kernels import _build
-    global launches, launches_bf16
+    global launches, launches_bf16, lse_written
     lib = _build.library()
     out = torch.empty_like(q)
+    lse = None
     p = _build.ptr
     args = (p(q, q.dtype, "q"), p(k, q.dtype, "k"), p(v, q.dtype, "v"))
     if bf16:
@@ -85,26 +107,53 @@ def _forward(q, k, v, causal: bool) -> torch.Tensor:
         if any(a % 16 for a in args):
             raise ValueError("flash_attention_bf16 needs 16-byte aligned "
                              "q, k, v")
+        if want_lse:
+            lse = torch.empty((b, h, stat_rows(t)), dtype=torch.float32,
+                              device=q.device)
         err = lib.flash_attention_bf16(*args, b, h, h_kv, t, s, d,
                                        int(causal), out.data_ptr(),
-                                       _build.stream_of(q))
+                                       lse.data_ptr() if want_lse else None,
+                                       q.device.index, _build.stream_of(q))
         _build.check(err, "flash_attention_bf16")
         launches_bf16 += 1
+        lse_written += want_lse
     else:
         err = lib.flash_attention(*args, b, h, h_kv, t, s, d, int(causal),
                                   out.data_ptr(), _build.stream_of(q))
         _build.check(err, "flash_attention")
         launches += 1
-    return out
+    return out, lse
+
+
+def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """bf16 q [B, H, T, D], k/v [B, H_kv, S, D] -> (the output, the rows'
+    log-sum-exp in the log2 domain, float32 [B, H, stat_rows(T)]), the
+    statistic :func:`attention_bwd` takes for bf16; not differentiable.  On
+    the card the bf16 forward kernel writes both (rows past T hold finite
+    values of no meaning); on the CPU the plain versions, rows past T 0."""
+    _check_shapes(q, k, v, causal)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the statistic is the bf16 kernel's; got "
+                         f"{q.dtype}")
+    if q.is_cuda:
+        return _forward(q, k, v, causal, want_lse=True)
+    b, h, t, _ = q.shape
+    lse = torch.zeros((b, h, stat_rows(t)), dtype=torch.float32)
+    lse[..., :t] = lse2_ref(q.float(), k.float(), causal=causal)
+    return _forward(q, k, v, causal)[0], lse
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  o: torch.Tensor, do: torch.Tensor, causal: bool = True
+                  o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                  lse: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`attention`: q, o, do [B, H, T, D], k, v
     [B, H_kv, S, D], all float32 or all bfloat16, ``o`` the forward's
     output and ``do`` the gradient reaching it -> (dq, dk, dv) in that
-    dtype."""
+    dtype.  ``lse`` is the forward's statistic (:func:`attention_with_lse`),
+    which a bf16 call on the card needs and the other paths ignore."""
     _check_shapes(q, k, v, causal)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
             do.dtype != q.dtype:
@@ -120,26 +169,45 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_ref(q, k, v, o, do, causal=causal)
     b, h, t, d = q.shape
     _, h_kv, s, _ = k.shape
-    if b * h >= 2 ** 31 or max(-(-t // BWD_TILE), -(-s // BWD_TILE)) \
-            >= 2 ** 16:
+    tile = BWD_TILE[q.dtype]
+    if b * h >= 2 ** 31 or max(-(-t // tile), -(-s // tile)) >= 2 ** 16:
         raise ValueError(f"grid too large: B*H={b * h}, T={t}, S={s}")
+    if bf16 and (lse is None or lse.shape != (b, h, stat_rows(t)) or
+                 lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError(
+            f"a bf16 attention_bwd on the card takes the forward's "
+            f"log-sum-exp, float32 {(b, h, stat_rows(t))} on {q.device} "
+            f"(attention_with_lse); got "
+            f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
     from repro_torch.kernels import _build
     global launches_bwd
     lib = _build.library()
     p = _build.ptr
     args = [p(x, q.dtype, name) for x, name in
             ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
-    # Four elements a load: 16 bytes of float32, 8 of bf16.
+    # Four float32 elements a load (16 bytes); TMA's 16-byte aligned bases.
     if any(a % 16 for a in args):
         raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, "
                          "v, o, do")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if bf16:
+        delta = torch.empty((b, h, stat_rows(t)), dtype=torch.float32,
+                            device=q.device)
+        err = lib.flash_attention_bwd_bf16(
+            *args, p(lse, torch.float32, "lse"), b, h, h_kv, t, s, d,
+            int(causal), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), q.device.index, _build.stream_of(q))
+        _build.check(err, "flash_attention_bwd_bf16")
+        # Delta, dK dV and dQ where T and S > 0 (else memsets).
+        if b * h and t and s:
+            launches_bwd += 3
+        return dq, dk, dv
+    stats = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(stats)
     err = lib.flash_attention_bwd(*args, b, h, h_kv, t, s, d, int(causal),
-                                  int(bf16), dq.data_ptr(), dk.data_ptr(),
-                                  dv.data_ptr(), lse.data_ptr(),
+                                  dq.data_ptr(), dk.data_ptr(),
+                                  dv.data_ptr(), stats.data_ptr(),
                                   delta.data_ptr(), _build.stream_of(q))
     _build.check(err, "flash_attention_bwd")
     # The row statistics and dQ launch where T > 0, dK and dV where S > 0.
@@ -150,18 +218,18 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, want_lse):
+        out, lse = _forward(q, k, v, causal, want_lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, do.contiguous(),
-                                   causal=ctx.causal)
-        return dq, dk, dv, None
+                                   causal=ctx.causal, lse=lse)
+        return dq, dk, dv, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,4 +237,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, T, D]; k/v [B, H_kv, S, D], all float32 or all bfloat16
     -> [B, H, T, D] in that dtype; differentiable in q, k and v."""
     _check_shapes(q, k, v, causal)
-    return _Attention.apply(q, k, v, causal)
+    # The bf16 backward on the card reads the forward's statistic; only a
+    # forward whose output can reach a backward writes it.
+    want_lse = (q.is_cuda and q.dtype == torch.bfloat16 and
+                torch.is_grad_enabled() and
+                any(x.requires_grad for x in (q, k, v)))
+    return _Attention.apply(q, k, v, causal, want_lse)

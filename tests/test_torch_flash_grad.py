@@ -12,6 +12,15 @@ other orders, and torch's and XLA's exp); the Function against plain
 autograd of ``attention_ref``, float32, the same 1e-5.  A bf16 gradient
 on the CPU is the float32 plain backward of the bf16 values, rounded to
 bf16, bit for bit.
+
+The bf16 backward kernel on the card rounds P and dS to bf16 before their
+products and the gradients at the end; ``attention_bwd_rounded`` is the
+plain emulation of those roundings.  With them off it is
+``attention_bwd_ref`` bit for bit; with them on it stays within the card
+tests' bf16 bound, 1e-4 max|g| + 2^-8 |g| + ``bf16_rounding_terms`` (each
+rounded operand off by at most 2^-9 of itself, taken at 2^-8), at causal,
+ragged and GQA shapes: the bound follows from the roundings, not from the
+card's readings.
 """
 import numpy as np
 import pytest
@@ -112,3 +121,55 @@ def test_bwd_raises_outside_the_contract():
     with pytest.raises(ValueError, match="T == S"):
         kv = torch.zeros(1, 2, 9, 16)
         fa.attention_bwd(x, kv, kv, x, x, causal=True)
+
+
+ROUNDING_CASES = [  # B, H, H_kv, T, S, D, causal
+    ((1, 4, 4, 64, 64, 128), True), ((2, 4, 2, 75, 75, 128), True),
+    ((1, 8, 2, 37, 37, 32), True), ((1, 4, 1, 33, 90, 128), False),
+    ((2, 2, 2, 1, 70, 16), False)]
+
+
+@pytest.mark.parametrize("shape,causal", ROUNDING_CASES)
+def test_bf16_rounding_emulation_within_its_bound(shape, causal):
+    q, k, v, do = (torch.from_numpy(x).bfloat16().float()
+                   for x in draw(shape, 5))
+    # The forward kernel's output, rounded to bf16.
+    o = fa.attention_ref(q, k, v, causal=causal).bfloat16().float()
+    ref = fa.attention_bwd_ref(q, k, v, o, do, causal=causal)
+    off = fa.attention_bwd_rounded(q, k, v, o, do, causal=causal,
+                                   roundings=False)
+    assert all(torch.equal(a, b) for a, b in zip(off, ref))
+    on = fa.attention_bwd_rounded(q, k, v, o, do, causal=causal)
+    terms = fa.bf16_rounding_terms(q, k, v, o, do, causal=causal)
+    for name, a, r, term in zip(("dq", "dk", "dv"), on, ref, terms):
+        assert term.shape == r.shape and bool((term >= 0).all()), name
+        assert torch.equal(a, a.bfloat16().float()), name
+        assert not torch.equal(a, r), name       # the roundings move it
+        bound = 1e-4 * float(r.abs().max()) + 2 ** -8 * r.abs() + term
+        assert bool(((a - r).abs() <= bound).all()), \
+            (name, float(((a - r).abs() / bound).max()))
+
+
+def test_the_statistic_on_the_cpu():
+    """attention_with_lse's plain path: the output of attention, and the
+    rows' log-sum-exp in the log2 domain over stat_rows(T) rows, 0 past
+    T; a bf16 backward on the CPU takes it or not alike, and a CPU forward
+    writes no statistic."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in draw((1, 4, 2, 40, 40, 128), 6))
+    before = fa_ops.lse_written
+    o, lse = fa.attention_with_lse(q, k, v)
+    assert fa_ops.lse_written == before
+    assert torch.equal(o, fa.attention(q, k, v))
+    assert lse.shape == (1, 4, fa_ops.stat_rows(40)) == (1, 4, 128)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                          torch.repeat_interleave(k.float(), 2, dim=1))
+    scores = scores / 128 ** 0.5 + torch.full((40, 40), float("-inf")).triu(1)
+    want = torch.logsumexp(scores, dim=-1) / np.log(2)
+    assert float((lse[..., :40] - want).abs().max()) <= 1e-5
+    assert not lse[..., 40:].any()
+    got = fa.attention_bwd(q, k, v, o, do, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, fa.attention_bwd(q, k, v, o, do)))
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        fa.attention_with_lse(q.float(), k.float(), v.float())

@@ -30,13 +30,18 @@ the largest logit, chip_smoke.py's bound for the bf16 model at full depth
 (a last-bit difference in an attention output flips a bf16 rounding of
 the residual stream).  flash_attention_bwd is within 1e-4 of each
 gradient's largest |g| of attention_bwd_ref on the same float32 values
-(reordered float32 sums), plus 2^-8 |g| for a bf16 gradient's rounding;
-a reduced train step on the card matches the CPU's.  The multi-process
+(reordered float32 sums); the bf16 kernel, which rounds P and dS to bf16
+before their products and the gradients at the end, adds 2^-8 |g| and
+the terms of ``bf16_rounding_terms`` (the reason is stated at BWD_TOL).
+The bf16 forward's log-sum-exp, which the bf16 backward reads, is within
+S 2^-23 of torch.logsumexp; serving writes none.  A reduced train step on
+the card matches the CPU's.  The multi-process
 launch: a ``local``-mode worker
 process brings CUDA up and acks with sums computed on the card, and the
 bring-up selftest forms a world of one NCCL rank on ``cuda:0``.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -764,32 +769,43 @@ def test_llama3_full_width_two_layers_prefill_kernel_matches_plain(cuda):
                 <= 1e-4 * scale
 
 
-# The backward kernel against attention_bwd_ref on the same values (for
-# bf16 their float32 copies).  Both compute in float32 and sum the same
-# products in other orders, with expf against torch.exp: each gradient is
-# within 1e-4 of its largest |g|.  A bf16 gradient is rounded once more,
-# by at most 2^-8 of itself (8 significant bits).
+# The backward kernels against attention_bwd_ref on the same values (for
+# bf16 their float32 copies).  Float32: both compute in float32 and sum
+# the same products in other orders, with expf against torch.exp, so each
+# gradient is within 1e-4 of its largest |g|.  Bf16 (the tensor-core
+# kernel): a gradient is rounded once more at the end, by at most 2^-8 of
+# itself (8 significant bits), and P and dS are rounded to bf16 before
+# their products, each by at most 2^-9 of itself, which moves dV by at
+# most 2^-9 sum_heads |P|^T |do|, dK by 2^-9 scale sum_heads |dS|^T |q|
+# and dQ by 2^-9 scale |dS| |k|; the bound adds those terms at 2^-8
+# (``bf16_rounding_terms``, float32 on the plain version), which the CPU
+# tests hold the plain emulation of the roundings to.
 BWD_TOL = 1e-4
 
 
 def check_bwd(q, k, v, causal):
-    o = t_fa.attention(q, k, v, causal=causal)
+    bf16 = q.dtype == torch.bfloat16
+    o, lse = (t_fa.attention_with_lse(q, k, v, causal=causal) if bf16
+              else (t_fa.attention(q, k, v, causal=causal), None))
     g = torch.Generator(device=q.device).manual_seed(q.shape[2])
     do = torch.randn(o.shape, device=q.device, generator=g).to(q.dtype)
     before = fa_ops.launches_bwd
-    got = fa_ops.attention_bwd(q, k, v, o, do, causal=causal)
+    got = fa_ops.attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
-    assert fa_ops.launches_bwd == before + 3   # statistics, dK/dV, dQ
-    ref = t_fa.attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)),
-                                 causal=causal)
-    for name, a, r in zip("qkv", got, ref):
+    # float32: statistics, dK/dV, dQ; bf16: Delta, dK/dV, dQ.
+    assert fa_ops.launches_bwd == before + 3
+    f32 = [x.float() for x in (q, k, v, o, do)]
+    ref = t_fa.attention_bwd_ref(*f32, causal=causal)
+    terms = (t_fa.bf16_rounding_terms(*f32, causal=causal) if bf16 else
+             (0.0, 0.0, 0.0))
+    for name, a, r, term in zip("qkv", got, ref, terms):
         assert a.dtype == q.dtype and a.shape == r.shape, name
         bound = BWD_TOL * float(r.abs().max()) + (
-            BF16_TOL * r.abs() if q.dtype == torch.bfloat16 else 0.0)
+            BF16_TOL * r.abs() + term if bf16 else 0.0)
         diff = (a.float() - r).abs()
         assert bool((diff <= bound).all()), (name, float(diff.max()))
     assert all(torch.equal(a, b) for a, b in zip(
-        got, fa_ops.attention_bwd(q, k, v, o, do, causal=causal)))
+        got, fa_ops.attention_bwd(q, k, v, o, do, causal=causal, lse=lse)))
 
 
 @pytest.mark.parametrize("b,h,hkv,t,s,d,causal", [
@@ -812,6 +828,98 @@ def test_flash_attention_bwd(cuda, b, h, hkv, t, s, d, causal):
     (1, 4, 1, 130, 517, False), (2, 8, 8, 64, 100, False)])
 def test_flash_attention_bwd_bf16(cuda, b, h, hkv, t, s, causal):
     check_bwd(*bf16_qkv(cuda, b, h, hkv, t, s, 128), causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,causal", [
+    (2, 4, 4, 200, 200, True), (1, 8, 2, 1000, 1000, True),
+    (1, 4, 1, 130, 517, False), (1, 8, 2, 1, 300, False)])
+def test_flash_attention_bf16_lse(cuda, b, h, hkv, t, s, causal):
+    """The bf16 forward's statistic, in natural-log units, against
+    torch.logsumexp of the scaled, masked scores: a float32 sum of S terms
+    is off by S 2^-24 of itself, doubled for ex2.approx, so S 2^-23; the
+    output is the kernel's without the statistic, bit for bit, and the
+    rows past T are finite."""
+    q, k, v = bf16_qkv(cuda, b, h, hkv, t, s, 128)
+    o, lse = t_fa.attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, fa_ops.stat_rows(t))
+    assert lse.dtype == torch.float32 and bool(torch.isfinite(lse).all())
+    kx = torch.repeat_interleave(k.float(), h // hkv, dim=1)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), kx) / 128 ** 0.5
+    if causal:
+        mask = torch.ones(t, s, dtype=torch.bool, device=cuda).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    want = torch.logsumexp(scores, dim=-1)
+    diff = (lse[..., :t] * math.log(2) - want).abs()
+    assert float(diff.max()) <= s * 2 ** -23, float(diff.max())
+    assert torch.equal(o, t_fa.attention(q, k, v, causal=causal))
+
+
+def test_flash_attention_bwd_bf16_needs_the_statistic(cuda):
+    """A bf16 backward on the card reads the forward's log-sum-exp and
+    raises without it (or with one of another shape); nothing falls back
+    to the CUDA-core kernels."""
+    q, k, v = bf16_qkv(cuda, 1, 4, 2, 200, 200, 128)
+    o, lse = t_fa.attention_with_lse(q, k, v)
+    before = fa_ops.launches_bwd
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa_ops.attention_bwd(q, k, v, o, o)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa_ops.attention_bwd(q, k, v, o, o, lse=lse[..., :200].contiguous())
+    assert fa_ops.launches_bwd == before
+
+
+def test_flash_attention_bf16_kernels_from_a_fresh_thread(cuda):
+    """The bf16 forward and backward from a thread that has run no CUDA
+    work yet, as autograd's worker thread may be: the entries make the
+    tensors' card current before they encode their tensor maps, and give
+    the main thread's results bit for bit."""
+    import threading
+    q, k, v = bf16_qkv(cuda, 2, 8, 2, 300, 300, 128)
+    o, lse = t_fa.attention_with_lse(q, k, v)
+    do = torch.randn_like(o)
+    want = fa_ops.attention_bwd(q, k, v, o, do, lse=lse)
+    box = {}
+
+    def run():
+        try:
+            box["fwd"] = t_fa.attention_with_lse(q, k, v)
+            box["bwd"] = fa_ops.attention_bwd(q, k, v, o, do, lse=lse)
+            torch.cuda.synchronize()
+        except Exception as e:   # re-raised in the test's thread
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in box, box.get("error")
+    assert torch.equal(box["fwd"][0], o) and torch.equal(box["fwd"][1], lse)
+    assert all(torch.equal(a, b) for a, b in zip(box["bwd"], want))
+
+
+def test_serving_launches_no_backward_and_writes_no_statistic(cuda):
+    """lm_forward's and lm_serve's paths (a full-sequence forward, and
+    launch/serve.py's prefill and decode) at a small bf16 config of head
+    dim 128 launch the bf16 forward kernel, no backward, and write no
+    log-sum-exp; a forward whose parameters need gradients writes one a
+    layer."""
+    from repro_torch.launch.serve import serve
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(),
+                              dtype="bfloat16", head_dim=128)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(4), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 300), device=cuda,
+                           dtype=torch.int32)
+    before = (fa_ops.launches_bf16, fa_ops.launches_bwd, fa_ops.lse_written)
+    transformer.forward(cfg, params, tokens)
+    serve(cfg, params, tokens, 4)
+    torch.cuda.synchronize()
+    after = (fa_ops.launches_bf16, fa_ops.launches_bwd, fa_ops.lse_written)
+    assert after[0] == before[0] + 2 * cfg.n_layers
+    assert after[1:] == before[1:]
+    params.requires_grad_(True)
+    transformer.forward(cfg, params, tokens)
+    assert fa_ops.lse_written == before[2] + cfg.n_layers
 
 
 def test_flash_attention_bwd_single_key(cuda):
@@ -845,8 +953,11 @@ def test_flash_attention_grad_goes_through_the_bwd_kernel(cuda):
     before = fa_ops.launches_bwd
     grads = torch.autograd.grad(o, (q, k, v), do)
     assert fa_ops.launches_bwd == before + 3
+    # The statistic the Function saved is the forward kernel's, written
+    # again bit for bit by the same launch.
+    lse = t_fa.attention_with_lse(q.detach(), k.detach(), v.detach())[1]
     want = fa_ops.attention_bwd(q.detach(), k.detach(), v.detach(),
-                                o.detach(), do)
+                                o.detach(), do, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
 
 

@@ -3,13 +3,17 @@
 
     PYTHONPATH=src python3 tools/profile_lm.py [--seed 0] [--steps 8]
 
-Llama-3-8B at full width and depth (bf16, random weights from the port's
-seeded init), the shapes of ``chip_smoke.py``'s LM phases: one
-full-sequence forward at 2 x 4096 tokens, then ``--steps`` greedy decode
-steps against the cache of 8 prompts of 2048 tokens.  Each runs once to
-warm up and once under ``torch.profiler`` (CPU and CUDA activity).  Prints
-the host wall time, the summed device time of the kernels, and the
-operators and kernels by device time.  Exits non-zero without CUDA.
+Serving: Llama-3-8B at full width and depth (bf16,
+random weights from the port's seeded init), the shapes of
+``chip_smoke.py``'s LM phases: one full-sequence forward at 2 x 4096
+tokens, then ``--steps`` greedy decode steps against the cache of 8
+prompts of 2048 tokens.  Training: one step of
+``chip_smoke.py``'s ``lm_train`` (OLMo-1B at full width and depth, bf16,
+remat, 16 x 2048 tokens in 4 microbatches, its lr), through the train
+step ``launch/train.py`` runs.  Each runs once to warm up and once under
+``torch.profiler`` (CPU and CUDA activity).  Prints the host wall time,
+the summed device time of the kernels, and the operators and kernels by
+device time.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 
 
 def profiled(label, fn):
@@ -43,6 +48,36 @@ def profiled(label, fn):
           f"wall)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=20,
                        max_name_column_width=60))
+
+
+def train_profile(seed, dev) -> None:
+    """One lm_train step of chip_smoke.py, warmed up and then profiled."""
+    import torch
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import WARMUP_STEPS
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, sh = get_arch(cs.TRAIN_ARCH), cs.TRAIN_SHAPES
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=cs.TRAIN_LR,
+                                         warmup_steps=WARMUP_STEPS,
+                                         total_steps=sh["steps"]),
+                       microbatches=sh["microbatches"])
+    state = [init_train_state(
+        cfg, tcfg, torch.Generator(device=dev).manual_seed(seed), dev)]
+    step = make_train_step(cfg, tcfg)
+    batch = TokenPipeline(cfg.vocab, sh["seq"], sh["batch"], seed=seed,
+                          device=dev).batch_at(0)
+
+    def one():
+        state[0], _ = step(state[0], batch)
+
+    profiled(f"lm_train step [{cfg.name}, {sh['batch']}x{sh['seq']}, "
+             f"{sh['microbatches']} microbatches]", one)
 
 
 def main(argv=None) -> int:
@@ -85,6 +120,9 @@ def main(argv=None) -> int:
             _, state = serve_step(cfg, params, state)
 
     profiled(f"decode [8x2048, {args.steps} steps]", decode)
+    del params, cache, state
+    torch.cuda.empty_cache()
+    train_profile(args.seed, dev)
     return 0
 
 

@@ -3,6 +3,7 @@
 chip_smoke.py's rows do, for any tree.
 
     python3 tools/time_kernels.py [--src DIR] [--sass] [--phases] [--dist]
+                                  [--flash]
 
 ``--src`` is the directory holding the ``repro_torch`` package to time
 (default: this checkout's ``src``), so that two versions of the kernels can
@@ -57,6 +58,19 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
   the profiler's Chrome trace), their summed device time, and the
   ``aten`` operators it called, nested ones included.  The rule phases
   need a tree whose ``repro_torch`` has the frontend.
+* flash_attention_bwd at ``lm_train``'s layer shape (chip_smoke.py's
+  TRAIN_SHAPES and olmo-1b's heads, standard normal inputs) in bf16 and
+  float32, and at FLASH_BWD_OFF_PATH, by chip_smoke.py's
+  ``flash_bwd_row`` (its error against the plain version and the SDPA
+  backward's time), with each of its three launches' device time from
+  torch.profiler's trace; for a tree whose op has no
+  ``attention_with_lse`` (a backward that recomputes the statistic), its
+  time and launch split alone.  With ``--sass`` also the bf16 backward's dK dV and dQ kernels
+  by opcode (HGMMA, UTMALDG, UBLKCP: the bulk copies of the statistic
+  and Delta, MUFU, USETMAXREG, and STL / LDL: spills), with their
+  resources.
+* ``--flash``: the flash rows alone (forward and backward), without the
+  graph, delta_scatter and kmeans rows.
 * ``--dist``: each phase of chip_smoke.py's DIST_PHASES (the shard_map
   backend on a world of one rank over NCCL, its group on a ``file://``
   store under ``build/``) in turns with its simulated twin, as the rule
@@ -81,6 +95,10 @@ PHASE_RUNS = 3
 PAIR_ROUNDS = 2   # rounds of (twin, rules, rules, twin)
 SASS_KERNEL = "ka_table_kernelILi32E"   # ka_table_kernel<32>, mangled
 FLASH_SASS_KERNEL = "fa_bf16_kernel"
+# The bf16 backward's two tensor-core kernels (the float32 file's
+# templates of the same names are mangled with their template arguments).
+BWD_SASS_KERNELS = {"dkdv": "bwd_dkdvE14CUtensorMap",
+                    "dq": "bwd_dqE14CUtensorMap"}
 # ds_kernel<OP, V, FW, ALIGNED>, mangled: add at W = 1, min at W = 1, add
 # at W = 4 with an aligned payload.
 SCATTER_SASS_KERNELS = {"add_w1": "ds_kernelILi0ELi1ELi1ELb1E",
@@ -132,23 +150,101 @@ def sass_counts(sass: str, csrc: Path, k: int) -> dict:
             "ops": dict(ops.most_common())}
 
 
-def flash_sass_counts(sass: str, lib: Path) -> dict:
-    """Opcodes of FLASH_SASS_KERNEL: the total, and the tensor-core
-    products, TMA loads, exponentials and register reallocations; and its
-    resources as ``cuobjdump -res-usage`` reports them (registers at
-    entry, stack, local memory)."""
-    ops = opcodes(sass, FLASH_SASS_KERNEL)
+def flash_sass_counts(sass: str, lib: Path,
+                      kernel: str = FLASH_SASS_KERNEL) -> dict:
+    """Opcodes of ``kernel``: the total, and the tensor-core products, TMA
+    loads, bulk copies, exponentials, register reallocations and spills;
+    and its resources as ``cuobjdump -res-usage`` reports them (registers
+    at entry, stack, local memory)."""
+    ops = opcodes(sass, kernel)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     usage = subprocess.run([tool, "-res-usage", str(lib)],
                            capture_output=True, text=True, check=True,
                            timeout=300).stdout.splitlines()
     res = next((usage[i + 1].strip() for i, line in enumerate(usage[:-1])
-                if FLASH_SASS_KERNEL in line), None)
-    return {"kernel": FLASH_SASS_KERNEL, "found": bool(ops),
+                if kernel in line), None)
+    return {"kernel": kernel, "found": bool(ops),
             "instructions": sum(ops.values()),
-            **{o: ops[o] for o in ("HGMMA", "UTMALDG", "MUFU",
-                                   "USETMAXREG")},
+            **{o: ops[o] for o in ("HGMMA", "UTMALDG", "UBLKCP", "MUFU",
+                                   "USETMAXREG", "STL", "LDL")},
             "resources": res, "ops": dict(ops.most_common())}
+
+
+# The backward's launches, by the kernel names torch.profiler reports
+# (float32: statistics, dK dV, dQ; bf16: Delta, dK dV, dQ).
+BWD_KERNELS = {"bwd_stats": "statistics", "bwd_delta": "Delta",
+               "bwd_dkdv": "dK dV", "bwd_dq": "dQ"}
+
+
+def bwd_split(fn, reps: int = 5) -> dict:
+    """Device ms a call of each BWD_KERNELS kernel ``fn`` launches, from
+    the Chrome trace of torch.profiler over ``reps`` calls after one
+    warm-up (as chip_smoke.py's busy_share reads kernels).  Measured in a
+    process of its own: late in chip_smoke.py's run the profiler's trace
+    holds no kernel events."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        name = next((n for n in BWD_KERNELS if n in str(e.get("name"))),
+                    None)
+        if e.get("cat") == "kernel" and name:
+            out[BWD_KERNELS[name]] = (out.get(BWD_KERNELS[name], 0.0) +
+                                      e.get("dur", 0.0) / 1e3 / reps)
+    return out
+
+
+def bwd_rows(cs, dev, seed) -> dict:
+    """flash_attention_bwd at lm_train's layer shape (bf16 and float32)
+    and at FLASH_BWD_OFF_PATH: chip_smoke.py's rows with each launch's
+    device time, or for a tree before the forward's statistic the time
+    and launch split alone."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    cfg, sh = get_arch(cs.TRAIN_ARCH), cs.TRAIN_SHAPES
+    layer = (sh["batch"] // sh["microbatches"], cfg.n_heads, cfg.n_kv_heads,
+             sh["seq"], sh["seq"], cfg.hd)
+    shapes = {"train": (layer, True, cfg.dtype),
+              "train_f32": (layer, True, "float32"),
+              **cs.FLASH_BWD_OFF_PATH}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for label, (shape, causal, dtype) in shapes.items():
+        q, k, v = cs.random_qkv(shape, g, dtype)
+        stat = (hasattr(fa, "attention_with_lse") and
+                q.dtype == torch.bfloat16)
+        o, lse = (fa.attention_with_lse(q, k, v, causal=causal) if stat
+                  else (fa.attention(q, k, v, causal=causal), None))
+        do = torch.randn(o.shape, generator=g, device=dev).to(q.dtype)
+        kw = {"lse": lse} if stat else {}
+        run = lambda: fa.attention_bwd(q, k, v, o, do, causal=causal, **kw)
+        name = f"flash_attention_bwd/{label}"
+        if hasattr(fa, "attention_with_lse"):
+            r = cs.flash_bwd_row(label, None, q, k, v, causal, g)
+            out[name] = {key: r[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "err", "shape")}
+        else:
+            out[name] = {"ms": cs.time_ms(run), "shape": (
+                f"{tuple(q.shape)} {tuple(k.shape)} {q.dtype}")}
+        out[name]["split"] = bwd_split(run)
+        del o, do, lse
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def scatter_sass_counts(sass: str) -> dict:
@@ -354,6 +450,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--dist", action="store_true")
+    ap.add_argument("--flash", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -363,7 +460,6 @@ def main(argv=None) -> int:
     # The package under --src first; chip_smoke's own path entry then no
     # longer decides which repro_torch its builders import.
     sys.path.insert(0, str(Path(args.src).resolve()))
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
@@ -376,7 +472,29 @@ def main(argv=None) -> int:
     rows = []
     out: dict = {"card": card, "src": str(Path(args.src).resolve())}
     size = cs.parse_args([])   # chip_smoke.py's sizes and seed
+    if not args.flash:
+        graph_and_points(args, cs, dev, size, rows, out)
+    flash_rows(cs, dev, size, rows)
+    out["rows"] = {cs.row_name(r): {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "err", "shape")}
+        for r in rows}
+    out["bwd_rows"] = bwd_rows(cs, dev, size.seed)
+    if args.sass:
+        sass = library_sass(lib)
+        out["kmeans_sass"] = sass_counts(sass, _build.CSRC, cs.KMEANS_K)
+        out["flash_bf16_sass"] = flash_sass_counts(sass, lib)
+        out["flash_bwd_sass"] = {
+            name: flash_sass_counts(sass, lib, kernel)
+            for name, kernel in BWD_SASS_KERNELS.items()}
+        out["delta_scatter_sass"] = scatter_sass_counts(sass)
+    print(json.dumps(out))
+    return 0
 
+
+def graph_and_points(args, cs, dev, size, rows, out) -> None:
+    """The edge_propagate, delta_scatter and kmeans rows, and the phases
+    of ``--phases`` and ``--dist``."""
+    import torch
     _, _, graph, snap = cs.make_graph(size.n, size.shards, size.seed, dev)
     csc = cs.shard0_csc(graph, snap)
     rows.append(cs.pagerank_edge_row(graph, snap, csc))
@@ -432,6 +550,11 @@ def main(argv=None) -> int:
     del points, init
     torch.cuda.empty_cache()
 
+
+def flash_rows(cs, dev, size, rows) -> None:
+    """flash_attention at chip_smoke.py's forward shapes, random inputs."""
+    import torch
+    from repro_torch.configs import get_arch
     cfg, sh = get_arch(cs.LM_ARCH), cs.LM_SHAPES
     heads = (cfg.n_heads, cfg.n_kv_heads)
     fwd = (sh["fwd_batch"], *heads, sh["fwd_seq"], sh["fwd_seq"], cfg.hd)
@@ -445,17 +568,6 @@ def main(argv=None) -> int:
         rows.append(cs.flash_row(label, None,
                                  *cs.random_qkv(shape, g, dtype), causal))
         torch.cuda.empty_cache()
-
-    out["rows"] = {cs.row_name(r): {k: r[k] for k in (
-        "ms", "plain_ms", "bound_ms", "library_ms", "err", "shape")}
-        for r in rows}
-    if args.sass:
-        sass = library_sass(lib)
-        out["kmeans_sass"] = sass_counts(sass, _build.CSRC, cs.KMEANS_K)
-        out["flash_bf16_sass"] = flash_sass_counts(sass, lib)
-        out["delta_scatter_sass"] = scatter_sass_counts(sass)
-    print(json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":
