@@ -160,7 +160,35 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   - ``lm_train_resume``: 2 layers, 4 steps straight against 2 steps, a
     checkpoint under ``build/`` (removed after), a restore equal to the
     saved state bit for bit and 2 more steps, the losses within
-    TRAIN_RESUME_BOUND.
+    TRAIN_RESUME_BOUND;
+* MoE serving through ``launch/serve.py``'s ``serve`` (bf16 weights from
+  the port's seeded init, drawn an expert at a time):
+  - ``moe_serve``: arctic-480b at full width (d 7168, GQA 56/8 heads of
+    128, 128 experts top-2 of d_ff 4864 beside a dense SwiGLU residual,
+    vocab 32,000), 2 layers, 8 prompts of 2048 tokens and 64 new tokens
+    (capacity 320 copies an expert at the prefill); 2 launches of the bf16
+    flash kernel (group 7), none of the float32 one or the backward; the
+    kernel path against the plain path on 2 prompts (the plain run
+    replaying the kernel run's routes, so the two part by the attention
+    alone) within 5e-2, the prefill's last logits against the forward's
+    within one bf16 ulp, 8 teacher-forced decode steps against a forward
+    that drops no copy (5e-2, on the tokens whose routes agree); the
+    dispatch on layer 0's input: each expert keeps min(count, capacity)
+    copies, its highest-probability ones, ties to the earlier copy, and
+    the expert output of 256 tokens within MOE_DISPATCH_BOUND of a float64
+    evaluation of their kept copies; the flash row at B=8, H=56/8,
+    T=S=2048;
+  - ``moe_window_serve``: mixtral-8x22b at full width (d 6144, 48/8
+    heads, 8 experts top-2 of d_ff 16,384, window 4096, vocab 32,768), 4
+    layers, 2 prompts of 6144 tokens and 64 new tokens: no kernel launch;
+    the prefill through ``blocked_attention`` in every layer, its cache the
+    last 4096 positions in ring order, every decode step on a wrapped
+    ring; the prefill's last logits against the forward's
+    (``_windowed_attention``, the prefill's routes replayed) within 5e-2,
+    8 teacher-forced decode steps against the forward (5e-2), and
+    ``blocked_attention`` against ``_windowed_attention`` on layer 0's
+    q, k, v in float32 within 1e-5 of max |out|; a bf16 flash row at
+    mixtral's heads (group 6, full causal, off the path: 0 launches).
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -313,6 +341,28 @@ TRAIN_RESUME_BOUND = 1e-3
 # leaves a factor 2).  tests/test_torch_flash_grad.py holds the plain
 # emulation of those roundings within this bound on the CPU.
 FLASH_BWD_TOL = 1e-4
+# The MoE serving phases: arctic-480b at full width, 2 layers, lm_serve's
+# traffic (8 prompts of 2048 tokens, 64 new tokens; capacity 320 copies an
+# expert at the prefill); mixtral-8x22b at full width, 4 layers, 2 prompts
+# of 6144 tokens (past its window of 4096, and 6144^2 above
+# BLOCKED_THRESHOLD), 64 new tokens; 8 teacher-forced decode steps each;
+# the dispatch checked on 256 tokens of arctic's layer 0.
+MOE_ARCH = "arctic-480b"
+MOE_WINDOW_ARCH = "mixtral-8x22b"
+MOE_SHAPES = dict(layers=2, serve_batch=8, prompt=2048, new=64,
+                  decode_steps=8, dispatch_tokens=256)
+MOE_WINDOW_SHAPES = dict(layers=4, serve_batch=2, prompt=6144, new=64,
+                         decode_steps=8)
+# The dispatch's expert output (float32 products of bf16-exact inputs,
+# sums of 7168 and 4864 terms) against a float64 evaluation of the kept
+# copies: float32's sums err by about 1e-6 of their terms' magnitudes, so
+# 1e-3 of max |y| is loose for a right dispatch and far below a wrong
+# copy's contribution (a whole expert's output, the size of max |y|).
+MOE_DISPATCH_BOUND = 1e-3
+# blocked_attention against _windowed_attention, both float32 with the
+# same masked scores: only the order of the online softmax's sums parts
+# them.
+WINDOW_BLOCKED_BOUND = 1e-5
 # flash_attention_bwd's device launches a call (float32: the row
 # statistics, dK and dV, dQ; bf16: Delta, dK and dV, dQ); its counter
 # counts launches.
@@ -3313,6 +3363,474 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts serving: arctic-480b and mixtral-8x22b.
+# ---------------------------------------------------------------------------
+
+class RouteLog:
+    """While active, records each ``moe._route`` call's expert choices and
+    probabilities (a wrapper around the port's router function; the path
+    computes the same values with it or without).  With ``replay`` (an
+    earlier log's calls), each call returns the replayed choices and
+    probabilities instead, and the log records its own; ``flips`` then
+    counts the tokens whose own choices differed from the replayed ones."""
+
+    def __init__(self, replay=None):
+        self.calls = []    # (top_e int32[n, k], top_p f32[n, k]), in order
+        self.replay = replay
+        self.flips = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._route = route = moe._route
+
+        def logged(cfg, params, xf):
+            top_e, top_p, aux = route(cfg, params, xf)
+            self.calls.append((top_e.clone(), top_p.detach().clone()))
+            if self.replay is None:
+                return top_e, top_p, aux
+            old_e, old_p = self.replay[len(self.calls) - 1]
+            self.flips += int((torch.sort(top_e, -1).values !=
+                               torch.sort(old_e, -1).values).any(-1).sum())
+            return old_e, old_p, aux
+        moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._route
+
+
+class CallCount:
+    """While active, counts the calls of ``module.name``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.n += 1
+            return fn(*a, **k)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def kept_copies(top_e, top_p, cap):
+    """Which routed copies a capacity-``cap`` dispatch keeps, computed on
+    the host apart from the port's code: numpy's lexsort by expert, then
+    descending probability, then copy index (ties to the earlier copy);
+    each expert's first ``cap``.  bool [n, k]."""
+    import numpy as np
+    e = top_e.reshape(-1).cpu().numpy()
+    p = top_p.reshape(-1).float().cpu().numpy()
+    idx = np.arange(e.size)
+    order = np.lexsort((idx, -p, e))
+    se = e[order]
+    rank = np.arange(e.size) - np.searchsorted(se, se, side="left")
+    keep = np.empty(e.size, bool)
+    keep[order] = rank < cap
+    return keep.reshape(tuple(top_e.shape))
+
+
+def routes(cfg, calls):
+    """Per call: (each token's experts, sorted [n, k]; whether each of
+    those copies was kept [n, k]) at the capacity of that call's token
+    count."""
+    import numpy as np
+    from repro_torch.models import moe
+    out = []
+    for top_e, top_p in calls:
+        cap = moe._capacity(cfg, top_e.shape[0])
+        e = top_e.cpu().numpy()
+        by_expert = np.argsort(e, axis=-1, kind="stable")
+        out.append((np.take_along_axis(e, by_expert, -1), np.take_along_axis(
+            kept_copies(top_e, top_p, cap), by_expert, -1)))
+    return out
+
+
+def route_agreement(a, b, rows_a, rows_b):
+    """Tokens whose routes agree in every layer: ``a`` and ``b`` lists of
+    :func:`routes` items a layer, ``rows_a`` / ``rows_b`` the compared
+    tokens' rows in each (the same shape).  Routing is discrete: two
+    paths whose activations part by rounding can send a token whose k-th
+    and (k+1)-th probabilities nearly tie to different experts, or drop a
+    different copy at a full expert, and that token's outputs then part by
+    a whole expert's contribution.  A bound on continuous error holds on
+    the tokens whose experts and kept copies agree, and whose context
+    (the other tokens they attend to) did not part by a whole expert: a
+    check between two full-sequence runs replays one run's routes in the
+    other instead (:class:`RouteLog`)."""
+    import numpy as np
+    ok = np.ones(rows_a.shape, bool)
+    for (ea, ka), (eb, kb) in zip(a, b):
+        ok &= ((ea[rows_a] == eb[rows_b]).all(-1) &
+               (ka[rows_a] == kb[rows_b]).all(-1))
+    return ok
+
+
+def moe_decode_check(name, cfg, params, ext, start, steps):
+    """Teacher-forced decode of ``ext[:, start:start + steps]`` against a
+    forward over ``ext``, on the tokens whose routes agree.  A decode step
+    of B <= 8 tokens never drops a copy (an expert gets at most B of them
+    and its capacity is 8), while the forward drops them past capacity,
+    and the Zipf tokens of TokenPipeline overfill the experts that their
+    frequent tokens choose; so the forward and the prefill before the
+    decode run at a capacity factor of E / k, which makes the capacity the
+    token count: both compute the function decode does.  Returns (error,
+    tokens compared, tokens)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import moe, transformer
+    B, L = ext.shape
+    cfg = dataclasses.replace(cfg,
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    check(moe._capacity(cfg, B * L) >= B * L,
+          f"{name}: a capacity below the token count")
+    with RouteLog() as fwd_log:
+        full, _ = transformer.forward(cfg, params, ext)
+    tail = full[:, start:start + steps].clone()
+    del full
+    with RouteLog() as dec_log:
+        dec = teacher_forced(cfg, params, ext, start, steps)
+    fwd = routes(cfg, fwd_log.calls)
+    dec_calls = dec_log.calls[cfg.n_layers:]       # after the prefill's
+    b_idx = np.arange(B)[:, None]
+    ok = np.ones((B, steps), bool)
+    for i in range(steps):
+        step = routes(cfg, dec_calls[i * cfg.n_layers:
+                                     (i + 1) * cfg.n_layers])
+        ok[:, i] = route_agreement(fwd, step, (b_idx * L + start + i)[:, 0],
+                                   np.arange(B))
+    n_ok = int(ok.sum())
+    print(f"{name}: decode vs forward: routes agree on {n_ok} of {ok.size} "
+          f"tokens", flush=True)
+    check(n_ok >= ok.size / 2, f"{name}: routes agree on {n_ok} of "
+                               f"{ok.size} decode tokens, fewer than half")
+    m = torch.as_tensor(ok, device=dec.device)
+    return float((dec - tail)[m].abs().max() / tail.abs().max()), n_ok, \
+        ok.size
+
+
+def dispatch_check(name, cfg, params, prompt, n_sample):
+    """The sort dispatch at full width on layer 0's MoE input over the
+    prompt: every expert keeps min(count, capacity) copies, its
+    highest-probability ones, ties to the earlier copy (:func:
+    `kept_copies`, against the port's own ranks); the expert output of
+    ``n_sample`` tokens (those with a dropped copy first) against a
+    float64 evaluation of their kept copies, each the expert's SwiGLU
+    times its renormalised probability; and ``moe_ffn``'s output equal to
+    that expert output plus arctic's dense residual, rounded to bf16."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    layer = params.layers[0]
+    ffn = layer.ffn
+    B, T = prompt.shape
+    x = params.embed[prompt.long()]
+    pos = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
+    x = x + attn.gqa_train(cfg, layer.attn,
+                           apply_norm(cfg.norm_kind, layer.ln1, x), pos)
+    h2 = apply_norm(cfg.norm_kind, layer.ln2, x)
+    del x
+    n, d, E, k = B * T, cfg.d_model, cfg.n_experts, cfg.top_k
+    xf = h2.reshape(n, d)
+    cap = moe._capacity(cfg, n)
+    top_e, top_p, _ = moe._route(cfg, ffn, xf)
+    keep = kept_copies(top_e, top_p, cap)
+    e_np = top_e.cpu().numpy()
+    counts = np.bincount(e_np.ravel(), minlength=E)
+    kept = np.bincount(e_np[keep], minlength=E)
+    check(bool((kept == np.minimum(counts, cap)).all()),
+          f"{name}: an expert keeps other than min(count, capacity)")
+    port_kept, port_rows = moe._sorted_kept(top_e.reshape(-1).long(),
+                                            top_p.reshape(-1), E, cap)
+    port_keep = np.zeros(n * k, bool)
+    port_keep[port_kept.cpu().numpy()] = True
+    check(bool((port_keep.reshape(n, k) == keep).all()) and
+          port_rows == np.minimum(counts, cap).tolist(),
+          f"{name}: the dispatch keeps other copies than the "
+          f"highest-probability ones")
+    y32 = moe._dispatch_sort(cfg, ffn, xf, top_e, top_p, cap)
+    y, _ = moe.moe_ffn(cfg, ffn, h2)
+    dense = apply_mlp(ffn.dense, xf) if cfg.moe_dense_residual else 0.0
+    check(torch.equal(y.reshape(n, d), (y32 + dense).to(y.dtype)),
+          f"{name}: moe_ffn's output is not its dispatch's plus the dense "
+          f"residual")
+    # Sampled tokens: those with a dropped copy first, then random ones.
+    g = np.random.default_rng(0)
+    dropped = np.flatnonzero(~keep.all(-1))
+    rest = np.setdiff1d(np.arange(n), dropped)
+    take = np.concatenate([dropped[:n_sample // 2], g.choice(
+        rest, n_sample - min(len(dropped), n_sample // 2), replace=False)])
+    y64 = torch.zeros((len(take), d), dtype=torch.float64, device=xf.device)
+    x64 = xf[torch.as_tensor(take, device=xf.device)].double()
+    p_np = top_p.double().cpu().numpy()
+    for e in map(int, np.unique(e_np[take][keep[take]])):
+        sel = [(i, j) for i, t in enumerate(take) for j in range(k)
+               if e_np[t, j] == e and keep[t, j]]
+        rows = torch.as_tensor([i for i, _ in sel], device=xf.device)
+        xs = x64[rows]
+        hidden = F.silu(xs @ ffn.w_gate[e].double()) * (
+            xs @ ffn.w_up[e].double())
+        out = hidden @ ffn.w_down[e].double()
+        w = torch.as_tensor([p_np[take[i], j] for i, j in sel],
+                            device=xf.device)
+        y64.index_add_(0, rows, out * w[:, None])
+    got = y32[torch.as_tensor(take, device=xf.device)].double()
+    err = float((got - y64).abs().max() / y64.abs().max())
+    print(f"{name}: dispatch at {n} tokens, capacity {cap}: copies an "
+          f"expert min {counts.min()} max {counts.max()}, "
+          f"{int((~keep).sum())} copies dropped over "
+          f"{int((counts > cap).sum())} experts; kept copies = min(count, "
+          f"capacity), the highest-probability ones; expert output of "
+          f"{len(take)} tokens ({min(len(dropped), n_sample // 2)} with a "
+          f"dropped copy) vs float64 {err:.3e} of max |y| (bound "
+          f"{MOE_DISPATCH_BOUND})", flush=True)
+    check(err <= MOE_DISPATCH_BOUND, f"{name}: dispatch output off the "
+                                     f"float64 evaluation by {err:.3e}")
+
+
+def serve_line(name, B, P, new, res, wall, counts, peak) -> str:
+    return (f"phase {name}: [{B}x{P} + {new}] wall {wall:.3f} s prefill "
+            f"{res.prefill_s:.3f} s ({B * P / res.prefill_s:.0f} tok/s) "
+            f"decode {res.decode_steps} steps {res.decode_s:.3f} s "
+            f"({B * res.decode_steps / res.decode_s:.1f} tok/s) launches "
+            f"{counts} peak_mem {peak:.2f} GiB; card {card_line()}")
+
+
+def moe_init(cfg, dev, seed, label):
+    import torch
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sync()
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} experts "
+          f"{cfg.n_experts} top-{cfg.top_k} d_ff={cfg.d_ff} "
+          f"dense residual {cfg.moe_dense_residual} window {cfg.window} "
+          f"vocab={cfg.vocab} {cfg.dtype}: "
+          f"{transformer.param_count(params)} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+    return params
+
+
+def moe_section(args, dev, phases, rows, cfg=None, shapes=MOE_SHAPES):
+    """MoE serving at arctic-480b's full width, depth cut to
+    MOE_SHAPES["layers"] (``cfg`` and ``shapes`` shrink it for a rehearsal
+    on the CPU)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or dataclasses.replace(get_arch(MOE_ARCH),
+                                     n_layers=sh["layers"])
+    params = moe_init(cfg, dev, args.seed, "moe")
+    B, P, new, n = sh["serve_batch"], sh["prompt"], sh["new"], \
+        sh["decode_steps"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 2,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    stats_before = fa_ops.lse_written
+    res, wall, counts, peak = phases.run(
+        "moe_serve", "moe_serve", ("flash_attention_bf16",),
+        lambda: serve(cfg, params, prompt, new))
+    check(counts["flash_attention_bf16"] == cfg.n_layers and
+          counts["flash_attention"] == 0 and
+          counts["flash_attention_bwd"] == 0 and
+          fa_ops.lse_written == stats_before,
+          f"moe_serve: {counts} launches for a prefill of {cfg.n_layers} "
+          f"layers, {fa_ops.lse_written - stats_before} statistics written")
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"moe_serve: tokens {toks.dtype}{tuple(toks.shape)} out of range")
+    print(serve_line("moe_serve", B, P, new, res, wall, counts, peak),
+          flush=True)
+
+    # The kernel path against the plain attention path, on the first two
+    # prompts (the plain scores of all eight, 7.5 GB, would not fit beside
+    # the weights), the plain run taking the kernel run's routes: the two
+    # then part by the attention alone (:func:`route_agreement`).
+    two = prompt[:2].contiguous()
+    with RouteLog() as k_log:
+        kern, _ = transformer.forward(cfg, params, two)
+    with RouteLog(replay=k_log.calls) as p_log:
+        plain, _ = transformer.forward(cfg, params, two, use_kernel=False)
+    err_plain = rel_err(kern, plain)
+    del kern, plain
+    # The prefill's last logits against the forward's: the same
+    # computation but for the head's product shape.
+    full, _ = transformer.forward(cfg, params, prompt)
+    last = full[:, -1:].clone()
+    del full
+    err_prefill = rel_err(res.prefill_logits, last)
+    err_dec, n_ok, n_dec = moe_decode_check("moe_serve", cfg, params, ext,
+                                            P, n)
+    print(f"moe_serve: max|kernel - plain| / max|logit| {err_plain:.3e} "
+          f"over 2 x {P} tokens, the kernel run's routes replayed "
+          f"({p_log.flips} of {2 * P * cfg.n_layers} token-layers would "
+          f"have chosen other experts) (bound {LM_BF16_BOUND}); prefill last logits vs forward "
+          f"{err_prefill:.3e} (bound {LM_PREFILL_BOUND:.3e}); "
+          f"teacher-forced decode ({n} steps) vs forward {err_dec:.3e} "
+          f"over {n_ok} of {n_dec} tokens (bound {LM_DECODE_BOUND}); "
+          f"sample {toks[0, :8].tolist()}", flush=True)
+    check(err_plain <= LM_BF16_BOUND, "moe_serve: kernel path off the "
+                                      "plain path")
+    check(err_prefill <= LM_PREFILL_BOUND, "moe_serve: prefill logits off "
+                                           "the forward")
+    check(err_dec <= LM_DECODE_BOUND, "moe_serve: decode off the forward")
+    del last
+    torch.cuda.empty_cache()
+
+    dispatch_check("moe_serve", cfg, params, prompt, sh["dispatch_tokens"])
+    qkv = layer0_qkv(cfg, params, prompt)
+    del params, res, ext, prompt, two
+    torch.cuda.empty_cache()
+    rows.append(flash_row(f"prefill_{cfg.n_heads}_{cfg.n_kv_heads}",
+                          "moe_serve", *qkv, True))
+    del qkv
+    torch.cuda.empty_cache()
+
+
+def moe_window_section(args, dev, phases, rows, cfg=None,
+                       shapes=MOE_WINDOW_SHAPES):
+    """MoE serving with a sliding window at mixtral-8x22b's full width,
+    depth cut to MOE_WINDOW_SHAPES["layers"] (``cfg`` and ``shapes``
+    shrink it for a rehearsal on the CPU)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or dataclasses.replace(get_arch(MOE_WINDOW_ARCH),
+                                     n_layers=sh["layers"])
+    params = moe_init(cfg, dev, args.seed, "moe_window")
+    B, P, new, n = sh["serve_batch"], sh["prompt"], sh["new"], \
+        sh["decode_steps"]
+    W = cfg.window
+    check(P > W and P * P > attn.BLOCKED_THRESHOLD,
+          f"moe_window_serve: a prompt of {P} neither wraps the window "
+          f"{W} nor takes blocked_attention")
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 3,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    res, wall, counts, peak = phases.run(
+        "moe_window_serve", "moe_window_serve", (),
+        lambda: serve(cfg, params, prompt, new))
+    check(not any(counts.values()),
+          f"moe_window_serve: launched {counts}; the window's paths run no "
+          f"kernel")
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"moe_window_serve: tokens {toks.dtype}{tuple(toks.shape)} out "
+          f"of range")
+    print(serve_line("moe_window_serve", B, P, new, res, wall, counts,
+                     peak), flush=True)
+
+    # The prefill's cache: the last W positions in ring order, through
+    # blocked_attention in every layer.
+    with CallCount(attn, "blocked_attention") as blocked, \
+            CallCount(attn, "_windowed_attention") as windowed, \
+            RouteLog() as pre_log:
+        logits, cache = transformer.prefill_forward(cfg, params, prompt,
+                                                    P + new)
+    check(blocked.n == cfg.n_layers and windowed.n == 0,
+          f"moe_window_serve: the prefill took blocked_attention "
+          f"{blocked.n} and _windowed_attention {windowed.n} times")
+    want = torch.empty(W, dtype=torch.int32, device=dev)
+    kept = torch.arange(P - W, P, dtype=torch.int32, device=dev)
+    want[kept.long() % W] = kept
+    for c in cache["layers"]:
+        check(c["attn"]["k"].shape[2] == W and
+              bool((c["attn"]["pos"] == want).all()),
+              "moe_window_serve: the prefill's ring is not the last window "
+              "in ring order")
+    check(torch.equal(logits, res.prefill_logits),
+          "moe_window_serve: prefill logits differ from serve's")
+    del cache
+    # The prefill (blocked) against the forward (_windowed_attention), the
+    # forward taking the prefill's routes.
+    with RouteLog(replay=pre_log.calls) as f_log:
+        full, _ = transformer.forward(cfg, params, prompt)
+    last = full[:, -1:].clone()
+    del full
+    err_prefill = rel_err(logits, last)
+    flips = f_log.flips
+    del last, logits, pre_log, f_log
+    torch.cuda.empty_cache()
+    err_dec, n_ok, n_dec = moe_decode_check("moe_window_serve", cfg, params,
+                                            ext, P, n)
+    print(f"moe_window_serve: ring of {W} slots, positions {P - W}..{P - 1}; "
+          f"decode positions {P}..{P + n - 1} read a wrapped ring; prefill "
+          f"(blocked_attention) last logits vs forward (_windowed_attention) "
+          f"with the prefill's routes ({flips} of {B * P * cfg.n_layers} "
+          f"token-layers would have chosen other experts) "
+          f"{err_prefill:.3e} (bound {LM_BF16_BOUND}); teacher-forced "
+          f"decode ({n} steps) vs forward {err_dec:.3e} over {n_ok} of "
+          f"{n_dec} tokens (bound {LM_DECODE_BOUND}); sample "
+          f"{toks[0, :8].tolist()}", flush=True)
+    check(err_prefill <= LM_BF16_BOUND, "moe_window_serve: prefill off the "
+                                        "forward")
+    check(err_dec <= LM_DECODE_BOUND, "moe_window_serve: decode off the "
+                                      "forward")
+
+    # blocked_attention against _windowed_attention on layer 0's q, k, v.
+    q, k, v = (a.float() for a in layer0_qkv(cfg, params, prompt))
+    del params, res, ext, prompt
+    torch.cuda.empty_cache()
+    blk = attn.blocked_attention(q, k, v, causal=True, window=W)
+    win = attn._windowed_attention(q, k, v, W)
+    err_blk = float((blk - win).abs().max() / win.abs().max())
+    print(f"moe_window_serve: blocked_attention vs _windowed_attention on "
+          f"layer 0's q, k, v [{B}x{cfg.n_heads}/{cfg.n_kv_heads}x{P}x"
+          f"{cfg.hd}] float32: {err_blk:.3e} of max |out| (bound "
+          f"{WINDOW_BLOCKED_BOUND})", flush=True)
+    check(err_blk <= WINDOW_BLOCKED_BOUND, "moe_window_serve: blocked "
+                                           "attention off the windowed")
+    del blk, win
+    torch.cuda.empty_cache()
+    # The bf16 kernel at mixtral's heads (group 6), full causal attention:
+    # a function the window's path does not compute, so it reports this
+    # phase's launches, 0.
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    r = flash_row(f"heads_{cfg.n_heads}_{cfg.n_kv_heads}",
+                  "moe_window_serve", *random_qkv(
+        (B, cfg.n_heads, cfg.n_kv_heads, W, W, cfg.hd), g, cfg.dtype), True)
+    r["shape"] += " (off the path: the window takes blocked/windowed " \
+                  "attention, no kernel)"
+    rows.append(r)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -3365,6 +3883,10 @@ def main(argv=None) -> int:
     lm_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     train_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    moe_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    moe_window_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,4 +1,4 @@
-"""Architecture configs: the reference's dense LMs (``configs/base.py``)."""
+"""Architecture configs: the reference's dense and MoE LMs (``configs/base.py``)."""
 from repro_torch.configs.base import (PENDING, SHAPES, ArchConfig, Shape,
                                       all_archs, get_arch, register)
 

@@ -1,8 +1,9 @@
 """Architecture configs and shape registry (the reference's
 ``configs/base.py``, copied: same fields, defaults and ``reduced()``).
 
-Only the dense configs, whose code the port has, are registered:
-``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b``.  ``get_arch`` of another
+Only the configs whose code the port has are registered: the dense
+``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b`` and the MoE
+``arctic-480b`` and ``mixtral-8x22b``.  ``get_arch`` of another
 of the reference's configs raises ``NotImplementedError`` naming the
 ROADMAP slice that brings it.
 
@@ -119,8 +120,6 @@ class ArchConfig:
 # The reference's other configs, and the ROADMAP slice (queue 1) that
 # brings each.
 PENDING = {
-    "arctic-480b": "slice 9c (MoE)",
-    "mixtral-8x22b": "slice 9c (MoE, sliding window)",
     "minicpm3-4b": "slice 9d (MLA)",
     "qwen2-vl-2b": "slice 9e (M-RoPE, vision frontend)",
     "whisper-large-v3": "slice 9f (Whisper encoder-decoder)",
@@ -153,4 +152,5 @@ def all_archs() -> Sequence[str]:
 
 def _load_all():
     # Import side-effect registers every ported config.
-    from repro_torch.configs import llama3_8b, olmo_1b, starcoder2_3b  # noqa
+    from repro_torch.configs import (arctic_480b, llama3_8b,  # noqa
+                                     mixtral_8x22b, olmo_1b, starcoder2_3b)

@@ -6,8 +6,8 @@ name).  They become the port's tensors, with the port's pinned types, on a
 given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
 
-``lm_params_from_jax`` carries the reference's dense-LM parameter tree
-into a ``models.transformer.DenseLM``; ``train_state_from_jax`` a whole
+``lm_params_from_jax`` carries the reference's LM parameter tree (dense
+or MoE) into a ``models.transformer.LM``; ``train_state_from_jax`` a whole
 TrainState (parameters, AdamW's step, μ and ν, the compression residuals)
 into the port's, and ``train_state_to_jax`` back into the reference's
 tree of numpy arrays.
@@ -26,7 +26,7 @@ from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DenseLM, stacked_name
+from repro_torch.models.transformer import LM, stacked_name
 
 # Field -> pinned dtype, per port type.
 DTYPES = {
@@ -87,12 +87,13 @@ def _array_to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def lm_params_from_jax(cfg, params, device=None) -> DenseLM:
-    """A ``DenseLM`` on ``device`` holding the reference's parameters
+def lm_params_from_jax(cfg, params, device=None) -> LM:
+    """An ``LM`` on ``device`` holding the reference's parameters
     ``params`` (its ``transformer.init_params`` tree; the per-layer arrays
-    are stacked under ``units/b0_dense`` with a leading layer axis).
-    Names, shapes and types must match exactly."""
-    model = DenseLM(cfg, resolve_device(device))
+    are stacked under ``units/b0_<kind>`` with a leading layer axis: for
+    MoE the float32 router, the experts and arctic's ``ffn.dense``), bit
+    for bit.  Names, shapes and types must match exactly."""
+    model = LM(cfg, resolve_device(device))
 
     def put(dst, src, name):
         t = _array_to_torch(src)
@@ -110,7 +111,7 @@ def lm_params_from_jax(cfg, params, device=None) -> DenseLM:
     n_leaves = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            src = leaf(params, stacked_name(name))
+            src = leaf(params, stacked_name(name, model.unit))
             if name.startswith("layers."):
                 u = int(name.split(".")[1])
                 put(p, np.asarray(src)[u], name)

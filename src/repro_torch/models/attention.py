@@ -1,5 +1,6 @@
 """Grouped-query attention with its full-sequence, prefill and single-token
-decode paths (the GQA part of the reference's ``models/attention.py``).
+decode paths (the GQA part of the reference's ``models/attention.py``),
+full or sliding-window.
 
 The full-sequence forward and the prefill call the flash_attention op
 (``kernels/flash_attention``) when ``use_kernel`` is set, the default: on
@@ -8,20 +9,28 @@ models at head dim 128, the float32 one otherwise); on the CPU its
 plain version.  ``use_kernel=False`` calls ``attention_ref`` in float32
 on any device, as the reference's default does.
 
-Decode keeps a full cache per layer: k/v [B, H_kv, slots, Dh] plus the
+A config with a sliding window (``cfg.window``, mixtral) takes the
+reference's window paths on every device, with ``use_kernel`` or without:
+the forward ``_windowed_attention`` (a materialised [T, S] float32 mask),
+the prefill ``blocked_attention`` (an online softmax over key blocks, the
+[T, S] scores never whole) above T·T = ``BLOCKED_THRESHOLD`` and
+``_windowed_attention`` below it.  No kernel runs on them: the reference
+computes them outside its Pallas kernel.  Windowless configs keep the
+flash op on every path: the CUDA kernel never materialises the scores, so
+their prefill needs no blocked switch.
+
+Decode keeps a cache per layer: k/v [B, H_kv, slots, Dh] plus the
 global position held by each slot (−1 = empty); a token at position p
-goes to slot ``p % slots``.  The port writes the new token into the cache
-in place (the reference returns a new cache): the returned dict is the one
-passed in.
+goes to slot ``p % slots``.  ``slots`` is ``max_len``, or
+``min(window, max_len)`` for a window: a ring that holds the last
+``window`` positions, older slots overwritten.  The port writes the new
+token into the cache in place (the reference returns a new cache): the
+returned dict is the one passed in.
 
 Not ported here, each raising ``NotImplementedError`` with its ROADMAP
-slice (queue 1): sliding windows (9c/9g), M-RoPE (9e), ``flash=True``
-decode, which is the reference's ``shard_map`` flash-decoding (slice 9h,
-with ``launch/sharding.py``),
-MLA with ``blocked_attention`` (9d) and cross-attention (9f).  The
-reference's prefill switches to ``blocked_attention`` above
-T·T = 4096·8192 so its [T, S] scores fit; the CUDA kernel never
-materialises them, so the port's prefill needs no such switch.
+slice (queue 1): M-RoPE (9e), ``flash=True`` decode, which is the
+reference's ``shard_map`` flash-decoding (slice 9h, with
+``launch/sharding.py``), MLA (9d) and cross-attention (9f).
 """
 from __future__ import annotations
 
@@ -41,9 +50,6 @@ def _not_ported(what: str, slice_: str):
 
 
 def _check_cfg(cfg) -> None:
-    if cfg.window:
-        raise _not_ported("sliding-window attention",
-                          "slice 9c/9g (mixtral, recurrentgemma)")
     if cfg.rope_kind != "rope":
         raise _not_ported(f"rope_kind={cfg.rope_kind!r}",
                           "slice 9e (M-RoPE)" if cfg.rope_kind == "mrope"
@@ -119,21 +125,103 @@ def gqa_train(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
     """x [B, T, D]; positions [B, T]."""
     q, k, v = gqa_qkv(cfg, params, x, positions)
-    out = _attend(q, k, v, causal, use_kernel)
+    if cfg.window and causal:
+        out = _windowed_attention(q, k, v, cfg.window)
+    else:
+        out = _attend(q, k, v, causal, use_kernel)
     return _merge_heads(out) @ params.wo
+
+
+def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
+    """Causal sliding-window attention in float32 with a materialised mask
+    (the reference's); back in q's dtype.  The scores are scaled and
+    masked in place, so the peak is the scores and their softmax."""
+    b, h, t, hd = q.shape
+    _, h_kv, s, _ = k.shape
+    group = h // h_kv
+    k = torch.repeat_interleave(k, group, dim=1)
+    v = torch.repeat_interleave(v, group, dim=1)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
+    scores.div_(hd ** 0.5)
+    rows = torch.arange(t, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None, :]
+    mask = (rows >= cols) & (rows - cols < window)
+    scores.masked_fill_(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    return torch.einsum("bhts,bhsd->bhtd", probs, v.float()).to(q.dtype)
+
+
+BLOCKED_THRESHOLD = 4096 * 8192   # T·S above this ⇒ blocked attention
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      block_k: int = 2048, unroll: bool = False
+                      ) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: a loop over KV blocks
+    carrying (m, l, acc) in float32, so the [T, S] score matrix never
+    materialises (the reference's ``lax.scan``; ``unroll`` is accepted and
+    ignored).  q [B, H, T, D], k [B, H_kv, S, D], v [B, H_kv, S, Dv];
+    query t and key s are positions t and s.  Back in q's dtype."""
+    b, h, t, d = q.shape
+    _, h_kv, s, _ = k.shape
+    dv = v.shape[-1]
+    group = h // h_kv
+    nb = -(-s // block_k)
+    pad = nb * block_k - s
+    if pad:
+        k = nn.functional.pad(k, (0, 0, 0, pad))
+        v = nn.functional.pad(v, (0, 0, 0, pad))
+    qg = q.reshape(b, h_kv, group, t, d).float()
+    rows = torch.arange(t, device=q.device)[:, None]      # query positions
+    scale = 1.0 / (d ** 0.5)
+    m = torch.full((b, h_kv, group, t), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h_kv, group, t), dtype=torch.float32,
+                    device=q.device)
+    acc = torch.zeros((b, h_kv, group, t, dv), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nb):
+        kblk = k[:, :, j * block_k:(j + 1) * block_k].float()
+        vblk = v[:, :, j * block_k:(j + 1) * block_k].float()
+        sc = torch.einsum("bhgtd,bhsd->bhgts", qg, kblk) * scale
+        cols = j * block_k + torch.arange(block_k, device=q.device)[None, :]
+        mask = cols < s
+        if causal:
+            mask = mask & (rows >= cols)
+        if window:
+            mask = mask & (rows - cols < window)
+        sc = torch.where(mask, sc, -1e30)
+        m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        del sc
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = (acc * corr[..., None]
+               + torch.einsum("bhgts,bhsd->bhgtd", p, vblk))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, t, dv).to(q.dtype)
 
 
 # ---- decode -----------------------------------------------------------
 
+def _slots(cfg, max_len: int) -> int:
+    return min(cfg.window, max_len) if cfg.window else max_len
+
+
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device=None
                    ) -> dict:
-    """Full cache of ``max_len`` slots, empty (pos −1)."""
+    """Full cache of ``max_len`` slots, or a ring of ``min(window,
+    max_len)`` for a window; empty (pos −1)."""
     _check_cfg(cfg)
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    slots = _slots(cfg, max_len)
+    shape = (batch, cfg.n_kv_heads, slots, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
                           device=device),
     }
 
@@ -166,7 +254,10 @@ def _full_decode_attention(cfg, q, k, v, slot_pos, pos):
     vx = torch.repeat_interleave(v, group, dim=1)
     scores = torch.einsum("bhqd,bhsd->bhqs", q.float(),
                           kx.float()) / (hd ** 0.5)
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    valid = slot_pos >= 0
+    if cfg.window:
+        valid = valid & (slot_pos > pos - cfg.window)
+    valid = valid & (slot_pos <= pos)
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqs,bhsd->bhqd", probs, vx.float()).to(q.dtype)
@@ -176,16 +267,25 @@ def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
                 max_len: int, unroll: bool = False, use_kernel: bool = True
                 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also builds the decode cache: k/v and
-    positions of the last ``max_len`` tokens of the prompt (all of them
-    when it is shorter), each in its ring slot ``pos % max_len``.
-    ``unroll`` is accepted and ignored (eager PyTorch has no scan)."""
+    positions of the last ``slots`` tokens of the prompt (all of them
+    when it is shorter), each in its ring slot ``pos % slots``, where
+    ``slots`` is ``max_len`` or ``min(window, max_len)``.  A window takes
+    ``blocked_attention`` above ``BLOCKED_THRESHOLD`` and
+    ``_windowed_attention`` below it.  ``unroll`` is accepted and ignored
+    (eager PyTorch has no scan)."""
     hd = cfg.hd
     b, t, _ = x.shape
     q, k, v = gqa_qkv(cfg, params, x, positions)
-    out = _attend(q, k, v, True, use_kernel)
+    if not cfg.window:
+        out = _attend(q, k, v, True, use_kernel)
+    elif t * t > BLOCKED_THRESHOLD:
+        out = blocked_attention(q, k, v, causal=True, window=cfg.window)
+    else:
+        out = _windowed_attention(q, k, v, cfg.window)
     y = _merge_heads(out) @ params.wo
+    del q, out
 
-    slots = max_len
+    slots = _slots(cfg, max_len)
     if t >= slots:          # keep the last ``slots`` positions (ring order)
         k_keep, v_keep = k[:, :, t - slots:], v[:, :, t - slots:]
         pos_keep = positions[:, t - slots:]

@@ -116,7 +116,7 @@ def _rows(t: torch.Tensor, stacked: bool) -> list:
 
 def adamw_update(cfg: AdamWConfig, state: AdamWState, params, grads: dict
                  ) -> tuple:
-    """One AdamW step with global-norm clipping: ``params`` a DenseLM,
+    """One AdamW step with global-norm clipping: ``params`` an LM,
     ``grads`` {leaf name: stacked gradient}.  Returns (params, state,
     metrics {grad_norm, lr}), params, μ and ν updated in place."""
     gnorm = global_norm(grads)

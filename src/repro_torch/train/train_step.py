@@ -41,7 +41,7 @@ SHARDING_SLICE = "slice 9h (sharding.py)"
 
 
 class TrainState(NamedTuple):
-    params: transformer.DenseLM
+    params: transformer.LM
     opt: AdamWState
     residuals: Optional[dict]      # gradient-compression error feedback
 

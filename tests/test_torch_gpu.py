@@ -28,7 +28,11 @@ A 2-layer full-width bf16
 Llama-3 forward through it is within 5e-2 of the plain path relative to
 the largest logit, chip_smoke.py's bound for the bf16 model at full depth
 (a last-bit difference in an attention output flips a bf16 rounding of
-the residual stream).  flash_attention_bwd is within 1e-4 of each
+the residual stream).  The bf16 kernel is also held at groups 7 and 6
+(arctic's 56/8 heads, mixtral's 48/8).  ``moe_ffn`` on the card makes the
+CPU's expert choices and lands within 1e-5 of max |y| of its output, and
+windowed and blocked attention within 1e-5 of max |out| of theirs
+(float32, TF32 off).  flash_attention_bwd is within 1e-4 of each
 gradient's largest |g| of attention_bwd_ref on the same float32 values
 (reordered float32 sums); the bf16 kernel, which rounds P and dS to bf16
 before their products and the gradients at the end, adds 2^-8 |g| and
@@ -40,6 +44,7 @@ launch: a ``local``-mode worker
 process brings CUDA up and acks with sums computed on the card, and the
 bring-up selftest forms a world of one NCCL rank on ``cuda:0``.
 """
+import copy
 import dataclasses
 import math
 
@@ -657,7 +662,8 @@ def bf16_qkv(device, b, h, hkv, t, s, d):
     (2, 8, 2, 257, 257, 128, True), (2, 32, 8, 1000, 1000, 128, True),
     (1, 4, 1, 130, 517, 128, False), (2, 8, 8, 64, 100, 128, False),
     (2, 16, 16, 512, 768, 128, False), (1, 8, 2, 1, 300, 128, False),
-    (1, 2, 1, 128, 128, 128, True)])
+    (1, 2, 1, 128, 128, 128, True), (2, 56, 8, 333, 333, 128, True),
+    (1, 48, 8, 200, 200, 128, True)])
 def test_flash_attention_bf16(cuda, b, h, hkv, t, s, d, causal):
     q, k, v = bf16_qkv(cuda, b, h, hkv, t, s, d)
     before = (fa_ops.launches, fa_ops.launches_bf16)
@@ -723,6 +729,54 @@ def test_llama3_full_width_two_layers_bf16_kernel_matches_plain(cuda):
     ref, _ = transformer.forward(cfg, params, tokens, use_kernel=False)
     rel = float((got - ref).abs().max() / ref.abs().max())
     assert rel <= 5e-2, rel
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "mixtral-8x22b"])
+@pytest.mark.parametrize("strategy", ["sort", "onehot"])
+def test_moe_ffn_on_card_matches_cpu(cuda, name, strategy):
+    """moe_ffn at reduced size, float32 (TF32 off), capacity 1.25: the
+    card's run against the CPU's on the same weights and input, the same
+    expert choices and the output within 1e-5 of max |y|."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu").layers[0].ffn
+    x = torch.randn(4, 96, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    y_cpu, aux_cpu = moe.moe_ffn(cfg, params, x, strategy)
+    params_gpu = copy.deepcopy(params).to(cuda)
+    y, aux = moe.moe_ffn(cfg, params_gpu, x.to(cuda), strategy)
+    assert torch.equal(moe._route(cfg, params_gpu, x.to(cuda).reshape(
+        -1, cfg.d_model))[0].cpu(), moe._route(cfg, params, x.reshape(
+            -1, cfg.d_model))[0])
+    assert float((y.cpu() - y_cpu).abs().max()) <= \
+        1e-5 * float(y_cpu.abs().max())
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-6 * float(aux_cpu)
+
+
+@pytest.mark.parametrize("t,window,block_k", [(700, 256, 128),
+                                              (1500, 4096, 512)])
+def test_window_and_blocked_attention_on_card_match_cpu(cuda, t, window,
+                                                        block_k):
+    """_windowed_attention and blocked_attention (S not a multiple of
+    block_k) on the card against the CPU, float32 (TF32 off), within 1e-5
+    of max |out|; and the two against each other on the card."""
+    from repro_torch.models import attention as attn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(t)
+    q = torch.randn(2, 12, t, 128, generator=g)
+    k, v = (torch.randn(2, 2, t, 128, generator=g) for _ in range(2))
+    win_cpu = attn._windowed_attention(q, k, v, window)
+    blk_cpu = attn.blocked_attention(q, k, v, window=window, block_k=block_k)
+    win = attn._windowed_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   window)
+    blk = attn.blocked_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 window=window, block_k=block_k)
+    scale = float(win_cpu.abs().max())
+    for got, want in ((win.cpu(), win_cpu), (blk.cpu(), blk_cpu),
+                      (blk.cpu(), win.cpu())):
+        assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 def test_llama3_full_width_two_layers_kernel_matches_plain(cuda):

@@ -2,7 +2,9 @@
 
 A subprocess imports ``repro_torch`` (observability, runtime and the
 multi-process launch included) and runs a tiny PageRank (also on the
-shard_map backend, over a gloo world of one rank), a traced resilient
+shard_map backend, over a gloo world of one rank), greedy generation of
+a reduced llama3-8b and of a reduced mixtral-8x22b (MoE, its window
+crossed), a traced resilient
 PageRank with one failure and adsorption on the CPU, two journaled views
 restored, and reachability compiled from its rule text, then reports
 which modules were loaded; a
@@ -59,6 +61,12 @@ cfg = get_arch("llama3-8b").reduced()
 lm = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 toks = repro_torch.serve.serve_step.generate(
     cfg, lm, torch.zeros((1, 4), dtype=torch.int32), 2, 6)
+import repro_torch.models.moe
+moe_cfg = get_arch("mixtral-8x22b").reduced()
+moe_lm = transformer.init_params(moe_cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+moe_toks = repro_torch.serve.serve_step.generate(
+    moe_cfg, moe_lm, torch.zeros((1, 20), dtype=torch.int32), 2, 22)
 import tempfile
 from repro_torch.obs import Tracer
 from repro_torch.runtime import FaultPlan
@@ -107,7 +115,7 @@ with tempfile.TemporaryDirectory() as td:
     dist.destroy_process_group()
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
                   "shard_map_equal": bool(torch.equal(pr, pr_smap)),
-                  "lm": list(toks.shape),
+                  "lm": list(toks.shape), "moe": list(moe_toks.shape),
                   "resilient": rr.metrics["recoveries"],
                   "adsorption": list(vec.shape), "views": views,
                   "reached": int((reach == 1.0).sum())}))
@@ -122,6 +130,7 @@ def test_import_and_run_load_no_jax_or_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["iters"] == 5
     assert got["lm"] == [1, 6]
+    assert got["moe"] == [1, 22]
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
     assert got["views"] == {"km": 1, "sp": 1}
@@ -172,6 +181,9 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
                      get_arch("olmo-1b").reduced(), 1, 4),
                  lambda: TokenPipeline(256, 8, 1).batch_at(0),
                  lambda: serve.main(["--reduced"]),
+                 lambda: serve.main(["--arch", "mixtral-8x22b", "--reduced"]),
+                 lambda: transformer.init_params(
+                     get_arch("arctic-480b").reduced()),
                  lambda: train.main(["--reduced", "--steps", "1"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: reach.run(g, snap),

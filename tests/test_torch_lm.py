@@ -47,6 +47,7 @@ from repro_torch.models import transformer as tt
 from repro_torch.serve import serve_step as tss
 
 ARCHS = ["olmo-1b", "llama3-8b", "starcoder2-3b"]
+MOE_ARCHS = ["arctic-480b", "mixtral-8x22b"]    # tests/test_torch_moe.py
 ATOL = RTOL = 2e-5
 BF16_ATOL = 8e-2
 B, T, NEW = 2, 256, 8
@@ -107,7 +108,7 @@ def _drop_models():
 # Configs, data, conversion.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + MOE_ARCHS)
 def test_configs_equal_the_reference(name):
     j, t = j_get_arch(name), get_arch(name)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -116,7 +117,11 @@ def test_configs_equal_the_reference(name):
 
 
 def test_only_dense_configs_registered_others_name_their_slice():
-    assert list(all_archs()) == sorted(ARCHS)
+    """The dense and MoE configs are registered; the five others raise."""
+    assert list(all_archs()) == sorted(ARCHS + MOE_ARCHS)
+    assert sorted(PENDING) == ["minicpm3-4b", "qwen2-vl-2b",
+                               "recurrentgemma-2b", "whisper-large-v3",
+                               "xlstm-350m"]
     for name, slice_ in PENDING.items():
         j_get_arch(name)                   # a config of the reference
         with pytest.raises(NotImplementedError, match="slice 9"):
@@ -353,12 +358,16 @@ def test_bf16_head_dim_128_takes_the_bf16_op(monkeypatch):
 
 def test_unported_paths_name_their_slice():
     _, cfg = _cfgs("llama3-8b")
-    with pytest.raises(NotImplementedError, match="slice 9c"):
-        tt.DenseLM(dataclasses.replace(cfg, unit=("moe",)), "cpu")
-    with pytest.raises(NotImplementedError, match="sliding"):
-        tt.DenseLM(dataclasses.replace(cfg, window=16), "cpu")
+    with pytest.raises(NotImplementedError, match="slice 9g"):
+        tt.LM(dataclasses.replace(cfg, unit=("attn_local",)), "cpu")
+    moe_cfg = get_arch("mixtral-8x22b").reduced()
+    moe_params = tt.init_params(moe_cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    with pytest.raises(NotImplementedError, match="slice 9h"):
+        tt.forward(moe_cfg, moe_params, torch.zeros((1, 4), dtype=torch.int32),
+                   moe_strategy="a2a")
     with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tt.DenseLM(dataclasses.replace(cfg, rope_kind="mrope"), "cpu")
+        tt.LM(dataclasses.replace(cfg, rope_kind="mrope"), "cpu")
     m = model("llama3-8b")
     cache = tt.init_cache(m.cfg, B, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 9h"):
