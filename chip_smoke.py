@@ -189,6 +189,37 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     ``blocked_attention`` against ``_windowed_attention`` on layer 0's
     q, k, v in float32 within 1e-5 of max |out|; a bf16 flash row at
     mixtral's heads (group 6, full causal, off the path: 0 launches).
+* multi-head latent attention at minicpm3-4b's full width and depth (62
+  layers, d 2560, 40 heads, q·k 64 + 32 rope, v 64, q rank 768, kv rank
+  256, d_ff 6400, vocab 73,448, untied; bf16 weights from the port's
+  seeded init):
+  - ``mla_serve``: ``launch/serve.py``'s ``serve`` on 8 prompts of 2048
+    tokens and 64 new tokens: no kernel launch (MLA's q·k width is not its
+    v width, which the flash kernels do not take, in either package: the
+    forward and prefill run ``attention_ref`` in float32); the latent
+    cache's bytes (kv rank + rope values a token a layer) printed beside a
+    40-head K/V cache's; the prefill's last logits against the forward's
+    (one bf16 ulp), 8 teacher-forced absorbed decode steps against the
+    forward (5e-2), and the same at full width, 4 layers, float32 (1e-4);
+* M-RoPE and the vision stub at qwen2-vl-2b's full width and depth (28
+  layers, d 1536, GQA 12/2 heads of 128, d_ff 8960, vocab 151,936, tied):
+  - ``vlm_forward``: the forward at 2 x 4096 from ``embeds`` (text rows of
+    the embedding, a 32 x 32 grid of drawn patch rows at 1024) at Qwen2-VL's
+    [3, B, T] positions, the script's own input; 28 launches of the bf16
+    flash kernel (group 6), against the plain path (5e-2);
+  - ``vlm_serve``: ``serve`` on 8 prompts of 2048 tokens and 64 new tokens,
+    text only (three equal position rows); prefill against forward (one
+    ulp), 8 teacher-forced decode steps (5e-2); a prefill from the prompt's
+    own embedding rows equal to serve's bit for bit, and one from embeds
+    with a patch grid against the forward from them (one ulp);
+  - ``vlm_grad``: one microbatch of 4 x 2048 from embeds at [3, B, T]
+    positions (the patches' labels masked) through ``train_step``'s loss:
+    56 bf16 forward launches (forward and remat, each writing its
+    log-sum-exp) and 28 calls of the bf16 backward (84 launches), the loss
+    and gradients against the plain path (TRAIN_BF16_LOSS_BOUND,
+    TRAIN_BF16_GRAD_BOUND); flash rows at 12/2 heads: the forward at
+    ``vlm_forward``'s layer 0, the prefill at ``vlm_serve``'s, the
+    backward at ``vlm_grad``'s.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -359,6 +390,21 @@ MOE_WINDOW_SHAPES = dict(layers=4, serve_batch=2, prompt=6144, new=64,
 # 1e-3 of max |y| is loose for a right dispatch and far below a wrong
 # copy's contribution (a whole expert's output, the size of max |y|).
 MOE_DISPATCH_BOUND = 1e-3
+# The MLA and VLM phases, each model at full width and depth.
+# minicpm3-4b: lm_serve's traffic (8 prompts of 2048 tokens, 64 new
+# tokens), 8 teacher-forced decode steps, the float32 check at 4 layers.
+# qwen2-vl-2b: the forward at 2 x 4096 from the vision stub's embeds
+# (1024 text tokens, a 32 x 32 patch grid, then text); lm_serve's traffic,
+# text only, and one prefill from the stub's embeds (512 text tokens, the
+# grid, then text); one microbatch of 4 x 2048 (the same layout) through
+# train_step's loss.
+MLA_ARCH = "minicpm3-4b"
+VLM_ARCH = "qwen2-vl-2b"
+MLA_SHAPES = dict(serve_batch=8, prompt=2048, new=64, decode_steps=8,
+                  tight_layers=4)
+VLM_SHAPES = dict(fwd_batch=2, fwd_seq=4096, fwd_text0=1024, grid=32,
+                  serve_batch=8, prompt=2048, new=64, decode_steps=8,
+                  text0=512, grad_batch=4, grad_seq=2048)
 # blocked_attention against _windowed_attention, both float32 with the
 # same masked scores: only the order of the online softmax's sums parts
 # them.
@@ -2813,16 +2859,19 @@ def random_qkv(shape, generator, dtype="float32"):
                                           (b, h_kv, s, d)))
 
 
-def layer0_qkv(cfg, params, tokens):
-    """Layer 0's attention inputs on ``tokens``, as the forward gives them
-    to the kernel: in the model's dtype, contiguous, q and k rotated."""
+def layer0_qkv(cfg, params, tokens, embeds=None, positions=None):
+    """Layer 0's attention inputs on ``tokens`` (or ``embeds``) at
+    ``positions`` (default 0..T-1), as the forward gives them to the
+    kernel: in the model's dtype, contiguous, q and k rotated."""
     import torch
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import apply_norm
     layer = params.layers[0]
-    x = apply_norm(cfg.norm_kind, layer.ln1, params.embed[tokens.long()])
-    b, t = tokens.shape
-    pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    x = params.embed[tokens.long()] if embeds is None else embeds
+    x = apply_norm(cfg.norm_kind, layer.ln1, x)
+    b, t = x.shape[:2]
+    pos = (torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+           if positions is None else positions)
     return [a.contiguous() for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
 
 
@@ -3115,9 +3164,10 @@ def kernel_and_plain(cfg, params, mbatch) -> dict:
     return out
 
 
-def bf16_grad_check(cfg, params, mbatch, label) -> None:
+def bf16_grad_check(cfg, params, mbatch, label, phase="lm_train") -> None:
     """The bf16 kernel path's loss and gradients against the plain path's
-    at ``params``, within TRAIN_BF16_LOSS_BOUND and TRAIN_BF16_GRAD_BOUND."""
+    at ``params``, within TRAIN_BF16_LOSS_BOUND and TRAIN_BF16_GRAD_BOUND
+    (``phase`` names the phase in the printed line)."""
     import torch
     out = kernel_and_plain(cfg, params, mbatch)
     num = den = 0.0
@@ -3134,17 +3184,17 @@ def bf16_grad_check(cfg, params, mbatch, label) -> None:
     loss_rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
     finite = all(bool(torch.isfinite(g).all()) for gs in
                  out[True][1].values() for g in gs)
-    print(f"lm_train bf16 gradients at full depth ({cfg.n_layers} layers), "
+    print(f"{phase} bf16 gradients at full depth ({cfg.n_layers} layers), "
           f"{label}, one microbatch: loss kernel {out[True][0]:.6f} plain "
           f"{out[False][0]:.6f} (relative {loss_rel:.3e}, bound "
           f"{TRAIN_BF16_LOSS_BOUND}); gradients' relative L2 error "
           f"{rel:.3e} (bound {TRAIN_BF16_GRAD_BOUND}), worst leaf "
           f"{worst_leaf[0]} {worst_leaf[1]:.3e}", flush=True)
-    check(finite, f"lm_train bf16 gradients {label}: not finite")
-    check(loss_rel <= TRAIN_BF16_LOSS_BOUND, f"lm_train bf16 {label}: "
+    check(finite, f"{phase} bf16 gradients {label}: not finite")
+    check(loss_rel <= TRAIN_BF16_LOSS_BOUND, f"{phase} bf16 {label}: "
                                              f"kernel-path loss off the "
                                              f"plain path")
-    check(rel <= TRAIN_BF16_GRAD_BOUND, f"lm_train bf16 {label}: "
+    check(rel <= TRAIN_BF16_GRAD_BOUND, f"{phase} bf16 {label}: "
                                         f"kernel-path gradients off the "
                                         f"plain path")
 
@@ -3831,6 +3881,311 @@ def moe_window_section(args, dev, phases, rows, cfg=None,
     torch.cuda.empty_cache()
 
 
+def mla_section(args, dev, phases, rows, cfg=None, shapes=MLA_SHAPES):
+    """Multi-head latent attention at minicpm3-4b's full width and depth,
+    served through ``launch/serve.py``'s ``serve`` (``cfg`` and ``shapes``
+    shrink it for a rehearsal on the CPU).  MLA runs no kernel: its q·k
+    width (64 + 32) is not its v width (64), which the flash kernels do not
+    take, in either package."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or get_arch(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    sync()
+    print(f"mla: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads} q.k {cfg.hd}+{cfg.mla_rope_dim} v {cfg.hd} q rank "
+          f"{cfg.mla_q_rank} kv rank {cfg.mla_kv_rank} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} {cfg.dtype}: "
+          f"{transformer.param_count(params)} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+    B, P, new, n = sh["serve_batch"], sh["prompt"], sh["new"], \
+        sh["decode_steps"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 4,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    res, wall, counts, peak = phases.run(
+        "mla_serve", "mla_serve", (), lambda: serve(cfg, params, prompt, new))
+    check(not any(counts.values()),
+          f"mla_serve: launched {counts}; MLA runs no kernel")
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"mla_serve: tokens {toks.dtype}{tuple(toks.shape)} out of range")
+    print(serve_line("mla_serve", B, P, new, res, wall, counts, peak),
+          flush=True)
+
+    # The latent cache: c and the rope key, (kv rank + rope) values a
+    # token, against the K/V a GQA cache of H heads of v's width holds.
+    logits, cache = transformer.prefill_forward(cfg, params, prompt, P + new)
+    check(torch.equal(logits, res.prefill_logits),
+          "mla_serve: prefill logits differ from serve's")
+    got = sum(nbytes(c["attn"]["c"], c["attn"]["kr"])
+              for c in cache["layers"])
+    per_token = cfg.mla_kv_rank + cfg.mla_rope_dim
+    want = cfg.n_layers * B * (P + new) * per_token * 2
+    kv = cfg.n_layers * B * (P + new) * 2 * cfg.n_heads * cfg.hd * 2
+    print(f"mla_serve: latent cache {got} bytes ({per_token} values a "
+          f"token a layer, {got / 1e9:.3f} GB) against {kv / 1e9:.3f} GB "
+          f"for K/V of {cfg.n_heads} heads of {cfg.hd}", flush=True)
+    check(got == want, f"mla_serve: the latent cache holds {got} bytes, "
+                       f"not {want}")
+    del logits, cache
+    full, _ = transformer.forward(cfg, params, prompt)
+    last = full[:, -1:].clone()
+    del full
+    err_prefill = rel_err(res.prefill_logits, last)
+    full, _ = transformer.forward(cfg, params, ext)
+    tail = full[:, P:].clone()
+    del full
+    err_dec = rel_err(teacher_forced(cfg, params, ext, P, n), tail)
+    del tail, last
+    torch.cuda.empty_cache()
+
+    # Full width, 4 layers, float32: teacher-forced absorbed decode
+    # against the forward.
+    cfg32 = dataclasses.replace(cfg, n_layers=sh["tight_layers"],
+                                dtype="float32")
+    p32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    f32, _ = transformer.forward(cfg32, p32, ext)
+    err_dec32 = rel_err(teacher_forced(cfg32, p32, ext, P, n), f32[:, P:])
+    del p32, f32
+    print(f"mla_serve: prefill last logits vs forward {err_prefill:.3e} "
+          f"(bound {LM_PREFILL_BOUND:.3e}); teacher-forced absorbed decode "
+          f"({n} steps) vs forward {err_dec:.3e} (bound {LM_DECODE_BOUND}); "
+          f"float32 at {cfg32.n_layers} layers, full width: decode vs "
+          f"forward {err_dec32:.3e} (bound {LM_TIGHT_BOUND}); sample "
+          f"{toks[0, :8].tolist()}", flush=True)
+    check(err_prefill <= LM_PREFILL_BOUND, "mla_serve: prefill logits off "
+                                           "the forward")
+    check(err_dec <= LM_DECODE_BOUND, "mla_serve: decode off the forward")
+    check(err_dec32 <= LM_TIGHT_BOUND, "mla_serve float32: decode off the "
+                                       "forward")
+    del params, res, ext, prompt
+    torch.cuda.empty_cache()
+
+
+def vision_input(params, tokens, text0, grid, generator):
+    """The vision stub's input over ``tokens`` int32[B, T]: embeds [B, T,
+    D], the tokens' embedding rows with ``grid`` x ``grid`` patch
+    embeddings from position ``text0`` on (drawn from ``generator`` at the
+    embedding's init scale, D^-0.5), and Qwen2-VL's positions int32[3, B,
+    T]: the text before the patches on three equal rows, the patches at
+    temporal ``text0``, height ``text0`` + row and width ``text0`` +
+    column, the text after them from ``text0 + grid`` on, rows equal."""
+    import torch
+    b, t = tokens.shape
+    n = grid * grid
+    d = params.embed.shape[1]
+    embeds = params.embed[tokens.long()].detach().clone()
+    embeds[:, text0:text0 + n] = (torch.randn(
+        (b, n, d), generator=generator, device=embeds.device) *
+        d ** -0.5).to(embeds.dtype)
+    idx = torch.arange(t, dtype=torch.int32, device=embeds.device)
+    pos = idx.expand(3, t).clone()
+    r = torch.arange(n, dtype=torch.int32, device=embeds.device)
+    pos[0, text0:text0 + n] = text0
+    pos[1, text0:text0 + n] = text0 + r // grid
+    pos[2, text0:text0 + n] = text0 + r % grid
+    pos[:, text0 + n:] = idx[text0 + n:] - n + grid
+    return embeds, pos[:, None].expand(3, b, t).contiguous()
+
+
+def vlm_section(args, dev, phases, rows, cfg=None, shapes=VLM_SHAPES):
+    """M-RoPE and the vision stub at qwen2-vl-2b's full width and depth:
+    the forward from embeds at [3, B, T] positions, text-only serving
+    through ``launch/serve.py``'s ``serve``, and one microbatch's loss and
+    gradients through ``train_step``'s loss (``cfg`` and ``shapes`` shrink
+    it for a rehearsal on the CPU).  GQA at 12/2 heads of 128: the bf16
+    flash kernels at group 6, forward and backward."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.train.train_step import TrainConfig, make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or get_arch(VLM_ARCH)
+    heads = f"{cfg.n_heads}_{cfg.n_kv_heads}"
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    sync()
+    print(f"vlm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} rope {cfg.rope_kind} tied "
+          f"{cfg.tie_embeddings} {cfg.dtype}: "
+          f"{transformer.param_count(params)} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    grid = sh["grid"]
+
+    def serving_only(name, counts, stats_before):
+        check(counts["flash_attention_bf16"] == cfg.n_layers and
+              counts["flash_attention"] == 0 and
+              counts["flash_attention_bwd"] == 0 and
+              fa_ops.lse_written == stats_before,
+              f"{name}: {counts} launches for {cfg.n_layers} layers, "
+              f"{fa_ops.lse_written - stats_before} statistics written")
+
+    # vlm_forward: 2 x 4096 from embeds, a patch grid at [3, B, T].
+    B, T = sh["fwd_batch"], sh["fwd_seq"]
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed + 5,
+                           device=dev).batch_at(0)["tokens"]
+    embeds, pos3 = vision_input(params, tokens, sh["fwd_text0"], grid, g)
+    stats_before = fa_ops.lse_written
+    (logits, _), wall, counts, peak = phases.run(
+        "vlm_forward", "vlm_forward", ("flash_attention_bf16",),
+        lambda: transformer.forward(cfg, params, None, positions=pos3,
+                                    embeds=embeds))
+    serving_only("vlm_forward", counts, stats_before)
+    check(logits.shape == (B, T, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          f"vlm_forward: logits {tuple(logits.shape)} not finite")
+    plain, _ = transformer.forward(cfg, params, None, positions=pos3,
+                                   embeds=embeds, use_kernel=False)
+    err = rel_err(logits, plain)
+    same = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    del plain, logits
+    print(f"phase vlm_forward: [{B}x{T}] from embeds ({grid}x{grid} "
+          f"patches at {sh['fwd_text0']}, positions [3, B, T]) wall "
+          f"{wall:.3f} s {B * T / wall:.0f} tok/s launches {counts} "
+          f"peak_mem {peak:.2f} GiB max|kernel - plain| / max|logit| "
+          f"{err:.3e} (bound {LM_BF16_BOUND}), argmax agreement "
+          f"{same:.5f}; card {card_line()}", flush=True)
+    check(err <= LM_BF16_BOUND, "vlm_forward: kernel path off the plain "
+                                "path")
+    qkv = layer0_qkv(cfg, params, tokens, embeds, pos3)
+    del tokens, embeds, pos3
+    torch.cuda.empty_cache()
+    rows.append(flash_row(f"forward_{heads}", "vlm_forward", *qkv, True))
+    del qkv
+    torch.cuda.empty_cache()
+
+    # vlm_serve: text-only serving (M-RoPE's three equal rows).
+    B, P, new, n = sh["serve_batch"], sh["prompt"], sh["new"], \
+        sh["decode_steps"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 6,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    stats_before = fa_ops.lse_written
+    res, wall, counts, peak = phases.run(
+        "vlm_serve", "vlm_serve", ("flash_attention_bf16",),
+        lambda: serve(cfg, params, prompt, new))
+    serving_only("vlm_serve", counts, stats_before)
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"vlm_serve: tokens {toks.dtype}{tuple(toks.shape)} out of range")
+    print(serve_line("vlm_serve", B, P, new, res, wall, counts, peak),
+          flush=True)
+    full, _ = transformer.forward(cfg, params, prompt)
+    err_prefill = rel_err(res.prefill_logits, full[:, -1:])
+    del full
+    full, _ = transformer.forward(cfg, params, ext)
+    tail = full[:, P:].clone()
+    del full
+    err_dec = rel_err(teacher_forced(cfg, params, ext, P, n), tail)
+    del tail
+    # The prefill from embeds: the prompt's own rows give serve's logits
+    # bit for bit; a patch grid's against the forward from those embeds
+    # (both at positions 0..T-1, as the reference's prefill keeps them).
+    text_rows, _ = transformer.prefill_forward(
+        cfg, params, None, P + new, embeds=params.embed[prompt.long()])
+    check(torch.equal(text_rows, res.prefill_logits),
+          "vlm_serve: the prefill from the prompt's embedding rows differs "
+          "from the prefill from its tokens")
+    embeds, _ = vision_input(params, prompt, sh["text0"], grid, g)
+    with_grid, _ = transformer.prefill_forward(cfg, params, None, P + new,
+                                               embeds=embeds)
+    full, _ = transformer.forward(cfg, params, None, embeds=embeds)
+    err_embeds = rel_err(with_grid, full[:, -1:])
+    del full, embeds, with_grid, text_rows
+    print(f"vlm_serve: prefill last logits vs forward {err_prefill:.3e} "
+          f"(bound {LM_PREFILL_BOUND:.3e}); teacher-forced decode ({n} "
+          f"steps) vs forward {err_dec:.3e} (bound {LM_DECODE_BOUND}); "
+          f"prefill from embeds ({grid}x{grid} patches at {sh['text0']}) vs "
+          f"forward {err_embeds:.3e} (bound {LM_PREFILL_BOUND:.3e}); sample "
+          f"{toks[0, :8].tolist()}", flush=True)
+    check(err_prefill <= LM_PREFILL_BOUND, "vlm_serve: prefill logits off "
+                                           "the forward")
+    check(err_dec <= LM_DECODE_BOUND, "vlm_serve: decode off the forward")
+    check(err_embeds <= LM_PREFILL_BOUND, "vlm_serve: prefill from embeds "
+                                          "off the forward")
+    rows.append(flash_row(f"prefill_{heads}", "vlm_serve",
+                          *layer0_qkv(cfg, params, prompt), True))
+    del res, ext, prompt
+    torch.cuda.empty_cache()
+
+    # vlm_grad: one microbatch from embeds at [3, B, T] positions through
+    # train_step's loss; the patches' labels masked (-1).
+    B, T = sh["grad_batch"], sh["grad_seq"]
+    batch = TokenPipeline(cfg.vocab, T, B, seed=args.seed + 7,
+                          device=dev).batch_at(0)
+    embeds, pos3 = vision_input(params, batch["tokens"], sh["text0"], grid,
+                                g)
+    labels = batch["labels"].clone()
+    labels[:, sh["text0"]:sh["text0"] + grid * grid] = -1
+    mbatch = {"tokens": batch["tokens"], "labels": labels, "embeds": embeds,
+              "positions": pos3}
+    params.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg, TrainConfig())
+
+    written = []       # forward launches that wrote the statistic, a call
+
+    def grads():
+        before = fa_ops.lse_written
+        total, (loss, _) = loss_fn(params, mbatch)
+        out = float(loss.detach()), leaf_grads(params, total)
+        written.append(fa_ops.lse_written - before)
+        return out
+
+    (loss, gk), wall, counts, peak = phases.run(
+        "vlm_grad", "vlm_grad",
+        ("flash_attention_bf16", "flash_attention_bwd"), grads)
+    runs = 2 if cfg.remat else 1
+    check(counts["flash_attention_bf16"] == runs * cfg.n_layers and
+          counts["flash_attention_bwd"] == BWD_LAUNCHES * cfg.n_layers and
+          counts["flash_attention"] == 0 and
+          written[-1] == runs * cfg.n_layers,
+          f"vlm_grad: {counts} launches and {written[-1]} statistics "
+          f"written for {cfg.n_layers} layers")
+    check(math.isfinite(loss), f"vlm_grad: loss {loss}")
+    del gk
+    print(f"phase vlm_grad: [{B}x{T}] from embeds ({grid}x{grid} patches, "
+          f"labels masked), loss and gradients, wall {wall:.3f} s "
+          f"{B * T / wall:.0f} tok/s launches {counts} peak_mem {peak:.2f} "
+          f"GiB loss {loss:.6f}; card {card_line()}", flush=True)
+    bf16_grad_check(cfg, params, mbatch, "from embeds at [3, B, T] "
+                    "positions", phase="vlm_grad")
+    params.requires_grad_(False)
+    q, k, v = layer0_qkv(cfg, params, batch["tokens"], embeds, pos3)
+    del params, batch, embeds, pos3, labels, mbatch
+    torch.cuda.empty_cache()
+    rows.append(flash_bwd_row(f"train_{heads}", "vlm_grad", q, k, v, True,
+                              g))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -3887,6 +4242,10 @@ def main(argv=None) -> int:
     moe_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     moe_window_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    mla_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    vlm_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

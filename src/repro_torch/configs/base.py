@@ -2,10 +2,11 @@
 ``configs/base.py``, copied: same fields, defaults and ``reduced()``).
 
 Only the configs whose code the port has are registered: the dense
-``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b`` and the MoE
-``arctic-480b`` and ``mixtral-8x22b``.  ``get_arch`` of another
-of the reference's configs raises ``NotImplementedError`` naming the
-ROADMAP slice that brings it.
+``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b``, the MoE ``arctic-480b``
+and ``mixtral-8x22b``, ``minicpm3-4b`` (MLA) and ``qwen2-vl-2b``
+(M-RoPE, vision stub).  ``get_arch`` of another of the reference's
+configs raises ``NotImplementedError`` naming the ROADMAP slice that
+brings it.
 
 Shape semantics (LM family):
   train_4k     — train_step,  seq 4096,   global batch 256
@@ -120,8 +121,6 @@ class ArchConfig:
 # The reference's other configs, and the ROADMAP slice (queue 1) that
 # brings each.
 PENDING = {
-    "minicpm3-4b": "slice 9d (MLA)",
-    "qwen2-vl-2b": "slice 9e (M-RoPE, vision frontend)",
     "whisper-large-v3": "slice 9f (Whisper encoder-decoder)",
     "recurrentgemma-2b": "slice 9g (RG-LRU, sliding window)",
     "xlstm-350m": "slice 9g (xLSTM)",
@@ -153,4 +152,5 @@ def all_archs() -> Sequence[str]:
 def _load_all():
     # Import side-effect registers every ported config.
     from repro_torch.configs import (arctic_480b, llama3_8b,  # noqa
-                                     mixtral_8x22b, olmo_1b, starcoder2_3b)
+                                     minicpm3_4b, mixtral_8x22b, olmo_1b,
+                                     qwen2_vl_2b, starcoder2_3b)

@@ -6,8 +6,8 @@ name).  They become the port's tensors, with the port's pinned types, on a
 given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
 
-``lm_params_from_jax`` carries the reference's LM parameter tree (dense
-or MoE) into a ``models.transformer.LM``; ``train_state_from_jax`` a whole
+``lm_params_from_jax`` carries the reference's LM parameter tree (dense,
+MoE or MLA) into a ``models.transformer.LM``; ``train_state_from_jax`` a whole
 TrainState (parameters, AdamW's step, μ and ν, the compression residuals)
 into the port's, and ``train_state_to_jax`` back into the reference's
 tree of numpy arrays.
@@ -91,8 +91,9 @@ def lm_params_from_jax(cfg, params, device=None) -> LM:
     """An ``LM`` on ``device`` holding the reference's parameters
     ``params`` (its ``transformer.init_params`` tree; the per-layer arrays
     are stacked under ``units/b0_<kind>`` with a leading layer axis: for
-    MoE the float32 router, the experts and arctic's ``ffn.dense``), bit
-    for bit.  Names, shapes and types must match exactly."""
+    MoE the float32 router, the experts and arctic's ``ffn.dense``; for
+    MLA ``attn.{w_dq, w_uq, w_dkv, w_uk, w_uv, w_kr, wo}`` and the float32
+    ``attn.{q_norm, kv_norm}``), bit for bit.  Names, shapes and types must match exactly."""
     model = LM(cfg, resolve_device(device))
 
     def put(dst, src, name):

@@ -1,8 +1,13 @@
-"""Grouped-query attention with its full-sequence, prefill and single-token
-decode paths (the GQA part of the reference's ``models/attention.py``),
-full or sliding-window.
+"""Attention: grouped-query attention (GQA) with its full-sequence,
+prefill and single-token decode paths, full or sliding-window, and
+multi-head latent attention (MLA, minicpm3) with its absorbed decode (the
+GQA and MLA parts of the reference's ``models/attention.py``).
 
-The full-sequence forward and the prefill call the flash_attention op
+Positions rotate q and k by RoPE (``rope_kind="rope"``) or by Qwen2-VL's
+M-RoPE (``"mrope"``): positions [B, T] (text: three equal rows, which is
+RoPE exactly) or [3, B, T] (temporal, height and width rows).
+
+The GQA full-sequence forward and prefill call the flash_attention op
 (``kernels/flash_attention``) when ``use_kernel`` is set, the default: on
 a CUDA tensor that is a CUDA kernel, at every T (the bf16 one for bf16
 models at head dim 128, the float32 one otherwise); on the CPU its
@@ -19,18 +24,29 @@ computes them outside its Pallas kernel.  Windowless configs keep the
 flash op on every path: the CUDA kernel never materialises the scores, so
 their prefill needs no blocked switch.
 
-Decode keeps a cache per layer: k/v [B, H_kv, slots, Dh] plus the
+MLA runs no kernel either, on any device: its q·k width (nope + rope, 96
+at minicpm3's width) is not its v width (64), which neither the
+reference's Pallas kernel nor the port's flash op takes.  Its forward and
+prefill take the reference's switch: ``attention_ref`` in float32 up to
+T·T = ``BLOCKED_THRESHOLD``, ``blocked_attention`` above; both scale the
+scores by 1/sqrt(nope + rope).
+
+Decode keeps a cache per layer.  GQA: k/v [B, H_kv, slots, Dh] plus the
 global position held by each slot (−1 = empty); a token at position p
 goes to slot ``p % slots``.  ``slots`` is ``max_len``, or
 ``min(window, max_len)`` for a window: a ring that holds the last
-``window`` positions, older slots overwritten.  The port writes the new
-token into the cache in place (the reference returns a new cache): the
-returned dict is the one passed in.
+``window`` positions, older slots overwritten.  MLA: the latent c [B,
+max_len, kv_rank] and the shared rotated rope key kr [B, max_len, rope]
+(288 values a token at minicpm3's width), slot p for position p; decode
+absorbs the up-projections into the query and the output.  The port
+writes the new token into the cache in place (the reference returns a new
+cache): the returned dict is the one passed in.
 
 Not ported here, each raising ``NotImplementedError`` with its ROADMAP
-slice (queue 1): M-RoPE (9e), ``flash=True`` decode, which is the
-reference's ``shard_map`` flash-decoding (slice 9h, with
-``launch/sharding.py``), MLA (9d) and cross-attention (9f).
+slice (queue 1): sinusoid positions (``rope_kind="none"``, 9f or 9g),
+``flash=True`` decode, which is the reference's ``shard_map``
+flash-decoding (slice 9h, with ``launch/sharding.py``), and
+cross-attention (9f).
 """
 from __future__ import annotations
 
@@ -41,7 +57,8 @@ from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as \
     FLASH_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import attention as flash_attn_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.models.layers import _param, apply_rope, dtype_of, normal_
+from repro_torch.models.layers import (_param, apply_mrope, apply_rope,
+                                       dtype_of, normal_)
 
 
 def _not_ported(what: str, slice_: str):
@@ -50,10 +67,9 @@ def _not_ported(what: str, slice_: str):
 
 
 def _check_cfg(cfg) -> None:
-    if cfg.rope_kind != "rope":
+    if cfg.rope_kind not in ("rope", "mrope"):
         raise _not_ported(f"rope_kind={cfg.rope_kind!r}",
-                          "slice 9e (M-RoPE)" if cfg.rope_kind == "mrope"
-                          else "slice 9g (sinusoid positions)")
+                          "slice 9f or 9g (sinusoid positions)")
 
 
 class GQA(nn.Module):
@@ -88,13 +104,20 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _positions_rope(cfg, q, k, positions):
     _check_cfg(cfg)
-    return apply_rope(q, positions), apply_rope(k, positions)
+    if cfg.rope_kind == "rope":
+        return apply_rope(q, positions), apply_rope(k, positions)
+    # mrope: positions [B, T] (text: three equal rows) or [3, B, T].
+    pos3 = (positions if positions.dim() == 3
+            else positions[None].expand((3,) + tuple(positions.shape)))
+    pos3 = pos3[:, :, None]                      # [3, B, 1, T] per head
+    return apply_mrope(q, pos3), apply_mrope(k, pos3)
 
 
 def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, T, D] -> q [B, H, T, Dh], k and v [B, H_kv, T, Dh], q and k
-    rotated, all in x's dtype."""
+    rotated (positions [B, T], or [3, B, T] for mrope), all in x's
+    dtype."""
     hd = cfg.hd
     q = _split_heads(x @ params.wq, cfg.n_heads, hd)
     k = _split_heads(x @ params.wk, cfg.n_kv_heads, hd)
@@ -123,7 +146,7 @@ def _attend(q, k, v, causal: bool, use_kernel: bool) -> torch.Tensor:
 
 def gqa_train(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
-    """x [B, T, D]; positions [B, T]."""
+    """x [B, T, D]; positions [B, T] (or [3, B, T] for mrope)."""
     q, k, v = gqa_qkv(cfg, params, x, positions)
     if cfg.window and causal:
         out = _windowed_attention(q, k, v, cfg.window)
@@ -286,14 +309,15 @@ def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
     del q, out
 
     slots = _slots(cfg, max_len)
+    pos2 = positions if positions.dim() == 2 else positions[0]
     if t >= slots:          # keep the last ``slots`` positions (ring order)
         k_keep, v_keep = k[:, :, t - slots:], v[:, :, t - slots:]
-        pos_keep = positions[:, t - slots:]
+        pos_keep = pos2[:, t - slots:]
     else:
         pad = slots - t
         k_keep = nn.functional.pad(k, (0, 0, 0, pad))
         v_keep = nn.functional.pad(v, (0, 0, 0, pad))
-        pos_keep = nn.functional.pad(positions, (0, pad), value=-1)
+        pos_keep = nn.functional.pad(pos2, (0, pad), value=-1)
     # Ring slot per kept position; padding slots (-1) fall back to their own
     # index (no collision: live slots occupy pos % slots, and when padding
     # exists t < slots so live ring values are the identity on [0, t)).
@@ -310,3 +334,150 @@ def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
     cache_pos[bidx, ring_safe] = torch.where(
         pos_keep >= 0, pos_keep, -1).to(torch.int32)
     return y, {"k": cache_k, "v": cache_v, "pos": cache_pos}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, minicpm3).
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """w_dq [D, q_rank], w_uq [q_rank, H·(nope + rope)], w_dkv [D,
+    kv_rank], w_uk and w_uv [kv_rank, H·nope], w_kr [D, rope], wo [H·nope,
+    D] in the config dtype; q_norm [q_rank] and kv_norm [kv_rank] float32
+    (nope = ``cfg.hd``, rope = ``cfg.mla_rope_dim``)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, h, dt = cfg.d_model, cfg.n_heads, dtype_of(cfg.dtype)
+        nope, rope = cfg.hd, cfg.mla_rope_dim
+        qr, kvr = cfg.mla_q_rank, cfg.mla_kv_rank
+        self.w_dq = _param(d, qr, dtype=dt, device=device)
+        self.w_uq = _param(qr, h * (nope + rope), dtype=dt, device=device)
+        self.w_dkv = _param(d, kvr, dtype=dt, device=device)
+        self.w_uk = _param(kvr, h * nope, dtype=dt, device=device)
+        self.w_uv = _param(kvr, h * nope, dtype=dt, device=device)
+        self.w_kr = _param(d, rope, dtype=dt, device=device)
+        self.wo = _param(h * nope, d, dtype=dt, device=device)
+        self.q_norm = _param(qr, dtype=torch.float32, device=device)
+        self.kv_norm = _param(kvr, dtype=torch.float32, device=device)
+
+
+def init_mla(attn: MLA, cfg, gen: torch.Generator) -> None:
+    s = cfg.d_model ** -0.5
+    normal_(attn.w_dq, s, gen)
+    normal_(attn.w_uq, cfg.mla_q_rank ** -0.5, gen)
+    normal_(attn.w_dkv, s, gen)
+    normal_(attn.w_uk, cfg.mla_kv_rank ** -0.5, gen)
+    normal_(attn.w_uv, cfg.mla_kv_rank ** -0.5, gen)
+    normal_(attn.w_kr, s, gen)
+    normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
+    attn.q_norm.fill_(1.0)
+    attn.kv_norm.fill_(1.0)
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMS norm in float32 with eps 1e-6 (the reference's MLA ``_rms``),
+    back in x's dtype."""
+    xf = x.float()
+    r = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    return (xf / r * scale).to(x.dtype)
+
+
+def _mla_forward(cfg, params: MLA, x: torch.Tensor, positions: torch.Tensor,
+                 causal: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y [B, T, D], the latent c [B, T, kv_rank], the rotated rope key kr
+    [B, T, rope]), all in x's dtype.  The rope key is one head, rotated,
+    then broadcast across the H heads."""
+    b, t, _ = x.shape
+    h, nope, rope = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
+    cq = _rms(x @ params.w_dq, params.q_norm)
+    q = (cq @ params.w_uq).reshape(b, t, h, nope + rope).permute(0, 2, 1, 3)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]             # [B,H,T,·]
+    c = _rms(x @ params.w_dkv, params.kv_norm)                # [B,T,kvr]
+    k_nope = _split_heads(c @ params.w_uk, h, nope)
+    v = _split_heads(c @ params.w_uv, h, nope)
+    k_rope = apply_rope((x @ params.w_kr)[:, None],
+                        positions[:, None])                   # [B,1,T,rope]
+    q_rope = apply_rope(q_rope, positions[:, None])
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, h, t, rope)], dim=-1)
+    if t * t > BLOCKED_THRESHOLD:
+        out = blocked_attention(qf, kf, v, causal=causal)
+    else:
+        out = attention_ref(qf.float(), kf.float(), v.float(),
+                            causal=causal).to(x.dtype)
+    return _merge_heads(out) @ params.wo, c, k_rope[:, 0]
+
+
+def mla_train(cfg, params: MLA, x: torch.Tensor, positions: torch.Tensor,
+              causal: bool = True, use_kernel: bool = True,
+              unroll: bool = False) -> torch.Tensor:
+    """x [B, T, D]; positions [B, T].  ``use_kernel`` and ``unroll`` are
+    accepted and ignored: MLA runs no kernel (the module docstring)."""
+    return _mla_forward(cfg, params, x, positions, causal)[0]
+
+
+def mla_prefill(cfg, params: MLA, x: torch.Tensor, positions: torch.Tensor,
+                max_len: int, unroll: bool = False
+                ) -> tuple[torch.Tensor, dict]:
+    """MLA forward and the latent cache of the prompt: c and kr of its T
+    tokens in slots 0..T-1 of ``max_len`` (>= T), zeros after."""
+    t = x.shape[1]
+    if max_len < t:
+        raise ValueError(f"an MLA cache of {max_len} slots cannot hold a "
+                         f"prompt of {t}")
+    y, c, kr = _mla_forward(cfg, params, x, positions, True)
+    pad = max_len - t
+    return y, {"c": nn.functional.pad(c, (0, 0, 0, pad)).to(x.dtype),
+               "kr": nn.functional.pad(kr, (0, 0, 0, pad)).to(x.dtype)}
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device=None
+                   ) -> dict:
+    return {
+        "c": torch.zeros((batch, max_len, cfg.mla_kv_rank), dtype=dtype,
+                         device=device),
+        "kr": torch.zeros((batch, max_len, cfg.mla_rope_dim), dtype=dtype,
+                          device=device),
+    }
+
+
+def mla_decode(cfg, params: MLA, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Absorbed-matmul MLA decode: x [B, 1, D], pos int32[].  Writes the
+    token's c and kr into slot ``pos`` of ``cache`` in place; attention runs
+    in latent space (w_uk absorbed into the query, w_uv into the output)
+    over the slots up to ``pos``, in float32, the scores divided by
+    sqrt(nope + rope)."""
+    b = x.shape[0]
+    h, nope, rope = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
+    kvr = cfg.mla_kv_rank
+    cq = _rms(x @ params.w_dq, params.q_norm)
+    q = (cq @ params.w_uq).reshape(b, 1, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]             # [B,1,H,·]
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q_rope = apply_rope(q_rope.transpose(1, 2),
+                        posb[:, None]).transpose(1, 2)
+    c_new = _rms(x @ params.w_dkv, params.kv_norm)            # [B,1,kvr]
+    kr_new = apply_rope((x @ params.w_kr)[:, None],
+                        posb[:, None])[:, 0]                  # [B,1,rope]
+    slot = pos.reshape(1).long()
+    cache["c"].index_copy_(1, slot, c_new.to(cache["c"].dtype))
+    cache["kr"].index_copy_(1, slot, kr_new.to(cache["kr"].dtype))
+    cache_c = cache["c"].float()
+
+    # Absorb w_uk into the query: q_c[b,h,r] = sum_n q_nope w_uk[r,(h,n)].
+    w_uk = params.w_uk.reshape(kvr, h, nope)
+    q_c = torch.einsum("bqhn,rhn->bhqr", q_nope.float(), w_uk.float())
+    scores = (torch.einsum("bhqr,bsr->bhqs", q_c, cache_c)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             cache["kr"].float())
+              ) / ((nope + rope) ** 0.5)
+    valid = torch.arange(cache_c.shape[1], device=x.device) <= pos
+    scores = scores.masked_fill(~valid[None, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bhqr", probs, cache_c)      # [B,H,1,kvr]
+    w_uv = params.w_uv.reshape(kvr, h, nope)
+    out = torch.einsum("bhqr,rhn->bhqn", ctx, w_uv.float()).to(x.dtype)
+    return _merge_heads(out) @ params.wo, cache

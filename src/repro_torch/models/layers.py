@@ -9,8 +9,8 @@ The reference defines these functions, not the published models: RoPE
 rotates *interleaved* pairs (``x[..., ::2]``, ``x[..., 1::2]``) with
 θ = 10,000 for every config, and the norms use eps = 1e-6 with the
 population variance.  The port keeps all three (ROADMAP queue 3).
-
-``apply_mrope`` waits for the vision slice (ROADMAP queue 1, slice 9e).
+``apply_mrope`` (Qwen2-VL's M-RoPE) rotates the same pairs, its angle
+table built from three position rows, one a section of the pairs.
 """
 from __future__ import annotations
 
@@ -98,12 +98,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     while positions.dim() < x.dim() - 1:      # insert head axes before T
         positions = positions[..., None, :]
     freqs = rope_freqs(d, theta, x.device)                  # [D/2]
-    angles = positions[..., None].float() * freqs
-    cos, sin = torch.cos(angles), torch.sin(angles)         # [..., T, D/2]
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """The pairs (x[2i], x[2i+1]) rotated by ``angles`` [..., T, D/2], back
+    in x's dtype."""
+    cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., ::2], x[..., 1::2]
     rx1 = x1 * cos - x2 * sin
     rx2 = x1 * sin + x2 * cos
     return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections=(0.25, 0.375, 0.375), theta: float = 10_000.0
+                ) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the D/2 rotary pairs split into (temporal, height,
+    width) sections of ``int(D/2 · s)`` pairs (the last takes the rest;
+    16/24/24 at D = 128), each rotated by its own position row.
+
+    x [..., T, D]; positions3 int32[3, ..., T] (head axes inserted before
+    T).  With three equal rows this is :func:`apply_rope` exactly."""
+    d = x.shape[-1]
+    half = d // 2
+    bounds = [0]
+    for s in sections[:-1]:
+        bounds.append(bounds[-1] + int(half * s))
+    bounds.append(half)
+    freqs = rope_freqs(d, theta, x.device)                  # [D/2]
+    parts = []
+    for i in range(3):
+        pos = positions3[i]
+        while pos.dim() < x.dim() - 1:        # insert head axes before T
+            pos = pos[..., None, :]
+        parts.append(pos[..., None].float() * freqs[bounds[i]:bounds[i + 1]])
+    return _rotate(x, torch.cat(parts, dim=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Model assembly for the dense and MoE block kinds: init, full-sequence
-forward, prefill and single-token decode (the ``"dense"`` and ``"moe"``
-parts of the reference's ``models/transformer.py``).
+"""Model assembly for the dense, MoE and MLA block kinds: init,
+full-sequence forward, prefill and single-token decode (the ``"dense"``,
+``"moe"`` and ``"mla"`` parts of the reference's
+``models/transformer.py``).
 
 The parameters live in an :class:`LM` (``nn.Module``): ``embed``,
 ``final_norm``, ``lm_head`` (untied configs) and ``layers``, an
@@ -12,15 +13,20 @@ signatures.  Where the config sets ``remat`` and a parameter asks for a
 gradient, the forward recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per unit);
 ``unroll`` has no meaning in eager PyTorch and is accepted and ignored.
-Caches are ``{"layers": [{"attn": {k, v, pos}}, ...]}``, one dict per
-layer.
+Caches are ``{"layers": [{"attn": {k, v, pos}}, ...]}`` (MLA: ``{"attn":
+{c, kr}}``), one dict per layer.
 
 A dense block is pre-norm GQA attention plus a SwiGLU MLP, both residual;
 an MoE block the same attention plus the expert FFN (``models/moe.py``),
 whose load-balancing loss each path sums over the layers (``forward``
-returns it; prefill and decode drop it, as the reference's do).  Other
-block kinds raise ``NotImplementedError`` naming their ROADMAP slice
-(queue 1).
+returns it; prefill and decode drop it, as the reference's do); an MLA
+block multi-head latent attention plus the MLP.  ``forward`` and
+``prefill_forward`` take ``embeds`` [B, T, D] in place of tokens (the
+vision stub's patch and text embeddings, cast to the embedding's dtype),
+and ``forward`` takes positions [B, T] or, for M-RoPE, [3, B, T];
+``prefill_forward`` keeps the default positions 0..T-1, as the
+reference's does.  Other block kinds raise ``NotImplementedError`` naming
+their ROADMAP slice (queue 1).
 """
 from __future__ import annotations
 
@@ -37,9 +43,8 @@ from repro_torch.models.layers import (MLP, Norm, _param, apply_mlp,
                                        apply_norm, dtype_of, init_mlp,
                                        init_norm, normal_)
 
-KINDS = ("dense", "moe")      # the block kinds the port has
+KINDS = ("dense", "moe", "mla")      # the block kinds the port has
 KIND_SLICES = {
-    "mla": "slice 9d (MLA)",
     "enc": "slice 9f (Whisper encoder-decoder)",
     "dec_cross": "slice 9f (Whisper encoder-decoder)",
     "attn_local": "slice 9g (sliding window)",
@@ -70,14 +75,16 @@ def _check_model(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """ln1, attn (GQA), then ln2 + ffn (:class:`moe.MoE`) for ``"moe"``,
-    ln2 + mlp for ``"dense"`` where the config has d_ff."""
+    """ln1, attn (:class:`attn.MLA` for ``"mla"``, GQA otherwise), then
+    ln2 + ffn (:class:`moe.MoE`) for ``"moe"``, ln2 + mlp for ``"dense"``
+    and ``"mla"`` where the config has d_ff."""
 
     def __init__(self, kind: str, cfg, device=None):
         super().__init__()
         _check_kind(kind)
         self.ln1 = Norm(cfg.norm_kind, cfg.d_model, device)
-        self.attn = attn.GQA(cfg, device)
+        self.attn = (attn.MLA(cfg, device) if kind == "mla"
+                     else attn.GQA(cfg, device))
         if kind == "moe":
             self.ln2 = Norm(cfg.norm_kind, cfg.d_model, device)
             self.ffn = moe.MoE(cfg, device)
@@ -87,7 +94,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """The parameters of a dense or MoE LM, uninitialised (see
+    """The parameters of a dense, MoE or MLA LM, uninitialised (see
     :func:`init_params` and ``convert.lm_params_from_jax``).  ``kind`` is
     the config's one block kind, ``unit`` the reference's name of the
     stacked unit (``units.b0_<kind>``)."""
@@ -111,7 +118,10 @@ def init_block(kind: str, cfg, block: Block,
                gen: torch.Generator) -> None:
     _check_kind(kind)
     init_norm(block.ln1)
-    attn.init_gqa(block.attn, cfg, gen)
+    if kind == "mla":
+        attn.init_mla(block.attn, cfg, gen)
+    else:
+        attn.init_gqa(block.attn, cfg, gen)
     if kind == "moe":
         init_norm(block.ln2)
         moe.init_moe(block.ffn, cfg, gen)
@@ -193,11 +203,14 @@ def apply_block(kind: str, cfg, p: Block, x: torch.Tensor,
                 positions: torch.Tensor, use_kernel: bool = True,
                 moe_strategy: str = "sort"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x', aux_loss); a dense block's aux loss is 0."""
+    """Returns (x', aux_loss); a dense or MLA block's aux loss is 0."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    x = x + attn.gqa_train(cfg, p.attn, h, positions, causal=True,
-                           use_kernel=use_kernel)
+    if kind == "mla":
+        x = x + attn.mla_train(cfg, p.attn, h, positions, causal=True)
+    else:
+        x = x + attn.gqa_train(cfg, p.attn, h, positions, causal=True,
+                               use_kernel=use_kernel)
     return _ffn_residual(kind, cfg, p, x, moe_strategy)
 
 
@@ -207,8 +220,11 @@ def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
                   moe_strategy: str = "sort") -> tuple[torch.Tensor, dict]:
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    y, cache = attn.gqa_prefill(cfg, p.attn, h, positions, max_len,
-                                use_kernel=use_kernel)
+    if kind == "mla":
+        y, cache = attn.mla_prefill(cfg, p.attn, h, positions, max_len)
+    else:
+        y, cache = attn.gqa_prefill(cfg, p.attn, h, positions, max_len,
+                                    use_kernel=use_kernel)
     x, _ = _ffn_residual(kind, cfg, p, x + y, moe_strategy)
     return x, {"attn": cache}
 
@@ -216,11 +232,17 @@ def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
 def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
                  cache: dict, pos: torch.Tensor, flash: bool = False
                  ) -> tuple[torch.Tensor, dict]:
-    """One token; an MoE block runs ``moe_ffn``'s default strategy."""
+    """One token; an MoE block runs ``moe_ffn``'s default strategy, an
+    MLA block ignores ``flash`` (which shards a GQA cache), as the
+    reference's do."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    y, cache["attn"] = attn.gqa_decode(cfg, p.attn, h, cache["attn"], pos,
-                                       flash=flash)
+    if kind == "mla":
+        y, cache["attn"] = attn.mla_decode(cfg, p.attn, h, cache["attn"],
+                                           pos)
+    else:
+        y, cache["attn"] = attn.gqa_decode(cfg, p.attn, h, cache["attn"],
+                                           pos, flash=flash)
     x, _ = _ffn_residual(kind, cfg, p, x + y, "sort")
     return x, cache
 
@@ -228,6 +250,9 @@ def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
 def init_block_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                      device=None) -> dict:
     _check_kind(kind)
+    if kind == "mla":
+        return {"attn": attn.init_mla_cache(cfg, batch, max_len, dtype,
+                                            device)}
     return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype, device)}
 
 
@@ -243,15 +268,26 @@ def _head(cfg, params: LM) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
-def forward(cfg, params: LM, tokens: torch.Tensor,
+def _embed(params: LM, tokens, embeds) -> torch.Tensor:
+    """The input rows: ``embeds`` [B, T, D] in the embedding's dtype where
+    given (the tokens are then not read), else the tokens' rows."""
+    if embeds is None:
+        return params.embed[tokens.long()]
+    return embeds.to(params.embed.dtype)
+
+
+def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             positions: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             use_kernel: bool = True, unroll: bool = False,
             moe_strategy: str = "sort"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens int32[B, T] -> (logits f32[B, T, V], aux_loss scalar, the
-    sum of the blocks' load-balancing losses)."""
+    """tokens int32[B, T] (or ``embeds`` [B, T, D] for the stub frontends);
+    positions [B, T] or, for M-RoPE, [3, B, T] (default 0..T-1) ->
+    (logits f32[B, T, V], aux_loss scalar, the sum of the blocks'
+    load-balancing losses)."""
     _check_model(cfg)
-    x = params.embed[tokens.long()]
+    x = _embed(params, tokens, embeds)
     b, t, _ = x.shape
     if positions is None:
         positions = _default_positions(b, t, x.device)
@@ -272,16 +308,17 @@ def forward(cfg, params: LM, tokens: torch.Tensor,
     return (x @ _head(cfg, params)).float(), aux
 
 
-def prefill_forward(cfg, params: LM, tokens: torch.Tensor,
-                    max_len: int, unroll: bool = False,
-                    use_kernel: bool = True, moe_strategy: str = "sort"
-                    ) -> tuple[torch.Tensor, dict]:
+def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
+                    max_len: int, embeds: Optional[torch.Tensor] = None,
+                    unroll: bool = False, use_kernel: bool = True,
+                    moe_strategy: str = "sort") -> tuple[torch.Tensor, dict]:
     """Returns (last-position logits f32[B, 1, V], cache): the full-sequence
-    compute, the cache of every layer, and only the next-token logits.
+    compute over tokens int32[B, T] (or ``embeds`` [B, T, D]) at positions
+    0..T-1, the cache of every layer, and only the next-token logits.
     ``use_kernel=False`` takes the plain attention path, against which the
     kernel path is checked."""
     _check_model(cfg)
-    x = params.embed[tokens.long()]
+    x = _embed(params, tokens, embeds)
     b, t, _ = x.shape
     positions = _default_positions(b, t, x.device)
     caches = []

@@ -6,7 +6,11 @@ metrics)``.  With ``microbatches > 1`` the batch is cut along its leading
 axis into that many microbatches, each one's gradient
 (``torch.autograd.grad``, in the parameters' dtype) is added into float32
 accumulators that start at zero, and the sums are divided by
-``microbatches``: the reference's ``lax.scan`` order.  The gradients are
+``microbatches``: the reference's ``lax.scan`` order.  A batch holds
+``tokens`` and ``labels`` int32[B, T] and may hold ``positions`` ([B, T],
+or [3, B, T] for M-RoPE, then in one microbatch) and ``embeds`` [B, T, D]
+(the vision stub's input, read in place of the tokens' rows); ``frames``
+(Whisper) waits for slice 9f.  The gradients are
 kept by the reference's stacked leaves (``optimizer.py``), then
 compressed (``compression``) and applied by AdamW, in place.
 
@@ -84,13 +88,12 @@ def make_loss_fn(cfg, tcfg: TrainConfig):
     _check_tcfg(tcfg)
 
     def loss_fn(params, batch):
-        for key, slice_ in (("frames", "slice 9f (Whisper encoder)"),
-                            ("embeds", "slice 9e (vision frontend)")):
-            if key in batch:
-                raise _not_ported(f"a batch with {key!r}", slice_)
+        if "frames" in batch:
+            raise _not_ported("a batch with 'frames'",
+                              "slice 9f (Whisper encoder)")
         logits, aux = transformer.forward(
             cfg, params, batch["tokens"], positions=batch.get("positions"),
-            use_kernel=tcfg.use_flash_kernel)
+            embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel)
         loss = cross_entropy(logits, batch["labels"], tcfg.label_smoothing)
         return loss + tcfg.moe_aux_weight * aux, (loss, aux)
     return loss_fn
@@ -112,9 +115,16 @@ def init_train_state(cfg, tcfg: TrainConfig,
 
 
 def _microbatches(batch: dict, n: int) -> list:
+    """The batch cut along every array's leading axis, as the reference
+    reshapes it (so M-RoPE's [3, B, T] positions take one microbatch)."""
     b = next(iter(batch.values())).shape[0]
     if b % n:
         raise ValueError(f"batch {b} is not a multiple of {n} microbatches")
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    if n > 1 and any(sh[0] != b for sh in shapes.values()):
+        raise ValueError(f"microbatches cut every batch array along its "
+                         f"leading axis, which must be the batch's {b}; got "
+                         f"{shapes}")
     m = b // n
     return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             for i in range(n)]
@@ -134,13 +144,17 @@ def make_train_step(cfg, tcfg: TrainConfig):
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for mbatch in _microbatches(batch, tcfg.microbatches):
             total, (loss, _) = loss_fn(params, mbatch)
-            got = iter(torch.autograd.grad(total, flat))
+            # A batch with embeds reads no embedding row, so an untied
+            # embedding has no gradient: zero, as the reference's.
+            got = iter(torch.autograd.grad(total, flat, allow_unused=True))
             with torch.no_grad():
                 for name, ps in leaves.items():
                     acc = grads[name]
                     for row in (acc.unbind(0) if is_stacked(name)
                                 else [acc]):
-                        row.add_(next(got))
+                        g = next(got)
+                        if g is not None:
+                            row.add_(g)
             loss_sum = loss_sum + loss.detach()
             del total, loss
         for g in grads.values():

@@ -29,7 +29,10 @@ Llama-3 forward through it is within 5e-2 of the plain path relative to
 the largest logit, chip_smoke.py's bound for the bf16 model at full depth
 (a last-bit difference in an attention output flips a bf16 rounding of
 the residual stream).  The bf16 kernel is also held at groups 7 and 6
-(arctic's 56/8 heads, mixtral's 48/8).  ``moe_ffn`` on the card makes the
+(arctic's 56/8 heads, mixtral's 48/8), and forward and backward at
+qwen2-vl's 12/2.  Reduced minicpm3-4b's MLA prefill and absorbed decode on
+the card match the CPU's within 1e-5 of the largest value (float32, TF32
+off).  ``moe_ffn`` on the card makes the
 CPU's expert choices and lands within 1e-5 of max |y| of its output, and
 windowed and blocked attention within 1e-5 of max |out| of theirs
 (float32, TF32 off).  flash_attention_bwd is within 1e-4 of each
@@ -663,7 +666,8 @@ def bf16_qkv(device, b, h, hkv, t, s, d):
     (1, 4, 1, 130, 517, 128, False), (2, 8, 8, 64, 100, 128, False),
     (2, 16, 16, 512, 768, 128, False), (1, 8, 2, 1, 300, 128, False),
     (1, 2, 1, 128, 128, 128, True), (2, 56, 8, 333, 333, 128, True),
-    (1, 48, 8, 200, 200, 128, True)])
+    (1, 48, 8, 200, 200, 128, True), (2, 12, 2, 1000, 1000, 128, True),
+    (1, 12, 2, 257, 257, 128, True)])
 def test_flash_attention_bf16(cuda, b, h, hkv, t, s, d, causal):
     q, k, v = bf16_qkv(cuda, b, h, hkv, t, s, d)
     before = (fa_ops.launches, fa_ops.launches_bf16)
@@ -823,6 +827,41 @@ def test_llama3_full_width_two_layers_prefill_kernel_matches_plain(cuda):
                 <= 1e-4 * scale
 
 
+def test_mla_prefill_and_decode_on_card_match_cpu(cuda):
+    """Reduced minicpm3-4b (MLA), float32, TF32 off: the prefill's logits
+    and latent caches and 4 absorbed decode steps on the card against the
+    same model on the CPU, within 1e-5 of the largest value; no kernel
+    launches (MLA runs plain torch on every device)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("minicpm3-4b").reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    params_gpu = copy.deepcopy(params).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_gpu)):
+        toks = tokens.to(dev)
+        logits, cache = transformer.prefill_forward(cfg, p, toks[:, :36], 40)
+        steps = [logits]
+        for i in range(36, 40):
+            logits, cache = transformer.decode_step(
+                cfg, p, toks[:, i:i + 1], cache,
+                torch.tensor(i, dtype=torch.int32, device=dev))
+            steps.append(logits)
+        out[dev] = (torch.cat(steps, 1).cpu(),
+                    [{k: v.cpu() for k, v in c["attn"].items()}
+                     for c in cache["layers"]])
+    assert (fa_ops.launches, fa_ops.launches_bf16) == before
+    for got, want in zip([out["cuda"][0]] + [c[k] for c in out["cuda"][1]
+                                             for k in ("c", "kr")],
+                         [out["cpu"][0]] + [c[k] for c in out["cpu"][1]
+                                            for k in ("c", "kr")]):
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
 # The backward kernels against attention_bwd_ref on the same values (for
 # bf16 their float32 copies).  Float32: both compute in float32 and sum
 # the same products in other orders, with expf against torch.exp, so each
@@ -879,7 +918,8 @@ def test_flash_attention_bwd(cuda, b, h, hkv, t, s, d, causal):
 @pytest.mark.parametrize("b,h,hkv,t,s,causal", [
     (2, 4, 4, 200, 200, True), (1, 8, 2, 333, 333, True),
     (1, 8, 2, 1000, 1000, True), (1, 16, 4, 2048, 2048, True),
-    (1, 4, 1, 130, 517, False), (2, 8, 8, 64, 100, False)])
+    (1, 4, 1, 130, 517, False), (2, 8, 8, 64, 100, False),
+    (2, 12, 2, 1000, 1000, True), (1, 12, 2, 2048, 2048, True)])
 def test_flash_attention_bwd_bf16(cuda, b, h, hkv, t, s, causal):
     check_bwd(*bf16_qkv(cuda, b, h, hkv, t, s, 128), causal)
 

@@ -3,8 +3,9 @@
 A subprocess imports ``repro_torch`` (observability, runtime and the
 multi-process launch included) and runs a tiny PageRank (also on the
 shard_map backend, over a gloo world of one rank), greedy generation of
-a reduced llama3-8b and of a reduced mixtral-8x22b (MoE, its window
-crossed), a traced resilient
+a reduced llama3-8b, of a reduced mixtral-8x22b (MoE, its window
+crossed) and of a reduced minicpm3-4b (MLA), a reduced qwen2-vl-2b's
+forward from embeds at [3, B, T] positions (M-RoPE), a traced resilient
 PageRank with one failure and adsorption on the CPU, two journaled views
 restored, and reachability compiled from its rule text, then reports
 which modules were loaded; a
@@ -67,6 +68,18 @@ moe_lm = transformer.init_params(moe_cfg, torch.Generator().manual_seed(0),
                                  "cpu")
 moe_toks = repro_torch.serve.serve_step.generate(
     moe_cfg, moe_lm, torch.zeros((1, 20), dtype=torch.int32), 2, 22)
+mla_cfg = get_arch("minicpm3-4b").reduced()
+mla_lm = transformer.init_params(mla_cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+mla_toks = repro_torch.serve.serve_step.generate(
+    mla_cfg, mla_lm, torch.zeros((1, 4), dtype=torch.int32), 3, 7)
+vlm_cfg = get_arch("qwen2-vl-2b").reduced()
+vlm_lm = transformer.init_params(vlm_cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+pos3 = torch.arange(6, dtype=torch.int32).expand(3, 1, 6).clone()
+pos3[1:, :, 2:4] += torch.tensor([[[0, 1]], [[1, 0]]], dtype=torch.int32)
+vlm_logits, _ = transformer.forward(vlm_cfg, vlm_lm, None, positions=pos3,
+                                    embeds=torch.randn(1, 6, 64))
 import tempfile
 from repro_torch.obs import Tracer
 from repro_torch.runtime import FaultPlan
@@ -116,6 +129,8 @@ with tempfile.TemporaryDirectory() as td:
 print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations),
                   "shard_map_equal": bool(torch.equal(pr, pr_smap)),
                   "lm": list(toks.shape), "moe": list(moe_toks.shape),
+                  "mla": list(mla_toks.shape),
+                  "vlm": list(vlm_logits.shape),
                   "resilient": rr.metrics["recoveries"],
                   "adsorption": list(vec.shape), "views": views,
                   "reached": int((reach == 1.0).sum())}))
@@ -131,6 +146,8 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["iters"] == 5
     assert got["lm"] == [1, 6]
     assert got["moe"] == [1, 22]
+    assert got["mla"] == [1, 7]
+    assert got["vlm"] == [1, 6, 256]
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
     assert got["views"] == {"km": 1, "sp": 1}
@@ -184,6 +201,11 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
                  lambda: serve.main(["--arch", "mixtral-8x22b", "--reduced"]),
                  lambda: transformer.init_params(
                      get_arch("arctic-480b").reduced()),
+                 lambda: transformer.init_params(
+                     get_arch("minicpm3-4b").reduced()),
+                 lambda: transformer.init_cache(
+                     get_arch("minicpm3-4b").reduced(), 1, 4),
+                 lambda: serve.main(["--arch", "qwen2-vl-2b", "--reduced"]),
                  lambda: train.main(["--reduced", "--steps", "1"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: reach.run(g, snap),

@@ -48,6 +48,8 @@ from repro_torch.serve import serve_step as tss
 
 ARCHS = ["olmo-1b", "llama3-8b", "starcoder2-3b"]
 MOE_ARCHS = ["arctic-480b", "mixtral-8x22b"]    # tests/test_torch_moe.py
+# tests/test_torch_mla.py and tests/test_torch_vlm.py
+MLA_VLM_ARCHS = ["minicpm3-4b", "qwen2-vl-2b"]
 ATOL = RTOL = 2e-5
 BF16_ATOL = 8e-2
 B, T, NEW = 2, 256, 8
@@ -108,7 +110,7 @@ def _drop_models():
 # Configs, data, conversion.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("name", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
 def test_configs_equal_the_reference(name):
     j, t = j_get_arch(name), get_arch(name)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -117,10 +119,10 @@ def test_configs_equal_the_reference(name):
 
 
 def test_only_dense_configs_registered_others_name_their_slice():
-    """The dense and MoE configs are registered; the five others raise."""
-    assert list(all_archs()) == sorted(ARCHS + MOE_ARCHS)
-    assert sorted(PENDING) == ["minicpm3-4b", "qwen2-vl-2b",
-                               "recurrentgemma-2b", "whisper-large-v3",
+    """The dense, MoE, MLA and VLM configs are registered; the three
+    others raise."""
+    assert list(all_archs()) == sorted(ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
+    assert sorted(PENDING) == ["recurrentgemma-2b", "whisper-large-v3",
                                "xlstm-350m"]
     for name, slice_ in PENDING.items():
         j_get_arch(name)                   # a config of the reference
@@ -366,8 +368,8 @@ def test_unported_paths_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.forward(moe_cfg, moe_params, torch.zeros((1, 4), dtype=torch.int32),
                    moe_strategy="a2a")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tt.LM(dataclasses.replace(cfg, rope_kind="mrope"), "cpu")
+    with pytest.raises(NotImplementedError, match="slice 9f or 9g"):
+        tt.LM(dataclasses.replace(cfg, rope_kind="none"), "cpu")
     m = model("llama3-8b")
     cache = tt.init_cache(m.cfg, B, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 9h"):

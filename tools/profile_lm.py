@@ -2,12 +2,15 @@
 """Where the dense-LM phases' device time goes, on one CUDA card.
 
     PYTHONPATH=src python3 tools/profile_lm.py [--seed 0] [--steps 8]
+        [--arch llama3-8b] [--serve-only]
 
-Serving: Llama-3-8B at full width and depth (bf16,
-random weights from the port's seeded init), the shapes of
+Serving: Llama-3-8B (or ``--arch``, e.g. minicpm3-4b or qwen2-vl-2b) at
+full width and depth (bf16, random weights from the port's seeded init),
+the shapes of
 ``chip_smoke.py``'s LM phases: one full-sequence forward at 2 x 4096
 tokens, then ``--steps`` greedy decode steps against the cache of 8
-prompts of 2048 tokens.  Training: one step of
+prompts of 2048 tokens.  Training (left out with ``--serve-only``): one
+step of
 ``chip_smoke.py``'s ``lm_train`` (OLMo-1B at full width and depth, bf16,
 remat, 16 x 2048 tokens in 4 microbatches, its lr), through the train
 step ``launch/train.py`` runs.  Each runs once to warm up and once under
@@ -84,6 +87,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--arch", default="llama3-8b", help="serving model")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="profile serving only, no training step")
     args = ap.parse_args(argv)
 
     import torch
@@ -97,7 +103,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), torch.__version__)
-    cfg = get_arch("llama3-8b")
+    cfg = get_arch(args.arch)
+    print(cfg.name)
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     tokens = TokenPipeline(cfg.vocab, 4096, 2, seed=args.seed,
@@ -122,7 +129,8 @@ def main(argv=None) -> int:
     profiled(f"decode [8x2048, {args.steps} steps]", decode)
     del params, cache, state
     torch.cuda.empty_cache()
-    train_profile(args.seed, dev)
+    if not args.serve_only:
+        train_profile(args.seed, dev)
     return 0
 
 
