@@ -220,6 +220,30 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     TRAIN_BF16_GRAD_BOUND); flash rows at 12/2 heads: the forward at
     ``vlm_forward``'s layer 0, the prefill at ``vlm_serve``'s, the
     backward at ``vlm_grad``'s.
+* the Whisper encoder-decoder at whisper-large-v3's full width and depth
+  (32 encoder and 32 decoder layers, d 1280, 20/20 heads of 64, d_ff 5120,
+  vocab 51,866, sinusoid positions, LayerNorm, untied; 2,020,628,480 bf16
+  parameters), frames drawn in bf16 (the audio stub's output, the config
+  dtype), tokens from ``TokenPipeline``:
+  - ``whisper_forward``: 8 clips of 1500 frames through ``encode`` and 8 x
+    448 tokens (Whisper's text context) through the forward; 64 launches
+    of the bf16 flash kernel at D = 64 (32 encoder, non-causal; 32 decoder,
+    causal), none of the float32 one; against the plain path (5e-2);
+  - ``whisper_serve``: ``serve`` with the frames on 8 prompts of 384
+    tokens and 64 new ones; encode, prefill and decode walls, the
+    cross-attention K/V cache's bytes beside the self-attention cache's;
+    prefill against forward (one ulp), 8 teacher-forced decode steps
+    (5e-2), and both in float32 at 4 + 4 layers (1e-4);
+  - ``whisper_grad``: one microbatch of 4 clips and 4 x 448 tokens through
+    ``train_step``'s loss: 96 bf16 forward launches (the encoder once, the
+    decoder twice: remat) and 64 calls of the bf16 backward at D = 64 (192
+    launches), against the plain path (TRAIN_BF16_LOSS_BOUND,
+    TRAIN_BF16_GRAD_BOUND); flash rows at D = 64: the forward at the
+    encoder's layer 0 (and the float32 kernel there, off the path), the
+    prefill at the decoder's, the backward at ``whisper_grad``'s encoder;
+* after ``moe_serve``, ``moe_prefill_full``: arctic's prefill at a capacity
+  factor of E / k, which keeps every routed copy, beside serve's prefill;
+  the kept and dropped copies of both, and of mixtral's prefill.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -405,6 +429,16 @@ MLA_SHAPES = dict(serve_batch=8, prompt=2048, new=64, decode_steps=8,
 VLM_SHAPES = dict(fwd_batch=2, fwd_seq=4096, fwd_text0=1024, grid=32,
                   serve_batch=8, prompt=2048, new=64, decode_steps=8,
                   text0=512, grad_batch=4, grad_seq=2048)
+# The Whisper phases, whisper-large-v3 at full width and depth: 8 clips of
+# 1500 frames and 8 x 448 tokens (448 is Whisper's text context,
+# max_target_positions of openai/whisper-large-v3's config); serving 8
+# prompts of 384 tokens and 64 new ones (448 positions in all), 8
+# teacher-forced decode steps, the float32 check at 4 encoder and 4 decoder
+# layers; one microbatch of 4 clips and 4 x 448 tokens through
+# train_step's loss.
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_SHAPES = dict(fwd_batch=8, text=448, prompt=384, new=64,
+                      decode_steps=8, tight_layers=4, grad_batch=4)
 # blocked_attention against _windowed_attention, both float32 with the
 # same masked scores: only the order of the online softmax's sums parts
 # them.
@@ -2862,16 +2896,36 @@ def random_qkv(shape, generator, dtype="float32"):
 def layer0_qkv(cfg, params, tokens, embeds=None, positions=None):
     """Layer 0's attention inputs on ``tokens`` (or ``embeds``) at
     ``positions`` (default 0..T-1), as the forward gives them to the
-    kernel: in the model's dtype, contiguous, q and k rotated."""
+    kernel: in the model's dtype, contiguous, q and k rotated (or, for
+    sinusoid positions, the sinusoid added to the input)."""
     import torch
     from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
     from repro_torch.models.layers import apply_norm
     layer = params.layers[0]
     x = params.embed[tokens.long()] if embeds is None else embeds
-    x = apply_norm(cfg.norm_kind, layer.ln1, x)
     b, t = x.shape[:2]
     pos = (torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
            if positions is None else positions)
+    x = apply_norm(cfg.norm_kind, layer.ln1,
+                   transformer._add_positions(cfg, x, pos))
+    return [a.contiguous() for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
+
+
+def encoder0_qkv(cfg, params, frames):
+    """The encoder's layer 0 attention inputs on ``frames`` [B, S, D], as
+    ``transformer.encode`` gives them to the kernel."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import apply_norm
+    layer = params.encoder[0]
+    b, s = frames.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=frames.device).expand(b, s)
+    x = frames + transformer._sinusoid(pos, frames.shape[-1]).to(
+        frames.dtype)
+    x = apply_norm(cfg.norm_kind, layer.ln1, x)
     return [a.contiguous() for a in attn.gqa_qkv(cfg, layer.attn, x, pos)]
 
 
@@ -2881,15 +2935,16 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def teacher_forced(cfg, params, tokens, start, steps):
+def teacher_forced(cfg, params, tokens, start, steps, enc_out=None):
     """Prefill ``tokens[:, :start]`` into a cache of ``start + steps``
-    slots, then decode ``tokens[:, start + i]`` at position ``start + i``;
-    returns the decode logits f32[B, steps, V]."""
+    slots (an encoder-decoder's with ``enc_out``), then decode ``tokens[:,
+    start + i]`` at position ``start + i``; returns the decode logits
+    f32[B, steps, V]."""
     import torch
     from repro_torch.models import transformer
     _, cache = transformer.prefill_forward(cfg, params,
                                            tokens[:, :start].contiguous(),
-                                           start + steps)
+                                           start + steps, enc_out=enc_out)
     out = []
     for i in range(steps):
         logits, cache = transformer.decode_step(
@@ -3504,6 +3559,16 @@ def routes(cfg, calls):
     return out
 
 
+def copies(cfg, calls) -> tuple[int, int]:
+    """(kept, dropped) routed copies over ``calls`` (a :class:`RouteLog`'s),
+    each call at the capacity of its token count under ``cfg``."""
+    kept = total = 0
+    for _, keep in routes(cfg, calls):
+        kept += int(keep.sum())
+        total += keep.size
+    return kept, total - kept
+
+
 def route_agreement(a, b, rows_a, rows_b):
     """Tokens whose routes agree in every layer: ``a`` and ``b`` lists of
     :func:`routes` items a layer, ``rows_a`` / ``rows_b`` the compared
@@ -3753,6 +3818,39 @@ def moe_section(args, dev, phases, rows, cfg=None, shapes=MOE_SHAPES):
     del last
     torch.cuda.empty_cache()
 
+    # The prefill at full load: a capacity factor of E / k keeps every
+    # copy (the setting moe_decode_check compares decode at), so the expert
+    # products run on all of them; beside serve's prefill, whose Zipf
+    # tokens overfill a few experts.
+    with RouteLog() as cap_log:
+        transformer.prefill_forward(cfg, params, prompt, P + new)
+    kept_cap, dropped_cap = copies(cfg, cap_log.calls)
+    del cap_log
+    full_cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    with RouteLog() as full_log:
+        (logits, _), wall, counts, peak = phases.run(
+            "moe_prefill_full", "moe_prefill_full", ("flash_attention_bf16",),
+            lambda: transformer.prefill_forward(full_cfg, params, prompt,
+                                                P + new))
+    kept_full, dropped_full = copies(full_cfg,
+                                     full_log.calls[-cfg.n_layers:])
+    del full_log
+    check(dropped_full == 0 and bool(torch.isfinite(logits).all()),
+          f"moe_prefill_full: {dropped_full} copies dropped at capacity "
+          f"factor {full_cfg.capacity_factor}")
+    del logits
+    print(f"phase moe_prefill_full: [{B}x{P}] prefill at capacity factor "
+          f"E / k = {full_cfg.capacity_factor:g}: wall {wall:.3f} s "
+          f"({B * P / wall:.0f} tok/s), copies kept {kept_full} dropped "
+          f"{dropped_full} (packed float32 inputs of the kept copies "
+          f"{kept_full // cfg.n_layers * cfg.d_model * 4 / 1e9:.3f} GB a "
+          f"layer) launches {counts} peak_mem {peak:.2f} GiB; serve's "
+          f"prefill at capacity factor {cfg.capacity_factor:g}: "
+          f"{res.prefill_s:.3f} s, copies kept {kept_cap} dropped "
+          f"{dropped_cap}; card {card_line()}", flush=True)
+    torch.cuda.empty_cache()
+
     dispatch_check("moe_serve", cfg, params, prompt, sh["dispatch_tokens"])
     qkv = layer0_qkv(cfg, params, prompt)
     del params, res, ext, prompt, two
@@ -3834,6 +3932,7 @@ def moe_window_section(args, dev, phases, rows, cfg=None,
     del full
     err_prefill = rel_err(logits, last)
     flips = f_log.flips
+    kept, dropped = copies(cfg, pre_log.calls)
     del last, logits, pre_log, f_log
     torch.cuda.empty_cache()
     err_dec, n_ok, n_dec = moe_decode_check("moe_window_serve", cfg, params,
@@ -3842,7 +3941,9 @@ def moe_window_section(args, dev, phases, rows, cfg=None,
           f"decode positions {P}..{P + n - 1} read a wrapped ring; prefill "
           f"(blocked_attention) last logits vs forward (_windowed_attention) "
           f"with the prefill's routes ({flips} of {B * P * cfg.n_layers} "
-          f"token-layers would have chosen other experts) "
+          f"token-layers would have chosen other experts; copies kept "
+          f"{kept} dropped {dropped} at capacity factor "
+          f"{cfg.capacity_factor:g}) "
           f"{err_prefill:.3e} (bound {LM_BF16_BOUND}); teacher-forced "
           f"decode ({n} steps) vs forward {err_dec:.3e} over {n_ok} of "
           f"{n_dec} tokens (bound {LM_DECODE_BOUND}); sample "
@@ -4186,6 +4287,255 @@ def vlm_section(args, dev, phases, rows, cfg=None, shapes=VLM_SHAPES):
     torch.cuda.empty_cache()
 
 
+def whisper_frames(cfg, b, generator, dtype):
+    """The audio stub's output: standard normal frames [b, encoder_seq,
+    d_model] in ``dtype`` (the reference's ``launch/serve.py`` draws its
+    frames so), on ``generator``'s device."""
+    import torch
+    return torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                       generator=generator,
+                       device=generator.device).to(dtype)
+
+
+def cache_bytes(cache) -> tuple[int, int]:
+    """(self-attention K/V bytes, cross-attention K/V bytes) of a cache."""
+    self_b = sum(nbytes(c["attn"]["k"], c["attn"]["v"])
+                 for c in cache["layers"])
+    cross_b = sum(nbytes(*c["cross_kv"]) for c in cache["layers"])
+    return self_b, cross_b
+
+
+def whisper_section(args, dev, phases, rows, cfg=None, shapes=WHISPER_SHAPES):
+    """The Whisper encoder-decoder at whisper-large-v3's full width and
+    depth (32 encoder and 32 decoder layers, d 1280, 20/20 heads of 64):
+    the encoder and the forward over a batch's frames and tokens, serving
+    through ``launch/serve.py``'s ``serve`` with frames, and one
+    microbatch's loss and gradients through ``train_step``'s loss with
+    ``frames`` (``cfg`` and ``shapes`` shrink it for a rehearsal on the
+    CPU).  The bf16 flash kernels at D = 64, forward and backward; the
+    cross-attention runs ``attention_ref`` in float32, as the reference's
+    does."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.train.train_step import TrainConfig, make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or get_arch(WHISPER_ARCH)
+    dt = dtype_of(cfg.dtype)
+    layers = cfg.encoder_layers + cfg.n_layers
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    sync()
+    print(f"whisper: {cfg.name} {cfg.encoder_layers} encoder and "
+          f"{cfg.n_layers} decoder layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} frames {cfg.encoder_seq} rope "
+          f"{cfg.rope_kind} {cfg.norm_kind} {cfg.dtype}: param_count "
+          f"{transformer.param_count(params)}, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 8)
+
+    def serving_only(name, counts, stats_before):
+        check(counts["flash_attention_bf16"] == layers and
+              counts["flash_attention"] == 0 and
+              counts["flash_attention_bwd"] == 0 and
+              fa_ops.lse_written == stats_before,
+              f"{name}: {counts} launches for {cfg.encoder_layers} encoder "
+              f"and {cfg.n_layers} decoder layers, "
+              f"{fa_ops.lse_written - stats_before} statistics written")
+
+    # whisper_forward: a batch's frames through the encoder, and its tokens
+    # (Whisper's text context) through the decoder.
+    B, T = sh["fwd_batch"], sh["text"]
+    frames = whisper_frames(cfg, B, g, dt)
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed + 8,
+                           device=dev).batch_at(0)["tokens"]
+
+    def fwd(use_kernel=True):
+        enc = transformer.encode(cfg, params, frames, use_kernel=use_kernel)
+        return transformer.forward(cfg, params, tokens, enc_out=enc,
+                                   use_kernel=use_kernel)[0]
+
+    stats_before = fa_ops.lse_written
+    logits, wall, counts, peak = phases.run(
+        "whisper_forward", "whisper_forward", ("flash_attention_bf16",), fwd)
+    serving_only("whisper_forward", counts, stats_before)
+    check(logits.shape == (B, T, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          f"whisper_forward: logits {tuple(logits.shape)} not finite")
+    plain = fwd(use_kernel=False)
+    err = rel_err(logits, plain)
+    same = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    del plain, logits
+    print(f"phase whisper_forward: [{B}x{cfg.encoder_seq} frames + {B}x{T} "
+          f"tokens] wall {wall:.3f} s "
+          f"{B * (cfg.encoder_seq + T) / wall:.0f} positions/s launches "
+          f"{counts} peak_mem {peak:.2f} GiB max|kernel - plain| / "
+          f"max|logit| {err:.3e} (bound {LM_BF16_BOUND}), argmax agreement "
+          f"{same:.5f}; card {card_line()}", flush=True)
+    check(err <= LM_BF16_BOUND, "whisper_forward: kernel path off the plain "
+                                "path")
+    qkv = encoder0_qkv(cfg, params, frames)
+    torch.cuda.empty_cache()
+    rows.append(flash_row("encoder_d64", "whisper_forward", *qkv, False))
+    # The float32 kernel at the encoder's shape: the path the reference's
+    # float32 frames would take; no phase here runs it.
+    rows.append(flash_row("encoder_d64", OFF_PATH, *(a.float() for a in qkv),
+                          False))
+    del qkv, tokens
+    torch.cuda.empty_cache()
+
+    # whisper_serve: serve with the frames; prompt + new tokens fill the
+    # text context.
+    P, new, n = sh["prompt"], sh["new"], sh["decode_steps"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 9,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    stats_before = fa_ops.lse_written
+    res, wall, counts, peak = phases.run(
+        "whisper_serve", "whisper_serve", ("flash_attention_bf16",),
+        lambda: serve(cfg, params, prompt, new, frames=frames))
+    serving_only("whisper_serve", counts, stats_before)
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"whisper_serve: tokens {toks.dtype}{tuple(toks.shape)} out of "
+          f"range")
+    print(f"phase whisper_serve: [{B}x{cfg.encoder_seq} frames, {B}x{P} + "
+          f"{new}] wall {wall:.3f} s encode {res.encode_s:.3f} s prefill "
+          f"{res.prefill_s:.3f} s ({B * P / res.prefill_s:.0f} tok/s) decode "
+          f"{res.decode_steps} steps {res.decode_s:.3f} s "
+          f"({B * res.decode_steps / res.decode_s:.1f} tok/s) launches "
+          f"{counts} peak_mem {peak:.2f} GiB; card {card_line()}",
+          flush=True)
+    enc = transformer.encode(cfg, params, frames)
+    logits, cache = transformer.prefill_forward(cfg, params, prompt,
+                                                P + new, enc_out=enc)
+    self_b, cross_b = cache_bytes(cache)
+    check(torch.equal(logits, res.prefill_logits),
+          "whisper_serve: the prefill's logits differ from serve's")
+    del cache, logits
+    full, _ = transformer.forward(cfg, params, prompt, enc_out=enc)
+    err_prefill = rel_err(res.prefill_logits, full[:, -1:])
+    del full
+    full, _ = transformer.forward(cfg, params, ext, enc_out=enc)
+    tail = full[:, P:].clone()
+    del full
+    err_dec = rel_err(teacher_forced(cfg, params, ext, P, n, enc), tail)
+    del tail, enc
+    torch.cuda.empty_cache()
+
+    # The same comparisons in float32 at full width, tight depth.
+    cfg32 = dataclasses.replace(cfg, n_layers=sh["tight_layers"],
+                                encoder_layers=sh["tight_layers"],
+                                dtype="float32")
+    p32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    f32 = frames.float()
+    before = phases.counts()
+    enc32 = transformer.encode(cfg32, p32, f32)
+    full32, _ = transformer.forward(cfg32, p32, ext, enc_out=enc32)
+    after = phases.counts()
+    check(after["flash_attention"] - before["flash_attention"] ==
+          2 * sh["tight_layers"] and after["flash_attention_bf16"] ==
+          before["flash_attention_bf16"],
+          "whisper float32: the forward did not go through the float32 "
+          "kernel alone")
+    plain32, _ = transformer.forward(
+        cfg32, p32, ext, use_kernel=False,
+        enc_out=transformer.encode(cfg32, p32, f32, use_kernel=False))
+    err32 = rel_err(full32, plain32)
+    del plain32
+    pre32, _ = transformer.prefill_forward(cfg32, p32, prompt, P + new,
+                                           enc_out=enc32)
+    err_pre32 = rel_err(pre32, full32[:, P - 1:P])
+    err_dec32 = rel_err(teacher_forced(cfg32, p32, ext, P, n, enc32),
+                        full32[:, P:])
+    del p32, full32, enc32, pre32, f32
+    torch.cuda.empty_cache()
+    print(f"whisper_serve: cross-attention K/V cache {cross_b / 1e9:.3f} GB "
+          f"({cfg.n_layers} layers x 2 x {B} x {cfg.n_kv_heads} x "
+          f"{cfg.encoder_seq} x {cfg.hd} x 2 B) beside the self-attention "
+          f"cache {self_b / 1e9:.3f} GB ({P + new} slots); prefill last "
+          f"logits vs forward {err_prefill:.3e} (bound "
+          f"{LM_PREFILL_BOUND:.3e}); teacher-forced decode ({n} steps) vs "
+          f"forward {err_dec:.3e} (bound {LM_DECODE_BOUND}); float32 at "
+          f"{cfg32.encoder_layers} + {cfg32.n_layers} layers, full width: "
+          f"kernel vs plain {err32:.3e}, prefill vs forward {err_pre32:.3e}, "
+          f"decode vs forward {err_dec32:.3e} (bound {LM_TIGHT_BOUND}); "
+          f"sample {toks[0, :8].tolist()}", flush=True)
+    check(err_prefill <= LM_PREFILL_BOUND, "whisper_serve: prefill logits "
+                                           "off the forward")
+    check(err_dec <= LM_DECODE_BOUND, "whisper_serve: decode off the "
+                                      "forward")
+    check(max(err32, err_pre32, err_dec32) <= LM_TIGHT_BOUND,
+          "whisper float32: kernel, prefill or decode off the forward")
+    rows.append(flash_row("prefill_d64", "whisper_serve",
+                          *layer0_qkv(cfg, params, prompt), True))
+    del res, ext, prompt, frames
+    torch.cuda.empty_cache()
+
+    # whisper_grad: one microbatch of frames and tokens through
+    # train_step's loss.
+    B = sh["grad_batch"]
+    batch = TokenPipeline(cfg.vocab, T, B, seed=args.seed + 10,
+                          device=dev).batch_at(0)
+    mbatch = {"tokens": batch["tokens"], "labels": batch["labels"],
+              "frames": whisper_frames(cfg, B, g, dt)}
+    params.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg, TrainConfig())
+    written = []       # forward launches that wrote the statistic, a call
+
+    def grads():
+        before = fa_ops.lse_written
+        total, (loss, _) = loss_fn(params, mbatch)
+        out = float(loss.detach()), leaf_grads(params, total)
+        written.append(fa_ops.lse_written - before)
+        return out
+
+    (loss, gk), wall, counts, peak = phases.run(
+        "whisper_grad", "whisper_grad",
+        ("flash_attention_bf16", "flash_attention_bwd"), grads)
+    # The decoder recomputes each block in the backward (remat); the
+    # encoder, as the reference's, keeps its activations.
+    fwd_launches = cfg.encoder_layers + (2 if cfg.remat else 1) * \
+        cfg.n_layers
+    check(counts["flash_attention_bf16"] == fwd_launches and
+          counts["flash_attention_bwd"] == BWD_LAUNCHES * layers and
+          counts["flash_attention"] == 0 and written[-1] == fwd_launches,
+          f"whisper_grad: {counts} launches and {written[-1]} statistics "
+          f"written for {cfg.encoder_layers} + {cfg.n_layers} layers")
+    check(math.isfinite(loss), f"whisper_grad: loss {loss}")
+    del gk
+    print(f"phase whisper_grad: [{B}x{cfg.encoder_seq} frames + {B}x{T} "
+          f"tokens] loss and gradients, wall {wall:.3f} s "
+          f"{B * (cfg.encoder_seq + T) / wall:.0f} positions/s launches "
+          f"{counts} (bf16 forward {counts['flash_attention_bf16']}, "
+          f"backward {counts['flash_attention_bwd']}) peak_mem {peak:.2f} "
+          f"GiB loss {loss:.6f}; card {card_line()}", flush=True)
+    bf16_grad_check(cfg, params, mbatch, "from frames",
+                    phase="whisper_grad")
+    params.requires_grad_(False)
+    q, k, v = encoder0_qkv(cfg, params, mbatch["frames"])
+    del params, batch, mbatch
+    torch.cuda.empty_cache()
+    rows.append(flash_bwd_row("encoder_d64", "whisper_grad", q, k, v, False,
+                              g))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -4246,6 +4596,8 @@ def main(argv=None) -> int:
     mla_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     vlm_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    whisper_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -3,8 +3,9 @@
 
 Only the configs whose code the port has are registered: the dense
 ``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b``, the MoE ``arctic-480b``
-and ``mixtral-8x22b``, ``minicpm3-4b`` (MLA) and ``qwen2-vl-2b``
-(M-RoPE, vision stub).  ``get_arch`` of another of the reference's
+and ``mixtral-8x22b``, ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE,
+vision stub) and ``whisper-large-v3`` (encoder-decoder, sinusoid
+positions, audio stub).  ``get_arch`` of another of the reference's
 configs raises ``NotImplementedError`` naming the ROADMAP slice that
 brings it.
 
@@ -121,7 +122,6 @@ class ArchConfig:
 # The reference's other configs, and the ROADMAP slice (queue 1) that
 # brings each.
 PENDING = {
-    "whisper-large-v3": "slice 9f (Whisper encoder-decoder)",
     "recurrentgemma-2b": "slice 9g (RG-LRU, sliding window)",
     "xlstm-350m": "slice 9g (xLSTM)",
 }
@@ -153,4 +153,5 @@ def _load_all():
     # Import side-effect registers every ported config.
     from repro_torch.configs import (arctic_480b, llama3_8b,  # noqa
                                      minicpm3_4b, mixtral_8x22b, olmo_1b,
-                                     qwen2_vl_2b, starcoder2_3b)
+                                     qwen2_vl_2b, starcoder2_3b,
+                                     whisper_large_v3)

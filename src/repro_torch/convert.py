@@ -7,10 +7,10 @@ given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
 
 ``lm_params_from_jax`` carries the reference's LM parameter tree (dense,
-MoE or MLA) into a ``models.transformer.LM``; ``train_state_from_jax`` a whole
-TrainState (parameters, AdamW's step, μ and ν, the compression residuals)
-into the port's, and ``train_state_to_jax`` back into the reference's
-tree of numpy arrays.
+MoE, MLA or Whisper's encoder-decoder) into a ``models.transformer.LM``;
+``train_state_from_jax`` a whole TrainState (parameters, AdamW's step, μ
+and ν, the compression residuals) into the port's, and
+``train_state_to_jax`` back into the reference's tree of numpy arrays.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.core.delta import DeltaBuffer
 from repro_torch.core.partition import PartitionSnapshot
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import LM, stacked_name
+from repro_torch.models.transformer import LM, stacked_name, stacked_row
 
 # Field -> pinned dtype, per port type.
 DTYPES = {
@@ -93,7 +93,10 @@ def lm_params_from_jax(cfg, params, device=None) -> LM:
     are stacked under ``units/b0_<kind>`` with a leading layer axis: for
     MoE the float32 router, the experts and arctic's ``ffn.dense``; for
     MLA ``attn.{w_dq, w_uq, w_dkv, w_uk, w_uv, w_kr, wo}`` and the float32
-    ``attn.{q_norm, kv_norm}``), bit for bit.  Names, shapes and types must match exactly."""
+    ``attn.{q_norm, kv_norm}``; for Whisper each decoder block's
+    ``ln_cross`` and ``cross.{wq, wk, wv, wo}``, and the encoder's blocks
+    stacked under ``enc_units/b0_enc`` beside ``enc_norm``), bit for bit.
+    Names, shapes and types must match exactly."""
     model = LM(cfg, resolve_device(device))
 
     def put(dst, src, name):
@@ -113,8 +116,8 @@ def lm_params_from_jax(cfg, params, device=None) -> LM:
     with torch.no_grad():
         for name, p in model.named_parameters():
             src = leaf(params, stacked_name(name, model.unit))
-            if name.startswith("layers."):
-                u = int(name.split(".")[1])
+            u = stacked_row(name)
+            if u is not None:
                 put(p, np.asarray(src)[u], name)
                 n_leaves += u == 0
             else:

@@ -17,7 +17,7 @@ source under ``csrc/``:
                   in constant memory at D = 2, K <= 32, else in shared
                   memory)
   flash_attention blocked online-softmax attention, GQA, causal or not,
-                  two kernels: bf16 at D = 128 on the tensor cores
+                  two kernels: bf16 at D in {64, 128} on the tensor cores
                   (``wgmma``, K/V tiles loaded by TMA;
                   ``flash_attention_bf16.cu``), and float32 FMA at D in
                   {16, 32, 64, 128} (block per query tile, K/V tiles in

@@ -10,8 +10,11 @@
 // across the KV loop, and the TPU kernel's roundings: Q.K^T of the bf16
 // operands summed in float32 (each product is exact in float32), P rounded
 // to bf16 before P.V (the Pallas kernel's p.astype(v.dtype)), the output
-// rounded to bf16 (its out_shape is q.dtype).  D = 128, the head dim of
-// every dense config.  Given a statistic pointer (training asks for it), the
+// rounded to bf16 (its out_shape is q.dtype).  Two instances of one
+// template: D = 128, the head dim of every dense config, and D = 64,
+// Whisper's; the D = 64 one has the same tiles, threads and roundings with
+// one 64-column chunk a row (scale 1/sqrt(64)).  Given a statistic pointer
+// (training asks for it), the
 // epilogue also stores each query row's log-sum-exp in the log2 domain the
 // kernel works in, lse2 = m + log2 l = log2 sum_s 2^(q.k scale log2 e), as
 // float32 [B H, Tp] with Tp = T rounded up to 128: every row of every tile,
@@ -24,7 +27,10 @@
 // H = 32, T = S = 4096, D = 128, 0.278 ms at the 989 TFLOP/s of bf16 wgmma,
 // against 0.1 ms for the 335 MB of q, k, v and o at 3.35 TB/s.  Beside the
 // products, the exponentials are 537 M ex2 there (B H pairs), ~0.13 ms on the
-// SFU pipe if nothing overlaps them; here nothing does (see below).
+// SFU pipe if nothing overlaps them; here nothing does (see below).  At
+// D = 64 the products halve and the exponentials do not: Whisper's encoder
+// layer (B = 8, H = 20, T = S = 1500, non-causal) is 92 GFLOP, 0.093 ms of
+// wgmma, beside 360 M ex2.
 //
 // Design: one block per (b * h, 128-row query tile), the heaviest (last)
 // causal tiles first, 384 threads.  Warpgroup 2 is the producer: it gives up
@@ -33,18 +39,19 @@
 // K and V tiles of 128 rows into a 2-stage ring, each stage with its own
 // full barriers for K and V (the score product starts before V lands) and
 // an empty barrier the consumers release.  Warpgroups 0 and 1 are the
-// consumers, 64 query rows each, with 232 registers: S = Q K^T is 8
+// consumers, 64 query rows each, with 232 registers: S = Q K^T is D / 16
 // m64n128k16 wgmma from shared memory (both K-major, 128-byte swizzle), the
 // online softmax runs on the float32 accumulator in registers (exp2 with
 // scale * log2 e folded in, row max over the 4 lanes of a row by shuffles,
 // row sums kept per thread and added across the lanes once at the end), and
-// O += P V is 8 m64n128k16 wgmma whose A operand is P from registers (the
+// O += P V is 8 m64nDk16 wgmma whose A operand is P from registers (the
 // accumulator's layout, converted pairwise to bf16, is the A fragment's)
 // and whose B is V from shared memory with the transpose bit.  O, m and l
 // stay in registers; the epilogue divides by max(l, 1e-30) and stores bf16
 // rows below T.  No KV split and no atomics: a row's output depends on its
 // own q and on k, v only, so runs are bitwise equal and independent of B.
-// Shared memory: Q 32 KB + 2 x (K + V) 128 KB, one block an SM.
+// Shared memory: Q 32 KB + 2 x (K + V) 128 KB at D = 128, half that at
+// D = 64; one block an SM either way (the registers allow no second).
 // Not done here: ping-pong between the consumers and overlapping the
 // softmax with the next product (the ex2 time above is exposed), fp8.
 #include <math.h>
@@ -53,7 +60,6 @@
 
 namespace {
 
-constexpr int kD = 128;             // head dim
 constexpr int kRows = 128;          // query rows a block, KV rows a tile
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
@@ -62,15 +68,20 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;  // 2 x 128 x 232 + 128 x 40 <= 65,536
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 constexpr int kChunkBytes = kRows * 128;   // 128 rows of one 64-column chunk
-constexpr int kChunks = kD / 64;
-// Shared memory, in bytes from a 1024-byte aligned base: Q, then kStages K
-// tiles, kStages V tiles, and the 1 + 3 kStages barriers.
-constexpr int kTile = kChunks * kChunkBytes;          // Q, K or V tile
-constexpr int kSmemK = kTile;
-constexpr int kSmemV = kSmemK + kStages * kTile;
-constexpr int kSmemBars = kSmemV + kStages * kTile;
-constexpr int kSmemBytes = kSmemBars + 64 + 1024;     // + base alignment
-static_assert(kSmemBytes <= 232448, "over 227 KB of shared memory");
+
+// Shared memory at head dim kD, in bytes from a 1024-byte aligned base: Q,
+// then kStages K tiles, kStages V tiles, and the 1 + 3 kStages barriers.
+template <int kD>
+struct Smem {
+  static constexpr int kChunks = kD / 64;
+  static constexpr int kTile = kChunks * kChunkBytes;   // Q, K or V tile
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 64 + 1024;      // + base alignment
+  static_assert(kD % 64 == 0, "whole 64-column chunks");
+  static_assert(kBytes <= 232448, "over 227 KB of shared memory");
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -78,6 +89,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -85,10 +97,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                    __nv_bfloat16* __restrict__ o,
                    float* __restrict__ lse2, int H, int group, int T, int S,
                    int causal, float scale_log2) {
+  using L = Smem<kD>;
+  constexpr int kChunks = L::kChunks, kTile = L::kTile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kSmemBars);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
@@ -121,8 +135,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
-        uint8_t* ks = smem + kSmemK + s * kTile;
-        uint8_t* vs = smem + kSmemV + s * kTile;
+        uint8_t* ks = smem + L::kK + s * kTile;
+        uint8_t* vs = smem + L::kV + s * kTile;
         mbar_expect_tx(&k_full[s], kTile);
         for (int c = 0; c < kChunks; ++c)
           tma_load_3d(ks + c * kChunkBytes, &tk, &k_full[s], 64 * c,
@@ -140,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row0 = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
     const int col0 = 2 * (lane % 4);   // + 8 j + e % 2 within a tile
 
-    float acc[kD / 2];                 // O, accumulator layout of m64n128
+    float acc[kD / 2];                 // O, accumulator layout of m64nD
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};   // rows row0 and row0 + 8
@@ -151,8 +165,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < n_kv; ++j) {
       const int s = j % kStages;
       const uint32_t parity = (j / kStages) & 1;
-      const uint32_t k_addr = smem_u32(smem + kSmemK + s * kTile);
-      const uint32_t v_addr = smem_u32(smem + kSmemV + s * kTile);
+      const uint32_t k_addr = smem_u32(smem + L::kK + s * kTile);
+      const uint32_t v_addr = smem_u32(smem + L::kV + s * kTile);
       mbar_wait(&k_full[s], parity);
 
       // S = Q K^T: kD / 16 steps of k16, 4 per 64-column chunk (32 bytes).
@@ -205,15 +219,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kD / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
-      // O += P V: 8 steps of k16 over the tile's rows (16 rows, 2048 bytes).
+      // O += P V: 8 steps of k16 over the tile's rows (16 rows, 2048 bytes),
+      // m64n128k16 at D = 128, m64n64k16 at D = 64.
       mbar_wait(&v_full[s], parity);
       fence_regs(acc);
       fence_regs(p);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk)
-        wgmma_m64n128k16_rs_tb(
-            acc, p + 4 * kk, sw128_desc(v_addr + kk * 2048, kChunkBytes, 1024));
+        wgmma_rs_tb(acc, p + 4 * kk,
+                    sw128_desc(v_addr + kk * 2048, kChunkBytes, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -242,6 +257,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// Launches the instance of head dim kD; the arguments are the entry's.
+template <int kD>
+int launch(const void* q, const void* k, const void* v, long long B,
+           long long H, long long H_kv, long long T, long long S,
+           long long causal, void* o, void* lse2, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = bf16_map_3d(&tq, q, B * H, T, kD, kRows);
+  if (!err) err = bf16_map_3d(&tk, k, B * H_kv, S, kD, kRows);
+  if (!err) err = bf16_map_3d(&tv, v, B * H_kv, S, kD, kRows);
+  if (err) return err;
+  // 1/sqrt(D) * log2(e) rounded once.
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)kD));
+  cudaFuncSetAttribute(fa_bf16_kernel<kD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       Smem<kD>::kBytes);
+  const dim3 grid((unsigned)(B * H), (unsigned)((T + kRows - 1) / kRows));
+  fa_bf16_kernel<kD><<<grid, kThreads, Smem<kD>::kBytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse2, (int)H, (int)(H / H_kv),
+      (int)T, (int)S, causal ? 1 : 0, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q bf16[B, H, T, D], k/v bf16[B, H_kv, S, D] -> o bf16[B, H, T, D], and
@@ -249,9 +286,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // rounded up to 128; 0 when S = 0), on card `device` (made current first:
 // a thread with no current context cannot encode tensor maps, as autograd's
 // worker thread, whose first CUDA work this may be).  The wrapper has
-// checked D = 128,
-// H % H_kv == 0, T = S when causal, 16-byte aligned pointers, B * H < 2^31
-// and ceil(T / 128) < 65536.
+// checked D in {64, 128}, H % H_kv == 0, T = S when causal, 16-byte aligned
+// pointers, B * H < 2^31 and ceil(T / 128) < 65536.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, long long B, long long H,
                                     long long H_kv, long long T, long long S,
@@ -262,7 +298,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const int dev_err = (int)cudaSetDevice((int)device);
   if (dev_err) return dev_err;
   if (B * H * T == 0) return (int)cudaGetLastError();
-  if (D != kD) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   if (S == 0) {  // no keys: every row's weights are empty, o = 0
     const long long tp = (T + kRows - 1) / kRows * kRows;
     if (lse2) {
@@ -272,19 +308,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     }
     return (int)cudaMemsetAsync(o, 0, (size_t)(B * H * T * D) * 2, stream);
   }
-  CUtensorMap tq, tk, tv;
-  int err = bf16_map_3d(&tq, q, B * H, T, kD, kRows);
-  if (!err) err = bf16_map_3d(&tk, k, B * H_kv, S, kD, kRows);
-  if (!err) err = bf16_map_3d(&tv, v, B * H_kv, S, kD, kRows);
-  if (err) return err;
-  // 1/sqrt(D) * log2(e) rounded once.
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)kD));
-  cudaFuncSetAttribute(fa_bf16_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
-  const dim3 grid((unsigned)(B * H), (unsigned)((T + kRows - 1) / kRows));
-  fa_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse2, (int)H, (int)(H / H_kv),
-      (int)T, (int)S, causal ? 1 : 0, scale_log2);
-  return (int)cudaGetLastError();
+  return D == 128 ? launch<128>(q, k, v, B, H, H_kv, T, S, causal, o, lse2,
+                                stream)
+                  : launch<64>(q, k, v, B, H, H_kv, T, S, causal, o, lse2,
+                               stream);
 }

@@ -23,7 +23,10 @@
 // bf16 operands is summed in float32; P and dS are rounded to bf16 before
 // they enter dV += P^T do and dK += dS^T q, dQ += dS k (the tensor cores
 // take bf16 operands; the forward rounds P the same way); dQ, dK, dV are
-// rounded to bf16 once, at the end.
+// rounded to bf16 once, at the end.  Two instances of one template, D = 128
+// (every dense config) and D = 64 (Whisper), with the same tiles, threads
+// and roundings; at D = 64 a row is one 64-column chunk and the products
+// with N = D are m64n64k16.
 //
 // What bounds it: operations.  The function needs 5 products of 2 D FLOP a
 // kept score pair (10 D FLOP): 172 GFLOP at B = 4, H = 16, T = S = 2048,
@@ -34,8 +37,8 @@
 //
 // Design: three launches, no atomics, so a run is bitwise repeatable and
 // independent of B.
-//   1. Delta, per 16 rows: bf16 o and do read once (16 bytes a lane), summed
-//      in float32; 0 past T.
+//   1. Delta, per 256 / (D / 8) rows: bf16 o and do read once (16 bytes a
+//      lane, D / 8 lanes a row), summed in float32; 0 past T.
 //   2. dK dV, one block per (b h_kv, 128-row key tile), the key tiles that
 //      the most query tiles see first, 384 threads.  Warpgroup 2 is the
 //      producer (setmaxnreg down; one thread issues every copy): K and V
@@ -50,7 +53,7 @@
 //      and dS^T = P^T (dP^T - Delta) are computed in the float32
 //      accumulators and converted pairwise to bf16, which makes them the A
 //      fragments of the next products as they stand; dV += P^T dO and
-//      dK += dS^T Q are 4 m64n128k16 wgmma each with A from registers and
+//      dK += dS^T Q are 4 m64nDk16 wgmma each with A from registers and
 //      B the same staged dO and Q tiles read MN-major (transpose bit), so
 //      one copy of each serves both of its products.  dK and dV stay in
 //      float32 registers over the whole group and are scaled and rounded
@@ -58,11 +61,12 @@
 //   3. dQ, one block per (b h, 128-row query tile), heaviest causal tiles
 //      first: Q and dO once, K and V 128-row tiles through the ring; S =
 //      Q K^T and dP = dO V^T (m64n128k16 from shared memory), dS in
-//      registers, dQ += dS K (m64n128k16, A from registers, B = K MN-major).
+//      registers, dQ += dS K (m64nDk16, A from registers, B = K MN-major).
 // A consumer warpgroup whose 64 key rows the causal mask hides from a whole
-// query tile releases it without computing.  Shared memory: 130 KB (pass
-// 2), 193 KB (pass 3); one block an SM.  Tried on the H100 and left out,
-// none more than 2 % faster at lm_train's layer (tools/bwd_ablation.py): a
+// query tile releases it without computing.  Shared memory at D = 128:
+// 130 KB (pass 2), 193 KB (pass 3); about half that at D = 64; one block an
+// SM.  Tried on the H100 at D = 128 and left out, none more than 2 %
+// faster at lm_train's layer (tools/bwd_ablation.py): a
 // 3- or 4-stage ring, ordering the two consumers' score products
 // (ping-pong), a grid that keeps a head's tiles together, and issuing the
 // next tile's scores before a tile's updates finish.  Not done here: P and dS through shared memory for larger
@@ -74,8 +78,6 @@
 
 namespace {
 
-constexpr int kD = 128;             // head dim
-constexpr int kChunks = kD / 64;    // 64-column (128-byte) chunks a row
 constexpr int kStages = 2;          // ring depth (3 or 4: < 2 % faster)
 constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
@@ -85,27 +87,33 @@ constexpr int kBig = 128;           // rows of the block's own tile
 constexpr int kSmall = 64;          // rows of a streamed tile
 constexpr int kBigChunk = kBig * 128;      // bytes of one chunk, 128 rows
 constexpr int kSmallChunk = kSmall * 128;  // bytes of one chunk, 64 rows
-constexpr int kBigTile = kChunks * kBigChunk;      // 32 KB
-constexpr int kSmallTile = kChunks * kSmallChunk;  // 16 KB
 constexpr int kStatBytes = kSmall * 4;             // 64 float32 a tile
-constexpr int kDeltaRows = 16;      // rows a block of the Delta pass
+constexpr int kDeltaThreads = 256;  // threads a block of the Delta pass
 
-// dK dV: K, V, kStages x (Q, dO), kStages x (lse2, Delta), barriers.
-constexpr int kKvV = kBigTile;
-constexpr int kKvQ = 2 * kBigTile;
-constexpr int kKvDo = kKvQ + kStages * kSmallTile;
-constexpr int kKvLse = kKvDo + kStages * kSmallTile;
-constexpr int kKvDelta = kKvLse + kStages * kStatBytes;
-constexpr int kKvBars = kKvDelta + kStages * kStatBytes;
-constexpr int kKvSmem = kKvBars + 8 * (1 + 3 * kStages) + 1024;
-// dQ: Q, dO, kStages x (K, V), barriers.
-constexpr int kQDo = kBigTile;
-constexpr int kQK = 2 * kBigTile;
-constexpr int kQV = kQK + kStages * kBigTile;
-constexpr int kQBars = kQV + kStages * kBigTile;
-constexpr int kQSmem = kQBars + 8 * (1 + 3 * kStages) + 1024;
-static_assert(kKvSmem <= 232448 && kQSmem <= 232448,
-              "over 227 KB of shared memory");
+// Shared memory at head dim kD, in bytes from 1024-byte aligned bases.
+template <int kD>
+struct Smem {
+  static constexpr int kChunks = kD / 64;   // 64-column (128-byte) chunks
+  static constexpr int kBigTile = kChunks * kBigChunk;      // 32 KB at 128
+  static constexpr int kSmallTile = kChunks * kSmallChunk;  // 16 KB at 128
+  // dK dV: K, V, kStages x (Q, dO), kStages x (lse2, Delta), barriers.
+  static constexpr int kKvV = kBigTile;
+  static constexpr int kKvQ = 2 * kBigTile;
+  static constexpr int kKvDo = kKvQ + kStages * kSmallTile;
+  static constexpr int kKvLse = kKvDo + kStages * kSmallTile;
+  static constexpr int kKvDelta = kKvLse + kStages * kStatBytes;
+  static constexpr int kKvBars = kKvDelta + kStages * kStatBytes;
+  static constexpr int kKvSmem = kKvBars + 8 * (1 + 3 * kStages) + 1024;
+  // dQ: Q, dO, kStages x (K, V), barriers.
+  static constexpr int kQDo = kBigTile;
+  static constexpr int kQK = 2 * kBigTile;
+  static constexpr int kQV = kQK + kStages * kBigTile;
+  static constexpr int kQBars = kQV + kStages * kBigTile;
+  static constexpr int kQSmem = kQBars + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kD % 64 == 0, "whole 64-column chunks");
+  static_assert(kKvSmem <= 232448 && kQSmem <= 232448,
+                "over 227 KB of shared memory");
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -124,8 +132,9 @@ __device__ __forceinline__ uint32_t kstep(int kk, int chunk) {
   return (kk / 4) * chunk + (kk % 4) * 32;
 }
 
-// acc = 64 x N product over D of two K-major tiles: A at `a` (chunks of
+// acc = 64 x N product over kD of two K-major tiles: A at `a` (chunks of
 // a_chunk bytes), B, N rows, at `b` (chunks of N * 128 bytes).
+template <int kD>
 __device__ __forceinline__ void scores(float (&acc)[32], uint32_t a,
                                        int a_chunk, uint32_t b) {
 #pragma unroll
@@ -135,6 +144,7 @@ __device__ __forceinline__ void scores(float (&acc)[32], uint32_t a,
                        kk > 0);
 }
 
+template <int kD>
 __device__ __forceinline__ void scores(float (&acc)[64], uint32_t a,
                                        int a_chunk, uint32_t b) {
 #pragma unroll
@@ -145,14 +155,14 @@ __device__ __forceinline__ void scores(float (&acc)[64], uint32_t a,
 }
 
 // acc += A B for A [64 x R] bf16 fragments in registers (a, R / 4 words)
-// and B [R x D] a staged R-row tile read MN-major.
-template <int R>
-__device__ __forceinline__ void update(float (&acc)[64], const uint32_t* a,
+// and B [R x D] a staged R-row tile read MN-major; acc is m64nD (D / 2
+// floats: m64n128k16 at D = 128, m64n64k16 at D = 64).
+template <int R, int N>
+__device__ __forceinline__ void update(float (&acc)[N], const uint32_t* a,
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < R / 16; ++kk)
-    wgmma_m64n128k16_rs_tb(acc, a + 4 * kk,
-                           sw128_desc(b + kk * 2048, R * 128, 1024));
+    wgmma_rs_tb(acc, a + 4 * kk, sw128_desc(b + kk * 2048, R * 128, 1024));
 }
 
 // Rows of accumulator element i of m64nN (see hopper.cuh) relative to the
@@ -165,11 +175,12 @@ __device__ __forceinline__ int acc_col(int i) {
   return (i / 4) * 8 + 2 * (threadIdx.x % 4) + (i % 2);
 }
 
-// Rows [rows0, rows0 + 64) of `acc` (m64n128, float32) times `mul` as
+// Rows [rows0, rows0 + 64) of `acc` (m64nD, float32) times `mul` as
 // bf16 into out [.., D], rows below n_rows.
+template <int kD>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[64], int rows0,
-                                           int n_rows, float mul) {
+                                           const float (&acc)[kD / 2],
+                                           int rows0, int n_rows, float mul) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = rows0 + acc_row(2 * r);
@@ -186,18 +197,23 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 
 // ---- 1. Delta --------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
+template <int kD>
+__global__ void __launch_bounds__(kDeltaThreads)
     bwd_delta(const __nv_bfloat16* __restrict__ o,
               const __nv_bfloat16* __restrict__ dout,
               float* __restrict__ delta, long long planes, int T, int Tp) {
-  // 16 lanes a row, 8 bf16 (16 bytes) a lane.
-  const long long r = (long long)blockIdx.x * kDeltaRows + threadIdx.x / 16;
+  // kD / 8 lanes a row (a power of two that divides the warp), 8 bf16 (16
+  // bytes) a lane.
+  constexpr int kLanes = kD / 8;
+  constexpr int kRowsPerBlock = kDeltaThreads / kLanes;
+  const long long r =
+      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
   const bool live = r < planes * Tp;
   const long long plane = r / Tp;
   const int t = (int)(r % Tp);
   float sum = 0.f;
   if (live && t < T) {
-    const long long at = (plane * T + t) * kD + (threadIdx.x % 16) * 8;
+    const long long at = (plane * T + t) * kD + (threadIdx.x % kLanes) * 8;
     const uint4 a = *reinterpret_cast<const uint4*>(o + at);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
     const uint32_t av[4] = {a.x, a.y, a.z, a.w};
@@ -211,13 +227,14 @@ __global__ void __launch_bounds__(256)
     }
   }
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = kLanes / 2; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (live && threadIdx.x % 16 == 0) delta[r] = sum;
+  if (live && threadIdx.x % kLanes == 0) delta[r] = sum;
 }
 
 // ---- 2. dK and dV ----------------------------------------------------------
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkdv(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tdo,
@@ -227,9 +244,14 @@ __global__ void __launch_bounds__(kThreads, 1)
              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
              int H, int group, int T, int Tp, int S, int causal,
              float scale, float scale_log2) {
+  using L = Smem<kD>;
+  constexpr int kChunks = L::kChunks;
+  constexpr int kBigTile = L::kBigTile, kSmallTile = L::kSmallTile;
+  constexpr int kKvV = L::kKvV, kKvQ = L::kKvQ, kKvDo = L::kKvDo;
+  constexpr int kKvLse = L::kKvLse, kKvDelta = L::kKvDelta;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + kKvBars);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kKvBars);
   uint64_t* q_full = kv_full + 1;
   uint64_t* do_full = q_full + kStages;
   uint64_t* empty = do_full + kStages;
@@ -289,9 +311,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- consumers: key rows kb .. kb + 63 ----
     setmaxnreg_inc<kConsumerRegs>();
     const int kb = k0 + wg * 64;
-    float acc_dk[64], acc_dv[64];   // m64n128 accumulators
+    float acc_dk[kD / 2], acc_dv[kD / 2];   // m64nD accumulators
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
     const uint32_t k_addr = smem_u32(smem) + wg * 64 * 128;
     const uint32_t v_addr = smem_u32(smem + kKvV) + wg * 64 * 128;
     mbar_wait(kv_full, 0);
@@ -319,8 +341,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         float st[32], dpt[32];
         mbar_wait(&do_full[s], parity);
         wgmma_fence();
-        scores(st, k_addr, kBigChunk, q_addr);
-        scores(dpt, v_addr, kBigChunk, do_addr);
+        scores<kD>(st, k_addr, kBigChunk, q_addr);
+        scores<kD>(dpt, v_addr, kBigChunk, do_addr);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -367,13 +389,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const long long base = (long long)bhk * S * kD;
-    store_rows(dk + base, acc_dk, kb, S, scale);
-    store_rows(dv + base, acc_dv, kb, S, 1.f);
+    store_rows<kD>(dk + base, acc_dk, kb, S, scale);
+    store_rows<kD>(dv + base, acc_dv, kb, S, 1.f);
   }
 }
 
 // ---- 3. dQ -----------------------------------------------------------------
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tdo,
@@ -382,9 +405,12 @@ __global__ void __launch_bounds__(kThreads, 1)
            const float* __restrict__ lse2, const float* __restrict__ delta,
            __nv_bfloat16* __restrict__ dq, int H, int group, int T, int Tp,
            int S, int causal, float scale, float scale_log2) {
+  using L = Smem<kD>;
+  constexpr int kChunks = L::kChunks, kBigTile = L::kBigTile;
+  constexpr int kQDo = L::kQDo, kQK = L::kQK, kQV = L::kQV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + kQBars);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::kQBars);
   uint64_t* k_full = qdo_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
@@ -441,9 +467,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       ls[r] = lse2[at];
       dl[r] = delta[at];
     }
-    float acc[64];        // dQ, m64n128
+    float acc[kD / 2];    // dQ, m64nD
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
     const uint32_t q_addr = smem_u32(smem) + wg * 64 * 128;
     const uint32_t do_addr = smem_u32(smem + kQDo) + wg * 64 * 128;
     mbar_wait(qdo_full, 0);
@@ -460,8 +486,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&k_full[s], parity);
       mbar_wait(&v_full[s], parity);
       wgmma_fence();
-      scores(sc, q_addr, kBigChunk, k_addr);
-      scores(dp, do_addr, kBigChunk, v_addr);
+      scores<kD>(sc, q_addr, kBigChunk, k_addr);
+      scores<kD>(dp, do_addr, kBigChunk, v_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -497,38 +523,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&empty[s]);
     }
 
-    store_rows(dq + (long long)bh * T * kD, acc, qb, T, scale);
+    store_rows<kD>(dq + (long long)bh * T * kD, acc, qb, T, scale);
   }
 }
 
-}  // namespace
-
-// q, o, do bf16[B, H, T, D], k, v bf16[B, H_kv, S, D], lse2 float32[B H,
-// Tp] (the forward's statistic, Tp = T rounded up to 128) -> dq bf16[B, H,
-// T, D], dk, dv bf16[B, H_kv, S, D]; delta is float32 [B H, Tp] scratch.
-// Card `device` is made current first (tensor maps need a current
-// context; autograd's worker thread may have none yet).  The wrapper has
-// checked D = 128, H % H_kv == 0, T = S when causal, 16-byte aligned
-// operands, B * H < 2^31, and ceil(T / 128), ceil(S / 128) < 65536.
-extern "C" int flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse2, long long B, long long H,
-    long long H_kv, long long T, long long S, long long D, long long causal,
-    void* dq, void* dk, void* dv, void* delta, long long device,
-    void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int dev_err = (int)cudaSetDevice((int)device);
-  if (dev_err) return dev_err;
-  if (D != kD) return (int)cudaErrorInvalidValue;
-  if (B * H == 0) return (int)cudaGetLastError();
-  // No queries: dk = dv = 0.  No keys: every weight is empty, dq = 0.
-  if (T == 0) {
-    const size_t bytes = (size_t)(B * H_kv * S * kD) * 2;
-    const int e = (int)cudaMemsetAsync(dk, 0, bytes, stream);
-    return e ? e : (int)cudaMemsetAsync(dv, 0, bytes, stream);
-  }
-  if (S == 0)
-    return (int)cudaMemsetAsync(dq, 0, (size_t)(B * H * T * kD) * 2, stream);
+// The three launches at head dim kD; the arguments are the entry's.
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse2, long long B, long long H,
+           long long H_kv, long long T, long long S, long long causal,
+           void* dq, void* dk, void* dv, void* delta, cudaStream_t stream) {
+  using L = Smem<kD>;
   const int tp = (int)((T + kBig - 1) / kBig * kBig);
   const int group = (int)(H / H_kv);
   CUtensorMap q64, do64, k128, v128, q128, do128;
@@ -546,26 +551,67 @@ extern "C" int flash_attention_bwd_bf16(
   float* dl = (float*)delta;
 
   const long long rows = B * H * tp;
-  bwd_delta<<<(unsigned)((rows + kDeltaRows - 1) / kDeltaRows), 256, 0,
-              stream>>>((const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
-                        dl, B * H, (int)T, tp);
+  const long long rows_a_block = kDeltaThreads / (kD / 8);
+  bwd_delta<kD><<<(unsigned)((rows + rows_a_block - 1) / rows_a_block),
+                  kDeltaThreads, 0, stream>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, dl, B * H,
+      (int)T, tp);
   err = (int)cudaGetLastError();
   if (err) return err;
 
-  cudaFuncSetAttribute(bwd_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kKvSmem);
-  bwd_dkdv<<<dim3((unsigned)(B * H_kv), (unsigned)((S + kBig - 1) / kBig)),
-             kThreads, kKvSmem, stream>>>(
+  cudaFuncSetAttribute(bwd_dkdv<kD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       L::kKvSmem);
+  bwd_dkdv<kD><<<dim3((unsigned)(B * H_kv),
+                      (unsigned)((S + kBig - 1) / kBig)),
+                 kThreads, L::kKvSmem, stream>>>(
       q64, do64, k128, v128, ls, dl, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
       (int)H, group, (int)T, tp, (int)S, causal ? 1 : 0, scale, scale_log2);
   err = (int)cudaGetLastError();
   if (err) return err;
 
-  cudaFuncSetAttribute(bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kQSmem);
-  bwd_dq<<<dim3((unsigned)(B * H), (unsigned)(tp / kBig)), kThreads, kQSmem,
-           stream>>>(q128, do128, k128, v128, ls, dl, (__nv_bfloat16*)dq,
-                     (int)H, group, (int)T, tp, (int)S, causal ? 1 : 0,
-                     scale, scale_log2);
+  cudaFuncSetAttribute(bwd_dq<kD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       L::kQSmem);
+  bwd_dq<kD><<<dim3((unsigned)(B * H), (unsigned)(tp / kBig)), kThreads,
+               L::kQSmem, stream>>>(
+      q128, do128, k128, v128, ls, dl, (__nv_bfloat16*)dq, (int)H, group,
+      (int)T, tp, (int)S, causal ? 1 : 0, scale, scale_log2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, o, do bf16[B, H, T, D], k, v bf16[B, H_kv, S, D], lse2 float32[B H,
+// Tp] (the forward's statistic, Tp = T rounded up to 128) -> dq bf16[B, H,
+// T, D], dk, dv bf16[B, H_kv, S, D]; delta is float32 [B H, Tp] scratch.
+// Card `device` is made current first (tensor maps need a current
+// context; autograd's worker thread may have none yet).  The wrapper has
+// checked D in {64, 128}, H % H_kv == 0, T = S when causal, 16-byte
+// aligned operands, B * H < 2^31, and ceil(T / 128), ceil(S / 128) <
+// 65536.
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse2, long long B, long long H,
+    long long H_kv, long long T, long long S, long long D, long long causal,
+    void* dq, void* dk, void* dv, void* delta, long long device,
+    void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int dev_err = (int)cudaSetDevice((int)device);
+  if (dev_err) return dev_err;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (B * H == 0) return (int)cudaGetLastError();
+  // No queries: dk = dv = 0.  No keys: every weight is empty, dq = 0.
+  if (T == 0) {
+    const size_t bytes = (size_t)(B * H_kv * S * D) * 2;
+    const int e = (int)cudaMemsetAsync(dk, 0, bytes, stream);
+    return e ? e : (int)cudaMemsetAsync(dv, 0, bytes, stream);
+  }
+  if (S == 0)
+    return (int)cudaMemsetAsync(dq, 0, (size_t)(B * H * T * D) * 2, stream);
+  return D == 128
+             ? launch<128>(q, k, v, o, dout, lse2, B, H, H_kv, T, S, causal,
+                           dq, dk, dv, delta, stream)
+             : launch<64>(q, k, v, o, dout, lse2, B, H, H_kv, T, S, causal,
+                          dq, dk, dv, delta, stream);
 }

@@ -259,6 +259,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d += A B for A [64 x 16] bf16 in registers and B [16 x 64] from shared
+// memory, MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                      const uint32_t* a,
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B with A from registers and B MN-major, by the accumulator's
+// width: m64n128k16 for float[64], m64n64k16 for float[32].
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t* a,
+                                            uint64_t b) {
+  wgmma_m64n128k16_rs_tb(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t* a,
+                                            uint64_t b) {
+  wgmma_m64n64k16_rs_tb(d, a, b);
+}
+
 #undef HOPPER_ACC64
 #undef HOPPER_ACC32
 #undef HOPPER_ACC8

@@ -5,7 +5,8 @@ Two forward kernels, chosen by dtype.  float32 q, k, v launch
 ``csrc/flash_attention.cu`` (float32 FMA on the CUDA cores, D in {16, 32,
 64, 128}); bfloat16 ones launch ``csrc/flash_attention_bf16.cu`` (bf16
 ``wgmma`` with float32 sums, P rounded to bf16 before P·V as the Pallas
-kernel rounds it, a bf16 output; D = 128).  Any other dtype raises.
+kernel rounds it, a bf16 output; D in {64, 128}: every dense config's 128,
+Whisper's 64).  Any other dtype raises.
 On a CUDA tensor :func:`attention` launches the kernel or raises; on a CPU
 tensor it runs the plain version (``ref.py``), for bf16 in float32 on
 ``.float()`` copies, rounded back to bf16.  On either device it takes the
@@ -41,7 +42,7 @@ import torch
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref, lse2_ref)
 
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (128,)}
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 TILE = {torch.float32: 64, torch.bfloat16: 128}   # query rows of one block
 BWD_TILE = {torch.float32: 64, torch.bfloat16: 128}   # largest backward tile
 STAT_ROWS = 128        # the statistic's rows: T rounded up to this

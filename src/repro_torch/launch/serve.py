@@ -8,7 +8,11 @@ Weights are random, from ``--seed`` (``transformer.init_params``); prompts
 come from the synthetic ``TokenPipeline``.  The prefill is one
 full-sequence pass (``transformer.prefill_forward``, through the
 flash_attention kernel on the card), then ``new_tokens - 1`` greedy
-``serve_step``s: ``new_tokens`` new tokens in all.  ``--device`` defaults
+``serve_step``s: ``new_tokens`` new tokens in all.  An encoder-decoder
+(``--arch whisper-large-v3``) first encodes float32 frames [B,
+encoder_seq, d_model] drawn from ``--seed`` (the audio frontend is a
+stub, as the reference's ``main`` draws its frames), and its prefill
+fills each layer's cross-attention K/V from them.  ``--device`` defaults
 to CUDA; ``--device cpu --reduced`` runs a tiny config on the CPU.
 """
 from __future__ import annotations
@@ -33,6 +37,7 @@ class ServeResult:
     prefill_s: float               # host clock, ends in a device sync
     decode_s: float                # the decode steps, likewise
     decode_steps: int
+    encode_s: float = 0.0          # the encoder (encoder-decoders), likewise
 
 
 def _sync(device: torch.device) -> None:
@@ -41,16 +46,28 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
-def serve(cfg, params, prompt: torch.Tensor, new_tokens: int
-          ) -> ServeResult:
+def serve(cfg, params, prompt: torch.Tensor, new_tokens: int,
+          frames: torch.Tensor | None = None) -> ServeResult:
     """Prefill ``prompt`` int32[B, T] into a cache of ``T + new_tokens``
     slots, then decode greedily to ``new_tokens`` new tokens, under
-    ``torch.inference_mode()`` (no autograd graph)."""
+    ``torch.inference_mode()`` (no autograd graph).  An encoder-decoder
+    encodes ``frames`` [B, encoder_seq, D] first (timed apart) and
+    prefills with the encoder output."""
     b, t = prompt.shape
     dev = prompt.device
+    enc_out, encode_s = None, 0.0
+    if cfg.encoder_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: serve "
+                             f"takes its frames")
+        t0 = time.perf_counter()
+        enc_out = transformer.encode(cfg, params, frames)
+        _sync(dev)
+        encode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logits, cache = transformer.prefill_forward(cfg, params, prompt,
-                                                t + new_tokens)
+                                                t + new_tokens,
+                                                enc_out=enc_out)
     nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
     state = ServeState(cache=cache,
                        pos=torch.tensor(t, dtype=torch.int32, device=dev),
@@ -66,7 +83,7 @@ def serve(cfg, params, prompt: torch.Tensor, new_tokens: int
     return ServeResult(tokens=torch.cat(toks, dim=1), prefill_logits=logits,
                        prefill_s=prefill_s,
                        decode_s=time.perf_counter() - t0,
-                       decode_steps=new_tokens - 1)
+                       decode_steps=new_tokens - 1, encode_s=encode_s)
 
 
 def main(argv=None):
@@ -90,7 +107,15 @@ def main(argv=None):
     prompt = TokenPipeline(cfg.vocab, args.prompt_len, args.batch,
                            seed=args.seed + 1, device=dev
                            ).batch_at(0)["tokens"]
-    res = serve(cfg, params, prompt, args.new_tokens)
+    frames = None
+    if cfg.encoder_layers:
+        frames = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), dtype=torch.float32,
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 2))
+    res = serve(cfg, params, prompt, args.new_tokens, frames=frames)
+    if cfg.encoder_layers:
+        print(f"encode [{args.batch}x{cfg.encoder_seq}] {res.encode_s:.2f}s")
     print(f"prefill [{args.batch}x{args.prompt_len}] {res.prefill_s:.2f}s")
     print(f"decoded {res.decode_steps} steps in {res.decode_s:.2f}s "
           f"({args.batch * res.decode_steps / max(res.decode_s, 1e-9):.1f} "

@@ -1,16 +1,19 @@
 """Attention: grouped-query attention (GQA) with its full-sequence,
-prefill and single-token decode paths, full or sliding-window, and
-multi-head latent attention (MLA, minicpm3) with its absorbed decode (the
-GQA and MLA parts of the reference's ``models/attention.py``).
+prefill and single-token decode paths, full or sliding-window,
+bidirectional (the Whisper encoder's), multi-head latent attention (MLA,
+minicpm3) with its absorbed decode, and Whisper's cross-attention (the
+reference's ``models/attention.py`` but for flash decoding).
 
 Positions rotate q and k by RoPE (``rope_kind="rope"``) or by Qwen2-VL's
 M-RoPE (``"mrope"``): positions [B, T] (text: three equal rows, which is
-RoPE exactly) or [3, B, T] (temporal, height and width rows).
+RoPE exactly) or [3, B, T] (temporal, height and width rows).  With
+``rope_kind="none"`` (Whisper) nothing is rotated: the model adds
+sinusoid positions to its input instead (``transformer._sinusoid``).
 
 The GQA full-sequence forward and prefill call the flash_attention op
 (``kernels/flash_attention``) when ``use_kernel`` is set, the default: on
 a CUDA tensor that is a CUDA kernel, at every T (the bf16 one for bf16
-models at head dim 128, the float32 one otherwise); on the CPU its
+models at head dim 64 or 128, the float32 one otherwise); on the CPU its
 plain version.  ``use_kernel=False`` calls ``attention_ref`` in float32
 on any device, as the reference's default does.
 
@@ -42,11 +45,18 @@ absorbs the up-projections into the query and the output.  The port
 writes the new token into the cache in place (the reference returns a new
 cache): the returned dict is the one passed in.
 
-Not ported here, each raising ``NotImplementedError`` with its ROADMAP
-slice (queue 1): sinusoid positions (``rope_kind="none"``, 9f or 9g),
-``flash=True`` decode, which is the reference's ``shard_map``
-flash-decoding (slice 9h, with ``launch/sharding.py``), and
-cross-attention (9f).
+Cross-attention (the decoder's queries against the encoder's K/V, which
+:func:`encode_cross_kv` computes once and the decode cache keeps) runs
+``attention_ref`` in float32 and casts back to x's type on every device,
+as the reference's ``cross_attend`` does: the reference never sends it
+through its Pallas kernel, and at decode (one query row against 1500
+keys) a 128-row query tile would be mostly waste.  Products with a weight
+take JAX's type promotion (``layers.mm``): the encoder's K/V of float32
+frames stay float32 against bf16 weights.
+
+Not ported here: ``flash=True`` decode, which is the reference's
+``shard_map`` flash-decoding; it raises ``NotImplementedError`` naming
+its ROADMAP slice (queue 1, 9h, with ``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -58,7 +68,7 @@ from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as \
 from repro_torch.kernels.flash_attention.ops import attention as flash_attn_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import (_param, apply_mrope, apply_rope,
-                                       dtype_of, normal_)
+                                       dtype_of, mm, normal_)
 
 
 def _not_ported(what: str, slice_: str):
@@ -67,9 +77,8 @@ def _not_ported(what: str, slice_: str):
 
 
 def _check_cfg(cfg) -> None:
-    if cfg.rope_kind not in ("rope", "mrope"):
-        raise _not_ported(f"rope_kind={cfg.rope_kind!r}",
-                          "slice 9f or 9g (sinusoid positions)")
+    if cfg.rope_kind not in ("rope", "mrope", "none"):
+        raise ValueError(f"rope_kind={cfg.rope_kind!r}")
 
 
 class GQA(nn.Module):
@@ -104,6 +113,8 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _positions_rope(cfg, q, k, positions):
     _check_cfg(cfg)
+    if cfg.rope_kind == "none":       # sinusoid positions, added to x
+        return q, k
     if cfg.rope_kind == "rope":
         return apply_rope(q, positions), apply_rope(k, positions)
     # mrope: positions [B, T] (text: three equal rows) or [3, B, T].
@@ -119,9 +130,9 @@ def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor
     rotated (positions [B, T], or [3, B, T] for mrope), all in x's
     dtype."""
     hd = cfg.hd
-    q = _split_heads(x @ params.wq, cfg.n_heads, hd)
-    k = _split_heads(x @ params.wk, cfg.n_kv_heads, hd)
-    v = _split_heads(x @ params.wv, cfg.n_kv_heads, hd)
+    q = _split_heads(mm(x, params.wq), cfg.n_heads, hd)
+    k = _split_heads(mm(x, params.wk), cfg.n_kv_heads, hd)
+    v = _split_heads(mm(x, params.wv), cfg.n_kv_heads, hd)
     q, k = _positions_rope(cfg, q, k, positions)
     return q, k, v
 
@@ -152,7 +163,7 @@ def gqa_train(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
         out = _windowed_attention(q, k, v, cfg.window)
     else:
         out = _attend(q, k, v, causal, use_kernel)
-    return _merge_heads(out) @ params.wo
+    return mm(_merge_heads(out), params.wo)
 
 
 def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
@@ -481,3 +492,33 @@ def mla_decode(cfg, params: MLA, x: torch.Tensor, cache: dict,
     w_uv = params.w_uv.reshape(kvr, h, nope)
     out = torch.einsum("bhqr,rhn->bhqn", ctx, w_uv.float()).to(x.dtype)
     return _merge_heads(out) @ params.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the Whisper decoder).
+# ---------------------------------------------------------------------------
+
+def init_cross(attn: GQA, cfg, gen: torch.Generator) -> None:
+    """The cross-attention's wq, wk, wv, wo: a GQA's, with its scales."""
+    init_gqa(attn, cfg, gen)
+
+
+def cross_attend(cfg, params: GQA, x: torch.Tensor, enc_kv: tuple
+                 ) -> torch.Tensor:
+    """x [B, T, D]; enc_kv = (k, v), each [B, H_kv, S_enc, Dh], from
+    :func:`encode_cross_kv` (kept in the cache for the whole decode).
+    Non-causal ``attention_ref`` in float32, back in x's type."""
+    q = _split_heads(mm(x, params.wq), cfg.n_heads, cfg.hd)
+    k, v = enc_kv
+    out = attention_ref(q.float(), k.float(), v.float(),
+                        causal=False).to(x.dtype)
+    return mm(_merge_heads(out), params.wo)
+
+
+def encode_cross_kv(cfg, params: GQA, enc_out: torch.Tensor) -> tuple:
+    """The encoder output [B, S_enc, D] -> (k, v), each [B, H_kv, S_enc,
+    Dh], in the promoted type of ``enc_out`` and the weights (float32 for
+    float32 frames against a bf16 model, as in the reference)."""
+    k = _split_heads(mm(enc_out, params.wk), cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(mm(enc_out, params.wv), cfg.n_kv_heads, cfg.hd)
+    return (k, v)

@@ -11,6 +11,12 @@ rotates *interleaved* pairs (``x[..., ::2]``, ``x[..., 1::2]``) with
 population variance.  The port keeps all three (ROADMAP queue 3).
 ``apply_mrope`` (Qwen2-VL's M-RoPE) rotates the same pairs, its angle
 table built from three position rows, one a section of the pairs.
+
+Products with a weight go through :func:`mm`, which takes JAX's type
+promotion: float32 activations against bf16 weights multiply in float32
+(torch's ``@`` refuses mixed types).  The Whisper encoder meets it, where
+float32 frames run a bf16 model's encoder in float32, as in the
+reference; everywhere else the two types agree and ``mm`` is ``@``.
 """
 from __future__ import annotations
 
@@ -155,9 +161,19 @@ def init_mlp(mlp: MLP, gen: torch.Generator) -> None:
     normal_(mlp.w_down, d_ff ** -0.5, gen)
 
 
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as JAX multiplies mixed
+    types: the narrower operand (a bf16 weight against float32
+    activations) is cast up, never the other way."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def apply_mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(x @ params.w_gate)
-    return (gate * (x @ params.w_up)) @ params.w_down
+    gate = F.silu(mm(x, params.w_gate))
+    return mm(gate * mm(x, params.w_up), params.w_down)
 
 
 class Linear(nn.Module):

@@ -1,35 +1,49 @@
-"""Model assembly for the dense, MoE and MLA block kinds: init,
-full-sequence forward, prefill and single-token decode (the ``"dense"``,
-``"moe"`` and ``"mla"`` parts of the reference's
-``models/transformer.py``).
+"""Model assembly for the dense, MoE, MLA and Whisper block kinds: init,
+full-sequence forward, prefill, single-token decode and the encoder (the
+``"dense"``, ``"moe"``, ``"mla"``, ``"enc"`` and ``"dec_cross"`` parts of
+the reference's ``models/transformer.py``).
 
 The parameters live in an :class:`LM` (``nn.Module``): ``embed``,
 ``final_norm``, ``lm_head`` (untied configs) and ``layers``, an
 ``nn.ModuleList`` with one :class:`Block` per layer in place of the
 reference's stacked leading U axis (:func:`stacked_leaves` names each
-parameter by its reference leaf, under ``units.b0_<kind>``).  The forward
-functions are plain functions on tensors that mirror the reference's
-signatures.  Where the config sets ``remat`` and a parameter asks for a
-gradient, the forward recomputes each block in the backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per unit);
-``unroll`` has no meaning in eager PyTorch and is accepted and ignored.
-Caches are ``{"layers": [{"attn": {k, v, pos}}, ...]}`` (MLA: ``{"attn":
-{c, kr}}``), one dict per layer.
+parameter by its reference leaf, under ``units.b0_<kind>``); an
+encoder-decoder (Whisper) also holds ``encoder``, one ``"enc"`` block a
+layer (``enc_units.b0_enc``), and ``enc_norm``.  The forward functions
+are plain functions on tensors that mirror the reference's signatures.
+Where the config sets ``remat`` and a parameter asks for a gradient, the
+forward recomputes each decoder block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per unit;
+the encoder, like the reference's, keeps its activations); ``unroll`` has
+no meaning in eager PyTorch and is accepted and ignored.  Caches are
+``{"layers": [{"attn": {k, v, pos}}, ...]}`` (MLA: ``{"attn": {c,
+kr}}``; ``"dec_cross"`` adds ``"cross_kv"``, the encoder's (k, v)), one
+dict per layer.
 
 A dense block is pre-norm GQA attention plus a SwiGLU MLP, both residual;
 an MoE block the same attention plus the expert FFN (``models/moe.py``),
 whose load-balancing loss each path sums over the layers (``forward``
 returns it; prefill and decode drop it, as the reference's do); an MLA
-block multi-head latent attention plus the MLP.  ``forward`` and
-``prefill_forward`` take ``embeds`` [B, T, D] in place of tokens (the
-vision stub's patch and text embeddings, cast to the embedding's dtype),
-and ``forward`` takes positions [B, T] or, for M-RoPE, [3, B, T];
-``prefill_forward`` keeps the default positions 0..T-1, as the
-reference's does.  Other block kinds raise ``NotImplementedError`` naming
-their ROADMAP slice (queue 1).
+block multi-head latent attention plus the MLP; an ``"enc"`` block
+bidirectional GQA plus the MLP; a ``"dec_cross"`` block causal GQA, then
+cross-attention to the encoder output (``ln_cross``, ``cross``), then the
+MLP.  ``forward`` and ``prefill_forward`` take ``embeds`` [B, T, D] in
+place of tokens (the vision stub's patch and text embeddings, cast to the
+embedding's dtype), and ``forward`` takes positions [B, T] or, for
+M-RoPE, [3, B, T]; ``prefill_forward`` keeps the default positions
+0..T-1, as the reference's does.  With ``rope_kind="none"`` every path
+adds :func:`_sinusoid` positions to its input, as the reference's does.
+:func:`encode` runs the encoder over precomputed frames [B, S, D] (the
+audio frontend is a stub, as in the reference), in the frames' dtype:
+float32 frames run a bf16 model's encoder in float32.  Departure: it
+takes ``use_kernel`` (default True), so on the card the encoder's
+attention runs the flash kernels; the reference's ``encode`` always runs
+``attention_ref`` (``use_kernel=False`` here).  Other block kinds raise
+``NotImplementedError`` naming their ROADMAP slice (queue 1).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,10 +57,8 @@ from repro_torch.models.layers import (MLP, Norm, _param, apply_mlp,
                                        apply_norm, dtype_of, init_mlp,
                                        init_norm, normal_)
 
-KINDS = ("dense", "moe", "mla")      # the block kinds the port has
+KINDS = ("dense", "moe", "mla", "enc", "dec_cross")   # the port's kinds
 KIND_SLICES = {
-    "enc": "slice 9f (Whisper encoder-decoder)",
-    "dec_cross": "slice 9f (Whisper encoder-decoder)",
     "attn_local": "slice 9g (sliding window)",
     "rec": "slice 9g (RG-LRU)",
     "mlstm": "slice 9g (xLSTM)",
@@ -65,9 +77,13 @@ def _check_kind(kind: str) -> None:
 def _check_model(cfg) -> None:
     for kind in cfg.unit:
         _check_kind(kind)
-    if cfg.encoder_layers:
-        raise attn._not_ported("the encoder", KIND_SLICES["enc"])
     attn._check_cfg(cfg)
+
+
+def _check_enc_out(cfg, enc_out) -> None:
+    if cfg.encoder_layers and enc_out is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its decoder "
+                         f"takes enc_out (transformer.encode)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +91,10 @@ def _check_model(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """ln1, attn (:class:`attn.MLA` for ``"mla"``, GQA otherwise), then
-    ln2 + ffn (:class:`moe.MoE`) for ``"moe"``, ln2 + mlp for ``"dense"``
-    and ``"mla"`` where the config has d_ff."""
+    """ln1, attn (:class:`attn.MLA` for ``"mla"``, GQA otherwise), for
+    ``"dec_cross"`` ln_cross + cross (GQA weights), then ln2 + ffn
+    (:class:`moe.MoE`) for ``"moe"``, ln2 + mlp for the other kinds where
+    the config has d_ff."""
 
     def __init__(self, kind: str, cfg, device=None):
         super().__init__()
@@ -85,6 +102,9 @@ class Block(nn.Module):
         self.ln1 = Norm(cfg.norm_kind, cfg.d_model, device)
         self.attn = (attn.MLA(cfg, device) if kind == "mla"
                      else attn.GQA(cfg, device))
+        if kind == "dec_cross":
+            self.ln_cross = Norm(cfg.norm_kind, cfg.d_model, device)
+            self.cross = attn.GQA(cfg, device)
         if kind == "moe":
             self.ln2 = Norm(cfg.norm_kind, cfg.d_model, device)
             self.ffn = moe.MoE(cfg, device)
@@ -94,10 +114,11 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """The parameters of a dense, MoE or MLA LM, uninitialised (see
-    :func:`init_params` and ``convert.lm_params_from_jax``).  ``kind`` is
-    the config's one block kind, ``unit`` the reference's name of the
-    stacked unit (``units.b0_<kind>``)."""
+    """The parameters of an LM, uninitialised (see :func:`init_params` and
+    ``convert.lm_params_from_jax``).  ``kind`` is the config's one block
+    kind, ``unit`` the reference's name of the stacked unit
+    (``units.b0_<kind>``); an encoder-decoder also has ``encoder`` and
+    ``enc_norm``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -112,6 +133,10 @@ class LM(nn.Module):
                                   device=device)
         self.layers = nn.ModuleList(Block(self.kind, cfg, device)
                                     for _ in range(cfg.n_layers))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(Block("enc", cfg, device)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(cfg.norm_kind, cfg.d_model, device)
 
 
 def init_block(kind: str, cfg, block: Block,
@@ -122,6 +147,9 @@ def init_block(kind: str, cfg, block: Block,
         attn.init_mla(block.attn, cfg, gen)
     else:
         attn.init_gqa(block.attn, cfg, gen)
+    if kind == "dec_cross":
+        init_norm(block.ln_cross)
+        attn.init_cross(block.cross, cfg, gen)
     if kind == "moe":
         init_norm(block.ln2)
         moe.init_moe(block.ffn, cfg, gen)
@@ -147,6 +175,10 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, device=None
         normal_(params.lm_head, cfg.d_model ** -0.5, gen)
     for block in params.layers:
         init_block(params.kind, cfg, block, gen)
+    if cfg.encoder_layers:
+        for block in params.encoder:
+            init_block("enc", cfg, block, gen)
+        init_norm(params.enc_norm)
     return params
 
 
@@ -154,14 +186,28 @@ def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+ENC_UNIT = "enc_units.b0_enc"     # the reference's stacked encoder unit
+
+
 def stacked_name(name: str, unit: str) -> str:
     """The reference leaf that a parameter of the port belongs to, for a
     model whose stacked unit is ``unit`` (``LM.unit``):
     ``layers.3.attn.wq`` -> ``units.b0_dense.attn.wq`` (row 3 of the
-    stacked leaf), any other name as it is."""
+    stacked leaf), ``encoder.3.attn.wq`` -> ``enc_units.b0_enc.attn.wq``,
+    any other name as it is."""
     if name.startswith("layers."):
         return f"{unit}.{name.split('.', 2)[2]}"
+    if name.startswith("encoder."):
+        return f"{ENC_UNIT}.{name.split('.', 2)[2]}"
     return name
+
+
+def stacked_row(name: str) -> Optional[int]:
+    """The row of its stacked leaf that a per-layer parameter is
+    (``layers.3.…`` and ``encoder.3.…``: 3); None for the others."""
+    if name.startswith(("layers.", "encoder.")):
+        return int(name.split(".")[1])
+    return None
 
 
 def stacked_leaves(params: LM) -> dict:
@@ -177,7 +223,7 @@ def stacked_leaves(params: LM) -> dict:
 
 
 def is_stacked(leaf: str) -> bool:
-    return leaf.startswith("units.")
+    return leaf.startswith(("units.", "enc_units."))
 
 
 # ---------------------------------------------------------------------------
@@ -199,25 +245,42 @@ def _ffn_residual(kind: str, cfg, p: Block, x: torch.Tensor,
     return x, aux
 
 
+def _cross_residual(cfg, p: Block, x: torch.Tensor, enc_kv: tuple
+                    ) -> torch.Tensor:
+    """x plus a ``"dec_cross"`` block's cross-attention to ``enc_kv``."""
+    hc = apply_norm(cfg.norm_kind, p.ln_cross, x)
+    return x + attn.cross_attend(cfg, p.cross, hc, enc_kv)
+
+
 def apply_block(kind: str, cfg, p: Block, x: torch.Tensor,
                 positions: torch.Tensor, use_kernel: bool = True,
-                moe_strategy: str = "sort"
+                moe_strategy: str = "sort",
+                enc_out: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x', aux_loss); a dense or MLA block's aux loss is 0."""
+    """Returns (x', aux_loss); the aux loss is 0 but for an MoE block.
+    ``enc_out`` [B, S_enc, D] is the encoder output a ``"dec_cross"``
+    block attends to."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
     if kind == "mla":
         x = x + attn.mla_train(cfg, p.attn, h, positions, causal=True)
     else:
-        x = x + attn.gqa_train(cfg, p.attn, h, positions, causal=True,
-                               use_kernel=use_kernel)
+        x = x + attn.gqa_train(cfg, p.attn, h, positions,
+                               causal=kind != "enc", use_kernel=use_kernel)
+    if kind == "dec_cross":
+        x = _cross_residual(cfg, p, x,
+                            attn.encode_cross_kv(cfg, p.cross, enc_out))
     return _ffn_residual(kind, cfg, p, x, moe_strategy)
 
 
 def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
                   positions: torch.Tensor, max_len: int,
                   unroll: bool = False, use_kernel: bool = True,
-                  moe_strategy: str = "sort") -> tuple[torch.Tensor, dict]:
+                  moe_strategy: str = "sort",
+                  enc_out: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """The block's forward and its cache; a ``"dec_cross"`` block's cache
+    also holds ``cross_kv``, the encoder's (k, v)."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
     if kind == "mla":
@@ -225,8 +288,13 @@ def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
     else:
         y, cache = attn.gqa_prefill(cfg, p.attn, h, positions, max_len,
                                     use_kernel=use_kernel)
-    x, _ = _ffn_residual(kind, cfg, p, x + y, moe_strategy)
-    return x, {"attn": cache}
+    x = x + y
+    out = {"attn": cache}
+    if kind == "dec_cross":
+        out["cross_kv"] = attn.encode_cross_kv(cfg, p.cross, enc_out)
+        x = _cross_residual(cfg, p, x, out["cross_kv"])
+    x, _ = _ffn_residual(kind, cfg, p, x, moe_strategy)
+    return x, out
 
 
 def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
@@ -234,7 +302,8 @@ def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
                  ) -> tuple[torch.Tensor, dict]:
     """One token; an MoE block runs ``moe_ffn``'s default strategy, an
     MLA block ignores ``flash`` (which shards a GQA cache), as the
-    reference's do."""
+    reference's do.  A ``"dec_cross"`` block reads its cache's
+    ``cross_kv`` and never writes it."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
     if kind == "mla":
@@ -243,7 +312,10 @@ def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
     else:
         y, cache["attn"] = attn.gqa_decode(cfg, p.attn, h, cache["attn"],
                                            pos, flash=flash)
-    x, _ = _ffn_residual(kind, cfg, p, x + y, "sort")
+    x = x + y
+    if kind == "dec_cross":
+        x = _cross_residual(cfg, p, x, cache["cross_kv"])
+    x, _ = _ffn_residual(kind, cfg, p, x, "sort")
     return x, cache
 
 
@@ -253,15 +325,95 @@ def init_block_cache(kind: str, cfg, batch: int, max_len: int, dtype,
     if kind == "mla":
         return {"attn": attn.init_mla_cache(cfg, batch, max_len, dtype,
                                             device)}
-    return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype, device)}
+    cache = {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                         device)}
+    if kind == "dec_cross":
+        shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.hd)
+        cache["cross_kv"] = (
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+    return cache
 
 
 # ---------------------------------------------------------------------------
-# Forward (train shape / prefill).
+# Positions, the encoder, the forward (train shape / prefill).
 # ---------------------------------------------------------------------------
 
 def _default_positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
+
+
+def _round_f32(v: float) -> float:
+    """``v`` rounded to the nearest float32, as a Python float."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+# The exp XLA's CPU backend emits for float32 (Cephes's polynomial): its
+# ln 2 split in two and its coefficients, each a float32.
+_EXP_LOG2E = _round_f32(1.44269504088896341)
+_EXP_LN2 = (_round_f32(0.693359375), _round_f32(-2.12194440e-4))
+_EXP_POLY = tuple(_round_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of float32 ``x`` (in [-87, 0]) as the reference computes it on
+    its CPU backend: exp(x) = 2^n exp(r), n = floor(x log2 e + 1/2), r = x
+    - n ln 2 in two steps, exp(r) by Cephes's degree-5 polynomial, each
+    step one fused multiply-add (here a float64 multiply-add rounded once
+    to float32).  ``torch.exp`` rounds correctly and so parts from it by
+    an ulp on some inputs, which a position of 1500 multiplies into 1e-4
+    of a sinusoid."""
+    def fma(a, b, c):
+        return (a.double() * b + c).float()
+
+    n = torch.floor(fma(x, _EXP_LOG2E, 0.5))
+    r = fma(n, -_EXP_LN2[0], x)
+    r = fma(n, -_EXP_LN2[1], r)
+    y = torch.full_like(r, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        y = fma(y, r, c)
+    y = fma(y, r * r, r) + 1.0
+    two_n = ((n.to(torch.int32) + 127) << 23).view(torch.float32)  # 2^n
+    return y * two_n
+
+
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Fixed sin/cos position encoding (Whisper's, table-free), float32
+    [..., d] for int positions [...]: the sines then the cosines of
+    ``positions * exp(-i log(10000) / (d/2 - 1))``, i < d/2."""
+    half = d // 2
+    # float32 log(10000) over (d/2 - 1), rounded once (a float32 division).
+    step = _round_f32(_round_f32(math.log(10_000.0)) / max(half - 1, 1))
+    freqs = _exp_f32(torch.arange(half, dtype=torch.float32,
+                                  device=positions.device) * -step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _add_positions(cfg, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+    """x plus the sinusoid at ``positions`` [B, T] (row 0 of [3, B, T]) in
+    x's dtype where the config has ``rope_kind="none"``, else x."""
+    if cfg.rope_kind != "none":
+        return x
+    pos = positions if positions.dim() == 2 else positions[0]
+    return x + _sinusoid(pos, x.shape[-1]).to(x.dtype)
+
+
+def encode(cfg, params: LM, frames: torch.Tensor, use_kernel: bool = True,
+           unroll: bool = False) -> torch.Tensor:
+    """The Whisper encoder over precomputed frame embeddings [B, S, D]
+    (sinusoid positions 0..S-1, the ``"enc"`` blocks, ``enc_norm``), in
+    the frames' dtype.  ``use_kernel=False`` is the reference's path."""
+    _check_model(cfg)
+    b, s, _ = frames.shape
+    pos = _default_positions(b, s, frames.device)
+    x = frames + _sinusoid(pos, frames.shape[-1]).to(frames.dtype)
+    for block in params.encoder:
+        x, _ = apply_block("enc", cfg, block, x, pos, use_kernel=use_kernel)
+    return apply_norm(cfg.norm_kind, params.enc_norm, x)
 
 
 def _head(cfg, params: LM) -> torch.Tensor:
@@ -280,17 +432,21 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             positions: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             use_kernel: bool = True, unroll: bool = False,
-            moe_strategy: str = "sort"
+            moe_strategy: str = "sort",
+            enc_out: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens int32[B, T] (or ``embeds`` [B, T, D] for the stub frontends);
-    positions [B, T] or, for M-RoPE, [3, B, T] (default 0..T-1) ->
-    (logits f32[B, T, V], aux_loss scalar, the sum of the blocks'
+    positions [B, T] or, for M-RoPE, [3, B, T] (default 0..T-1);
+    ``enc_out`` the encoder output an encoder-decoder's blocks attend to
+    -> (logits f32[B, T, V], aux_loss scalar, the sum of the blocks'
     load-balancing losses)."""
     _check_model(cfg)
+    _check_enc_out(cfg, enc_out)
     x = _embed(params, tokens, embeds)
     b, t, _ = x.shape
     if positions is None:
         positions = _default_positions(b, t, x.device)
+    x = _add_positions(cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
@@ -298,11 +454,11 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 apply_block, params.kind, cfg, block, x, positions,
-                use_kernel, moe_strategy, use_reentrant=False)
+                use_kernel, moe_strategy, enc_out, use_reentrant=False)
         else:
             x, a = apply_block(params.kind, cfg, block, x, positions,
                                use_kernel=use_kernel,
-                               moe_strategy=moe_strategy)
+                               moe_strategy=moe_strategy, enc_out=enc_out)
         aux = aux + a
     x = apply_norm(cfg.norm_kind, params.final_norm, x)
     return (x @ _head(cfg, params)).float(), aux
@@ -311,21 +467,26 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
 def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
                     max_len: int, embeds: Optional[torch.Tensor] = None,
                     unroll: bool = False, use_kernel: bool = True,
-                    moe_strategy: str = "sort") -> tuple[torch.Tensor, dict]:
+                    moe_strategy: str = "sort",
+                    enc_out: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, dict]:
     """Returns (last-position logits f32[B, 1, V], cache): the full-sequence
     compute over tokens int32[B, T] (or ``embeds`` [B, T, D]) at positions
-    0..T-1, the cache of every layer, and only the next-token logits.
+    0..T-1, the cache of every layer (with each ``"dec_cross"`` layer's
+    ``cross_kv`` from ``enc_out``), and only the next-token logits.
     ``use_kernel=False`` takes the plain attention path, against which the
     kernel path is checked."""
     _check_model(cfg)
+    _check_enc_out(cfg, enc_out)
     x = _embed(params, tokens, embeds)
     b, t, _ = x.shape
     positions = _default_positions(b, t, x.device)
+    x = _add_positions(cfg, x, positions)
     caches = []
     for block in params.layers:
         x, c = prefill_block(params.kind, cfg, block, x, positions,
                              max_len, use_kernel=use_kernel,
-                             moe_strategy=moe_strategy)
+                             moe_strategy=moe_strategy, enc_out=enc_out)
         caches.append(c)
     x = apply_norm(cfg.norm_kind, params.final_norm, x[:, -1:])
     return (x @ _head(cfg, params)).float(), {"layers": caches}
@@ -337,7 +498,8 @@ def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """An empty cache of ``max_len`` slots a layer, on ``device`` (None =
-    CUDA)."""
+    CUDA); an encoder-decoder's ``cross_kv`` zeros of ``encoder_seq``
+    rows, which ``serve_step.fill_cross_kv`` replaces."""
     _check_model(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
@@ -353,6 +515,7 @@ def decode_step(cfg, params: LM, token: torch.Tensor, cache: dict,
     Returns (logits f32[B, 1, V], cache), the cache updated in place."""
     x = params.embed[token.long()]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    x = _add_positions(cfg, x, pos.reshape(1, 1).expand(token.shape))
     for block, c in zip(params.layers, cache["layers"]):
         x, _ = decode_block(params.kind, cfg, block, x, c, pos,
                             flash_decode)

@@ -8,9 +8,11 @@ axis into that many microbatches, each one's gradient
 accumulators that start at zero, and the sums are divided by
 ``microbatches``: the reference's ``lax.scan`` order.  A batch holds
 ``tokens`` and ``labels`` int32[B, T] and may hold ``positions`` ([B, T],
-or [3, B, T] for M-RoPE, then in one microbatch) and ``embeds`` [B, T, D]
-(the vision stub's input, read in place of the tokens' rows); ``frames``
-(Whisper) waits for slice 9f.  The gradients are
+or [3, B, T] for M-RoPE, then in one microbatch), ``embeds`` [B, T, D]
+(the vision stub's input, read in place of the tokens' rows) and
+``frames`` [B, S_enc, D] (Whisper's audio stub: ``transformer.encode``
+runs over them, through the flash kernels where ``use_flash_kernel``,
+and the decoder attends to its output).  The gradients are
 kept by the reference's stacked leaves (``optimizer.py``), then
 compressed (``compression``) and applied by AdamW, in place.
 
@@ -88,12 +90,14 @@ def make_loss_fn(cfg, tcfg: TrainConfig):
     _check_tcfg(tcfg)
 
     def loss_fn(params, batch):
+        enc_out = None
         if "frames" in batch:
-            raise _not_ported("a batch with 'frames'",
-                              "slice 9f (Whisper encoder)")
+            enc_out = transformer.encode(cfg, params, batch["frames"],
+                                         use_kernel=tcfg.use_flash_kernel)
         logits, aux = transformer.forward(
             cfg, params, batch["tokens"], positions=batch.get("positions"),
-            embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel)
+            embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel,
+            enc_out=enc_out)
         loss = cross_entropy(logits, batch["labels"], tcfg.label_smoothing)
         return loss + tcfg.moe_aux_weight * aux, (loss, aux)
     return loss_fn

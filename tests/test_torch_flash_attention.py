@@ -22,11 +22,15 @@ max|v| on the output (the errors' random signs keep the sum far below
 that), and rounding the output costs at most 2^-8 |o|; the float32 sum
 order is far below either.  It is the bound the bf16 CUDA kernel is held
 to on the card; here both sides round the output, and the cases read
-0.11-0.63 of it.
+0.11-0.63 of it.  The bf16 head dims are 64 and 128 (every dense config's
+and Whisper's); the Pallas kernel runs at blocks of 128, or of 64 where
+128 does not divide T and S.
 
 The CUDA kernels themselves are held against the plain version on the card
 by ``tests/test_torch_gpu.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -95,7 +99,10 @@ def test_raises_outside_the_kernel_contract(shape_q, shape_kv, causal,
 
 BF16_TOL = 2 ** -8
 BF16_CASES = [(1, 8, 2, 256, 256, 128, True), (2, 4, 1, 256, 384, 128, False),
-              (2, 4, 2, 128, 128, 128, True)]
+              (2, 4, 2, 128, 128, 128, True),
+              # D = 64 (Whisper's head width): non-causal T != S, and causal
+              # T = S at a length the CUDA kernel's 128-row tiles cut ragged.
+              (2, 4, 2, 128, 256, 64, False), (1, 4, 4, 192, 192, 64, True)]
 
 
 def _bf16(arrays):
@@ -122,7 +129,9 @@ def test_bf16_within_bound_of_pallas_kernel(b, h, hkv, t, s, d, causal):
     got = t_fa.attention(q, k, v, causal=causal).float().numpy()
     jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
                   for x in (q, k, v))
-    pallas = j_flash(jq, jk, jv, causal=causal)
+    # The Pallas kernel's blocks divide T and S: 128, or 64 at T = 192.
+    blk = math.gcd(t, s, 128)
+    pallas = j_flash(jq, jk, jv, causal=causal, block_q=blk, block_k=blk)
     assert pallas.dtype == jnp.bfloat16
     pallas = np.asarray(pallas.astype(jnp.float32))
     bound = BF16_TOL * float(v.float().abs().max()) + BF16_TOL * np.abs(
@@ -132,7 +141,7 @@ def test_bf16_within_bound_of_pallas_kernel(b, h, hkv, t, s, d, causal):
 
 
 @pytest.mark.parametrize("dtypes,d,match", [
-    ((torch.bfloat16,) * 3, 64, "head dims"),
+    ((torch.bfloat16,) * 3, 32, "head dims"),
     ((torch.bfloat16,) * 3, 16, "head dims"),
     ((torch.float16,) * 3, 64, "float32 or bfloat16"),
     ((torch.bfloat16, torch.float32, torch.float32), 64, "one dtype"),

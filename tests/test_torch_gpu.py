@@ -32,7 +32,11 @@ the residual stream).  The bf16 kernel is also held at groups 7 and 6
 (arctic's 56/8 heads, mixtral's 48/8), and forward and backward at
 qwen2-vl's 12/2.  Reduced minicpm3-4b's MLA prefill and absorbed decode on
 the card match the CPU's within 1e-5 of the largest value (float32, TF32
-off).  ``moe_ffn`` on the card makes the
+off); reduced whisper-large-v3's encoder, prefill (self and cross caches)
+and decode within 1e-4 (the float32 kernel in the encoder and prefill), and
+a bf16 Whisper at head dim 64 through the bf16 kernel within 5e-2 of the
+plain path.  The bf16 kernels are held at D = 64, forward and backward,
+at Whisper's 20/20 heads and at a GQA group.  ``moe_ffn`` on the card makes the
 CPU's expert choices and lands within 1e-5 of max |y| of its output, and
 windowed and blocked attention within 1e-5 of max |out| of theirs
 (float32, TF32 off).  flash_attention_bwd is within 1e-4 of each
@@ -667,7 +671,12 @@ def bf16_qkv(device, b, h, hkv, t, s, d):
     (2, 16, 16, 512, 768, 128, False), (1, 8, 2, 1, 300, 128, False),
     (1, 2, 1, 128, 128, 128, True), (2, 56, 8, 333, 333, 128, True),
     (1, 48, 8, 200, 200, 128, True), (2, 12, 2, 1000, 1000, 128, True),
-    (1, 12, 2, 257, 257, 128, True)])
+    (1, 12, 2, 257, 257, 128, True),
+    # D = 64 (Whisper's 20/20 heads and a GQA group): the encoder's shape,
+    # the decoder's causal prefill, a ragged non-causal T != S, one row.
+    (2, 20, 20, 1500, 1500, 64, False), (2, 20, 20, 384, 384, 64, True),
+    (1, 8, 2, 512, 768, 64, False), (2, 8, 2, 1500, 1500, 64, False),
+    (1, 8, 2, 333, 333, 64, True), (1, 20, 20, 1, 1500, 64, False)])
 def test_flash_attention_bf16(cuda, b, h, hkv, t, s, d, causal):
     q, k, v = bf16_qkv(cuda, b, h, hkv, t, s, d)
     before = (fa_ops.launches, fa_ops.launches_bf16)
@@ -707,7 +716,7 @@ def test_flash_attention_bf16_raises_outside_its_contract(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         t_fa.attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+        x = torch.zeros(1, 2, 64, 32, device=cuda, dtype=torch.bfloat16)
         t_fa.attention(x, x, x)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flat = torch.zeros(2 * 128 * 128 + 1, device=cuda,
@@ -862,6 +871,75 @@ def test_mla_prefill_and_decode_on_card_match_cpu(cuda):
             1e-5 * float(want.abs().max())
 
 
+def test_whisper_prefill_and_decode_on_card_match_cpu(cuda):
+    """Reduced whisper-large-v3 (2 encoder and 2 decoder layers, head dim
+    16), float32, TF32 off: the encoder output, the prefill's logits,
+    self-attention and cross-attention caches and 4 decode steps on the
+    card against the same model on the CPU, within 1e-4 of the largest
+    value (the float32 flash kernel adds in another order than the CPU's
+    plain attention; the LM tests' float32 bound).  The float32 kernel
+    launches once an encoder layer and once a prefill layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("whisper-large-v3").reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    params_gpu = copy.deepcopy(params).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                           generator=g)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=g)
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_gpu)):
+        enc = transformer.encode(cfg, p, frames.to(dev))
+        toks = tokens.to(dev)
+        logits, cache = transformer.prefill_forward(cfg, p, toks[:, :36], 40,
+                                                    enc_out=enc)
+        steps = [logits]
+        for i in range(36, 40):
+            logits, cache = transformer.decode_step(
+                cfg, p, toks[:, i:i + 1], cache,
+                torch.tensor(i, dtype=torch.int32, device=dev))
+            steps.append(logits)
+        out[dev] = [enc.cpu(), torch.cat(steps, 1).cpu()] + [
+            x.cpu() for c in cache["layers"]
+            for x in (c["attn"]["k"], c["attn"]["v"], *c["cross_kv"])]
+    assert (fa_ops.launches, fa_ops.launches_bf16) == (
+        before[0] + cfg.encoder_layers + cfg.n_layers, before[1])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+
+
+def test_whisper_bf16_head_dim_64_goes_through_the_bf16_kernel(cuda):
+    """A small bf16 Whisper at its head dim, 64 (2 + 2 layers, d 256, 4/4
+    heads), from bf16 frames: encode and forward on the kernel path launch
+    the bf16 kernel once a layer and the float32 one never, and land within
+    5e-2 of the plain path relative to the largest logit (chip_smoke.py's
+    bf16 bound: a last-bit difference in an attention output flips a bf16
+    rounding of the residual stream)."""
+    cfg = dataclasses.replace(get_arch("whisper-large-v3").reduced(),
+                              dtype="bfloat16", head_dim=64, d_model=256)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(2), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    frames = torch.randn(2, 300, cfg.d_model, device=cuda,
+                         generator=g).bfloat16()
+    tokens = torch.randint(0, cfg.vocab, (2, 200), device=cuda,
+                           dtype=torch.int32, generator=g)
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    enc = transformer.encode(cfg, params, frames)
+    got, _ = transformer.forward(cfg, params, tokens, enc_out=enc)
+    assert (fa_ops.launches, fa_ops.launches_bf16) == (
+        before[0], before[1] + cfg.encoder_layers + cfg.n_layers)
+    assert enc.dtype == torch.bfloat16
+    plain_enc = transformer.encode(cfg, params, frames, use_kernel=False)
+    ref, _ = transformer.forward(cfg, params, tokens, enc_out=plain_enc,
+                                 use_kernel=False)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= 5e-2, rel
+
+
 # The backward kernels against attention_bwd_ref on the same values (for
 # bf16 their float32 copies).  Float32: both compute in float32 and sum
 # the same products in other orders, with expf against torch.exp, so each
@@ -922,6 +1000,17 @@ def test_flash_attention_bwd(cuda, b, h, hkv, t, s, d, causal):
     (2, 12, 2, 1000, 1000, True), (1, 12, 2, 2048, 2048, True)])
 def test_flash_attention_bwd_bf16(cuda, b, h, hkv, t, s, causal):
     check_bwd(*bf16_qkv(cuda, b, h, hkv, t, s, 128), causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,causal", [
+    (1, 20, 20, 1500, 1500, False), (2, 20, 20, 384, 384, True),
+    (1, 8, 2, 512, 768, False), (1, 8, 2, 333, 333, True),
+    (2, 4, 4, 200, 200, True), (1, 4, 1, 130, 517, False)])
+def test_flash_attention_bwd_bf16_head_dim_64(cuda, b, h, hkv, t, s, causal):
+    """The bf16 backward's D = 64 instance (Whisper's head width) at the
+    encoder's shape, the decoder's causal one and a GQA group with T !=
+    S, within the bound of the D = 128 cases."""
+    check_bwd(*bf16_qkv(cuda, b, h, hkv, t, s, 64), causal)
 
 
 @pytest.mark.parametrize("b,h,hkv,t,s,causal", [
@@ -1063,7 +1152,7 @@ def test_flash_attention_bwd_raises_outside_its_contract(cuda):
         h = x.half()
         fa_ops.attention_bwd(h, h, h, h, h)
     with pytest.raises(ValueError, match="head dims"):
-        y = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+        y = torch.zeros(1, 2, 64, 32, device=cuda, dtype=torch.bfloat16)
         fa_ops.attention_bwd(y, y, y, y, y)
     with pytest.raises(ValueError, match="T == S"):
         kv = torch.zeros(1, 2, 65, 64, device=cuda)

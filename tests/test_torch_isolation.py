@@ -4,7 +4,9 @@ A subprocess imports ``repro_torch`` (observability, runtime and the
 multi-process launch included) and runs a tiny PageRank (also on the
 shard_map backend, over a gloo world of one rank), greedy generation of
 a reduced llama3-8b, of a reduced mixtral-8x22b (MoE, its window
-crossed) and of a reduced minicpm3-4b (MLA), a reduced qwen2-vl-2b's
+crossed), of a reduced minicpm3-4b (MLA) and of a reduced
+whisper-large-v3 (encoder, cross-attention, sinusoid positions; also
+through ``launch/serve.py``'s ``main``), a reduced qwen2-vl-2b's
 forward from embeds at [3, B, T] positions (M-RoPE), a traced resilient
 PageRank with one failure and adsorption on the CPU, two journaled views
 restored, and reachability compiled from its rule text, then reports
@@ -73,6 +75,17 @@ mla_lm = transformer.init_params(mla_cfg, torch.Generator().manual_seed(0),
                                  "cpu")
 mla_toks = repro_torch.serve.serve_step.generate(
     mla_cfg, mla_lm, torch.zeros((1, 4), dtype=torch.int32), 3, 7)
+wh_cfg = get_arch("whisper-large-v3").reduced()
+wh_lm = transformer.init_params(wh_cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+wh_enc = transformer.encode(wh_cfg, wh_lm, torch.randn(
+    1, wh_cfg.encoder_seq, wh_cfg.d_model))
+wh_toks = repro_torch.serve.serve_step.generate(
+    wh_cfg, wh_lm, torch.zeros((1, 4), dtype=torch.int32), 3, 7,
+    enc_out=wh_enc)
+repro_torch.launch.serve.main(["--arch", "whisper-large-v3", "--reduced",
+                               "--device", "cpu", "--batch", "1",
+                               "--prompt-len", "4", "--new-tokens", "2"])
 vlm_cfg = get_arch("qwen2-vl-2b").reduced()
 vlm_lm = transformer.init_params(vlm_cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -130,6 +143,7 @@ print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations
                   "shard_map_equal": bool(torch.equal(pr, pr_smap)),
                   "lm": list(toks.shape), "moe": list(moe_toks.shape),
                   "mla": list(mla_toks.shape),
+                  "whisper": list(wh_toks.shape),
                   "vlm": list(vlm_logits.shape),
                   "resilient": rr.metrics["recoveries"],
                   "adsorption": list(vec.shape), "views": views,
@@ -147,6 +161,7 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["lm"] == [1, 6]
     assert got["moe"] == [1, 22]
     assert got["mla"] == [1, 7]
+    assert got["whisper"] == [1, 7]
     assert got["vlm"] == [1, 6, 256]
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
@@ -206,6 +221,10 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
                  lambda: transformer.init_cache(
                      get_arch("minicpm3-4b").reduced(), 1, 4),
                  lambda: serve.main(["--arch", "qwen2-vl-2b", "--reduced"]),
+                 lambda: serve.main(["--arch", "whisper-large-v3",
+                                     "--reduced"]),
+                 lambda: transformer.init_cache(
+                     get_arch("whisper-large-v3").reduced(), 1, 4),
                  lambda: train.main(["--reduced", "--steps", "1"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: reach.run(g, snap),

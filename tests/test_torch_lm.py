@@ -48,8 +48,9 @@ from repro_torch.serve import serve_step as tss
 
 ARCHS = ["olmo-1b", "llama3-8b", "starcoder2-3b"]
 MOE_ARCHS = ["arctic-480b", "mixtral-8x22b"]    # tests/test_torch_moe.py
-# tests/test_torch_mla.py and tests/test_torch_vlm.py
-MLA_VLM_ARCHS = ["minicpm3-4b", "qwen2-vl-2b"]
+# tests/test_torch_mla.py, tests/test_torch_vlm.py and
+# tests/test_torch_whisper.py
+MLA_VLM_ARCHS = ["minicpm3-4b", "qwen2-vl-2b", "whisper-large-v3"]
 ATOL = RTOL = 2e-5
 BF16_ATOL = 8e-2
 B, T, NEW = 2, 256, 8
@@ -119,11 +120,11 @@ def test_configs_equal_the_reference(name):
 
 
 def test_only_dense_configs_registered_others_name_their_slice():
-    """The dense, MoE, MLA and VLM configs are registered; the three
-    others raise."""
+    """The dense, MoE, MLA, VLM and Whisper configs (eight) are registered;
+    the two others raise."""
     assert list(all_archs()) == sorted(ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
-    assert sorted(PENDING) == ["recurrentgemma-2b", "whisper-large-v3",
-                               "xlstm-350m"]
+    assert len(all_archs()) == 8
+    assert sorted(PENDING) == ["recurrentgemma-2b", "xlstm-350m"]
     for name, slice_ in PENDING.items():
         j_get_arch(name)                   # a config of the reference
         with pytest.raises(NotImplementedError, match="slice 9"):
@@ -368,15 +369,14 @@ def test_unported_paths_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.forward(moe_cfg, moe_params, torch.zeros((1, 4), dtype=torch.int32),
                    moe_strategy="a2a")
-    with pytest.raises(NotImplementedError, match="slice 9f or 9g"):
-        tt.LM(dataclasses.replace(cfg, rope_kind="none"), "cpu")
+    with pytest.raises(NotImplementedError, match="slice 9g"):
+        tt.LM(dataclasses.replace(cfg, unit=("rec",)), "cpu")
     m = model("llama3-8b")
     cache = tt.init_cache(m.cfg, B, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.decode_step(m.cfg, m.params, m.tokens[:, :1], cache,
                        torch.tensor(0), flash_decode=True)
     with pytest.raises(NotImplementedError, match="slice 9"):
-        attn.gqa_prefill(dataclasses.replace(m.cfg, rope_kind="none"),
-                         m.params.layers[0].attn,
+        tt.prefill_block("rec", m.cfg, m.params.layers[0],
                          torch.zeros(1, 4, m.cfg.d_model),
                          torch.zeros(1, 4, dtype=torch.int32), 4)

@@ -39,9 +39,10 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
 
 * ``--sass``: the instructions of the constant-table kmeans kernel at
   K = 32 (``cuobjdump -sass`` on the built library), by opcode, and per
-  (point, centroid) pair; and those of the bf16 flash_attention kernel at
-  D = 128, by opcode (HGMMA: the tensor-core products, UTMALDG: the TMA
-  loads, MUFU: the exponentials), with its registers and stack; and those
+  (point, centroid) pair; and those of the bf16 flash_attention kernels at
+  D = 128 and 64, by opcode (HGMMA: the tensor-core products, UTMALDG: the
+  TMA loads, MUFU: the exponentials), with their registers and stack; and
+  those
   of the delta_scatter kernels of the three rows (add and min at W = 1,
   add at W = 4), with their loads and atomics in full.
 * ``--phases``: three walls each of the phases these kernels carry
@@ -70,7 +71,10 @@ events around at least 5 calls and 20 ms of them, after one warm-up).
   and Delta, MUFU, USETMAXREG, and STL / LDL: spills), with their
   resources.
 * ``--flash``: the flash rows alone (forward and backward), without the
-  graph, delta_scatter and kmeans rows.
+  graph, delta_scatter and kmeans rows.  Both modes also time
+  chip_smoke.py's D = 64 rows (Whisper's encoder and prefill shapes, the
+  float32 kernel at the encoder's, and the backward at the gradient
+  phase's encoder) where the tree's bf16 kernels take D = 64.
 * ``--dist``: each phase of chip_smoke.py's DIST_PHASES (the shard_map
   backend on a world of one rank over NCCL, its group on a ``file://``
   store under ``build/``) in turns with its simulated twin, as the rule
@@ -94,11 +98,22 @@ ROOT = Path(__file__).resolve().parents[1]
 PHASE_RUNS = 3
 PAIR_ROUNDS = 2   # rounds of (twin, rules, rules, twin)
 SASS_KERNEL = "ka_table_kernelILi32E"   # ka_table_kernel<32>, mangled
-FLASH_SASS_KERNEL = "fa_bf16_kernel"
-# The bf16 backward's two tensor-core kernels (the float32 file's
-# templates of the same names are mangled with their template arguments).
-BWD_SASS_KERNELS = {"dkdv": "bwd_dkdvE14CUtensorMap",
-                    "dq": "bwd_dqE14CUtensorMap"}
+# The bf16 flash kernels by head dim, each by the substrings of its mangled
+# name (its file's anonymous namespace, then the instance: the float32
+# backward's templates have the same kernel names); each later tuple is
+# the name in a tree from before the head-dim template (one D = 128
+# kernel), tried when the first finds nothing.
+FLASH_SASS_KERNELS = {
+    "d128": [("bf16_cu", "fa_bf16_kernelILi128E"),
+             ("bf16_cu", "fa_bf16_kernelE")],
+    "d64": [("bf16_cu", "fa_bf16_kernelILi64E")]}
+BWD_SASS_KERNELS = {
+    "dkdv_d128": [("bwd_bf16_cu", "bwd_dkdvILi128E"),
+                  ("bwd_bf16_cu", "bwd_dkdvE14CUtensorMap")],
+    "dq_d128": [("bwd_bf16_cu", "bwd_dqILi128E"),
+                ("bwd_bf16_cu", "bwd_dqE14CUtensorMap")],
+    "dkdv_d64": [("bwd_bf16_cu", "bwd_dkdvILi64E")],
+    "dq_d64": [("bwd_bf16_cu", "bwd_dqILi64E")]}
 # ds_kernel<OP, V, FW, ALIGNED>, mangled: add at W = 1, min at W = 1, add
 # at W = 4 with an aligned payload.
 SCATTER_SASS_KERNELS = {"add_w1": "ds_kernelILi0ELi1ELi1ELb1E",
@@ -107,14 +122,16 @@ SCATTER_SASS_KERNELS = {"add_w1": "ds_kernelILi0ELi1ELi1ELb1E",
 PAIR_OPS = ("FMUL", "FFMA", "FADD", "FSETP", "FSEL", "FMNMX", "SEL")
 
 
-def opcodes(sass: str, kernel: str) -> collections.Counter:
+def opcodes(sass: str, kernel) -> collections.Counter:
     """Opcode counts (NOP left out) of the function of ``sass`` whose
-    mangled name holds ``kernel``."""
+    mangled name holds ``kernel`` (a string, or a tuple of strings it
+    holds all of)."""
+    parts = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     ops: collections.Counter = collections.Counter()
     inside = False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
+            inside = all(part in line for part in parts)
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                      r"([A-Z][A-Z0-9_]*)", line)
@@ -150,20 +167,24 @@ def sass_counts(sass: str, csrc: Path, k: int) -> dict:
             "ops": dict(ops.most_common())}
 
 
-def flash_sass_counts(sass: str, lib: Path,
-                      kernel: str = FLASH_SASS_KERNEL) -> dict:
-    """Opcodes of ``kernel``: the total, and the tensor-core products, TMA
-    loads, bulk copies, exponentials, register reallocations and spills;
-    and its resources as ``cuobjdump -res-usage`` reports them (registers
-    at entry, stack, local memory)."""
-    ops = opcodes(sass, kernel)
+def flash_sass_counts(sass: str, lib: Path, names: list) -> dict:
+    """Opcodes of the first kernel of ``names`` (tuples of substrings of
+    mangled names) found in ``sass``: the total, and the tensor-core
+    products, TMA loads, bulk copies, exponentials, register
+    reallocations and spills; and its resources as ``cuobjdump
+    -res-usage`` reports them (registers at entry, stack, local memory)."""
+    kernel, ops = names[0], collections.Counter()
+    for kernel in names:
+        ops = opcodes(sass, kernel)
+        if ops:
+            break
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     usage = subprocess.run([tool, "-res-usage", str(lib)],
                            capture_output=True, text=True, check=True,
                            timeout=300).stdout.splitlines()
     res = next((usage[i + 1].strip() for i, line in enumerate(usage[:-1])
-                if kernel in line), None)
-    return {"kernel": kernel, "found": bool(ops),
+                if all(part in line for part in kernel)), None)
+    return {"kernel": "*".join(kernel), "found": bool(ops),
             "instructions": sum(ops.values()),
             **{o: ops[o] for o in ("HGMMA", "UTMALDG", "UBLKCP", "MUFU",
                                    "USETMAXREG", "STL", "LDL")},
@@ -220,7 +241,9 @@ def bwd_rows(cs, dev, seed) -> dict:
              sh["seq"], sh["seq"], cfg.hd)
     shapes = {"train": (layer, True, cfg.dtype),
               "train_f32": (layer, True, "float32"),
-              **cs.FLASH_BWD_OFF_PATH}
+              **cs.FLASH_BWD_OFF_PATH,
+              **{k[4:]: v for k, v in whisper_shapes(cs).items()
+                 if k.startswith("bwd_")}}
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
     for label, (shape, causal, dtype) in shapes.items():
@@ -482,10 +505,12 @@ def main(argv=None) -> int:
     if args.sass:
         sass = library_sass(lib)
         out["kmeans_sass"] = sass_counts(sass, _build.CSRC, cs.KMEANS_K)
-        out["flash_bf16_sass"] = flash_sass_counts(sass, lib)
+        out["flash_bf16_sass"] = {
+            name: flash_sass_counts(sass, lib, names)
+            for name, names in FLASH_SASS_KERNELS.items()}
         out["flash_bwd_sass"] = {
-            name: flash_sass_counts(sass, lib, kernel)
-            for name, kernel in BWD_SASS_KERNELS.items()}
+            name: flash_sass_counts(sass, lib, names)
+            for name, names in BWD_SASS_KERNELS.items()}
         out["delta_scatter_sass"] = scatter_sass_counts(sass)
     print(json.dumps(out))
     return 0
@@ -551,8 +576,29 @@ def graph_and_points(args, cs, dev, size, rows, out) -> None:
     torch.cuda.empty_cache()
 
 
+def whisper_shapes(cs) -> dict:
+    """chip_smoke.py's D = 64 flash rows (whisper-large-v3's encoder layer
+    and decoder prefill, and the backward at the gradient phase's
+    encoder): label -> ((B, H, H_kv, T, S, D), causal, dtype); none for a
+    tree whose bf16 kernels take no D = 64."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    import torch
+    if 64 not in fa_ops.HEAD_DIMS[torch.bfloat16]:
+        return {}
+    sh = cs.WHISPER_SHAPES
+    heads = (20, 20)        # whisper-large-v3's, head dim 64
+    enc = (sh["fwd_batch"], *heads, 1500, 1500, 64)
+    return {"encoder_d64": (enc, False, "bfloat16"),
+            "prefill_d64": ((sh["fwd_batch"], *heads, sh["prompt"],
+                             sh["prompt"], 64), True, "bfloat16"),
+            "encoder_d64_f32": (enc, False, "float32"),
+            "bwd_encoder_d64": ((sh["grad_batch"], *heads, 1500, 1500, 64),
+                                False, "bfloat16")}
+
+
 def flash_rows(cs, dev, size, rows) -> None:
-    """flash_attention at chip_smoke.py's forward shapes, random inputs."""
+    """flash_attention at chip_smoke.py's forward shapes, random inputs
+    (and Whisper's D = 64 rows, for a tree whose bf16 kernels take it)."""
     import torch
     from repro_torch.configs import get_arch
     cfg, sh = get_arch(cs.LM_ARCH), cs.LM_SHAPES
@@ -562,7 +608,9 @@ def flash_rows(cs, dev, size, rows) -> None:
               "prefill": ((sh["serve_batch"], *heads, sh["prompt"],
                            sh["prompt"], cfg.hd), True, cfg.dtype),
               "forward_f32": (fwd, True, "float32"),
-              **cs.FLASH_OFF_PATH}
+              **cs.FLASH_OFF_PATH,
+              **{k: v for k, v in whisper_shapes(cs).items()
+                 if not k.startswith("bwd_")}}
     g = torch.Generator(device=dev).manual_seed(size.seed)
     for label, (shape, causal, dtype) in shapes.items():
         rows.append(cs.flash_row(label, None,
