@@ -244,6 +244,33 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
 * after ``moe_serve``, ``moe_prefill_full``: arctic's prefill at a capacity
   factor of E / k, which keeps every routed copy, beside serve's prefill;
   the kept and dropped copies of both, and of mixtral's prefill.
+* the recurrent block kinds at full width and depth, no kernel (the
+  recurrences run plain torch in both packages; the local window takes the
+  window paths at head dim 256), bf16 weights from the port's seeded init,
+  tokens from ``TokenPipeline``: recurrentgemma-2b (26 layers: 8 units of
+  ("rec", "rec", "attn_local") and a ("rec", "rec") tail; d 2560, RG-LRU
+  width 2560, conv 4, 10/1 heads of 256 in a window of 2048, d_ff 7680,
+  vocab 256,000; 3,549,795,840 parameters) and xlstm-350m (24 layers of
+  ("mlstm", "slstm"); d 1024, 4 heads of 256, chunk 64, no MLP, sinusoid
+  positions, LayerNorm):
+  - ``recgemma_forward`` / ``xlstm_forward``: the forward at 2 x 4096,
+    wall, tok/s and peak memory;
+  - ``recgemma_serve`` / ``xlstm_serve``: ``serve`` on 8 prompts of 2048
+    tokens and 64 new ones; the cache's bytes against their formula
+    (``state_bytes``) beside a full K/V cache's; the sLSTM loops timed
+    alone beside xlstm's prefill; the prefill's last logits against the
+    forward (one bf16 ulp); 8 teacher-forced decode steps against the
+    forward (LM_DECODE_BOUND, recurrentgemma only) and, for both, their
+    distance from the same weights evaluated in float32 against the bf16
+    forward's own (RECURRENT_DECODE_FACTOR); both in float32 at full width
+    with a 2000-token prompt at 5 layers (one unit and the tail) / 4
+    layers (a padded last chunk) within 1e-4;
+  - ``rglru_scan``: layer 0's (a, b) on the serve prompt, the log-depth
+    scan against the sequential recurrence in float64 (RGLRU_SCAN_BOUND
+    and the rounding bound derived there);
+  - ``mlstm_chunks``: layer 0 on 2 x 1024 tokens, the chunked forward in
+    float32 against 1024 float64 steps of ``mlstm_decode``
+    (MLSTM_CHUNK_BOUND).
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -439,6 +466,66 @@ VLM_SHAPES = dict(fwd_batch=2, fwd_seq=4096, fwd_text0=1024, grid=32,
 WHISPER_ARCH = "whisper-large-v3"
 WHISPER_SHAPES = dict(fwd_batch=8, text=448, prompt=384, new=64,
                       decode_steps=8, tight_layers=4, grad_batch=4)
+# The recurrent phases, each model at full width and depth: the forward at
+# 2 x 4096 (train_4k's sequence, its batch cut to 2); lm_serve's traffic
+# (8 prompts of 2048 tokens, 64 new tokens) and 8 teacher-forced decode
+# steps; the float32 check at full width with a prompt of 2000 tokens, at
+# RECURRENT_TIGHT_LAYERS (recurrentgemma: one unit and the ("rec", "rec")
+# tail, so the tail runs on the card; xlstm: two units, 2000 not a
+# multiple of the 64-token chunk, so the padded prefill state is
+# exercised); the mLSTM chunk check at layer 0 over 2 x 1024.
+RECGEMMA_ARCH = "recurrentgemma-2b"
+XLSTM_ARCH = "xlstm-350m"
+RECURRENT_SHAPES = dict(fwd_batch=2, fwd_seq=4096, serve_batch=8,
+                        prompt=2048, new=64, decode_steps=8,
+                        tight_prompt=2000, mlstm_batch=2, mlstm_seq=1024)
+RECURRENT_TIGHT_LAYERS = {RECGEMMA_ARCH: 5, XLSTM_ARCH: 4}
+# rglru_scan: the log-depth scan (float32) against the sequential
+# recurrence h_t = a_t h_{t-1} + b_t in float64 on the same (a, b).  h_t =
+# sum_s P_st b_s, P_st = a_{s+1} ... a_t.  However a scan brackets it, the
+# term of b_s reaches h_t through t - s multiplications (each merges one
+# more factor) and, on its path, at most 2 ceil(log2 T) additions (one a
+# combine), each rounded to float32 (u = 2^-24), so
+#   |h32_t - h64_t| <= u sum_s (t - s + 2 ceil(log2 T)) P_st |b_s|,
+# which the check computes in float64 beside the recurrence (two more
+# recurrences: on |b|, and on the lags).  The gates make P decay fast at
+# this init: a = exp(-8 softplus(lam) r) with lam in [0.9, 4] and r =
+# sigmoid of an N(0, 1) product, so a <= exp(-9.9 sigmoid(-4)) = 0.84 but
+# for odds of 3e-5 a channel, a mean lag a / (1 - a) of 5 at most; with 22
+# additions at T = 2048 that is about 27 u = 1.6e-6 of sum |terms|, and
+# 1e-5 of max |h| leaves sum |terms| up to 6 times max |h|.
+RGLRU_SCAN_BOUND = 1e-5
+# Teacher-forced decode against the forward for the recurrent models, bf16
+# at full depth.  recurrentgemma-2b is held to LM_DECODE_BOUND, as the
+# dense models are.  xlstm-350m is not: its bf16 forward itself lies 0.20
+# of the largest logit from the same weights evaluated in float32 at this
+# prompt, so any two bf16 evaluations of it part by that much (PERF.md).
+# For both, decode's own distance from the float32 evaluation is held to
+# RECURRENT_DECODE_FACTOR times the bf16 forward's at the same positions.
+# Decode and forward round the same quantities to bf16 at the same points
+# (each bf16 product's output, each block's output, the residual stream),
+# so each is one bf16 evaluation of the same function and lies about as far
+# from the float32 one; a decode-only fault adds its own error on top.  The
+# factor leaves room for the spread of two such draws, a fixed one, not
+# read from the run it judges.  The float32 checks (LM_TIGHT_BOUND) hold
+# the decode path to the forward, and tests/test_torch_recurrent.py holds
+# the bf16 forward, prefill and decode to the reference's at reduced size,
+# decode to the same factor there, and the port's bf16 prefill and decode
+# to two bf16 ulps of its own bf16 forward.
+RECURRENT_DECODE_FACTOR = 1.5
+RECURRENT_DECODE_HELD = (RECGEMMA_ARCH,)   # also within LM_DECODE_BOUND
+# mlstm_chunks: the chunked forward (float32) against T steps of
+# mlstm_decode in float64 on the same float32 weights and inputs, the
+# relative L2 error over all outputs.  A float32 sum of n terms errs by at
+# most n u of its terms' magnitudes.  An output's longest sums are the
+# output projection (H hd = 1024 products), a q . k, C0^T q or n0 . q
+# product (hd = 256), a chunk's keys (64) and the carry's chunk updates
+# (16 at T = 1024): (1024 + 256 + 64 + 16) u = 8.1e-5 of the magnitudes
+# where every rounding falls the same way, and errors of random sign add
+# as sqrt(n) u, 40 times less.  1e-4 bounds the worst case where the
+# terms' magnitudes are the outputs' size in L2, as a forward whose
+# contributions do not cancel on average has them.
+MLSTM_CHUNK_BOUND = 1e-4
 # blocked_attention against _windowed_attention, both float32 with the
 # same masked scores: only the order of the online softmax's sums parts
 # them.
@@ -2940,11 +3027,19 @@ def teacher_forced(cfg, params, tokens, start, steps, enc_out=None):
     slots (an encoder-decoder's with ``enc_out``), then decode ``tokens[:,
     start + i]`` at position ``start + i``; returns the decode logits
     f32[B, steps, V]."""
-    import torch
     from repro_torch.models import transformer
     _, cache = transformer.prefill_forward(cfg, params,
                                            tokens[:, :start].contiguous(),
                                            start + steps, enc_out=enc_out)
+    return decode_steps(cfg, params, cache, tokens, start, steps)
+
+
+def decode_steps(cfg, params, cache, tokens, start, steps):
+    """Decode ``tokens[:, start + i]`` at position ``start + i`` for i <
+    ``steps`` from ``cache`` (changed in place); the logits f32[B, steps,
+    V]."""
+    import torch
+    from repro_torch.models import transformer
     out = []
     for i in range(steps):
         logits, cache = transformer.decode_step(
@@ -4536,6 +4631,313 @@ def whisper_section(args, dev, phases, rows, cfg=None, shapes=WHISPER_SHAPES):
     torch.cuda.empty_cache()
 
 
+def state_bytes(cfg, batch, slots) -> int:
+    """The bytes of a recurrent model's serving cache by formula: per
+    ``"rec"`` layer h [B, R] and conv [B, W - 1, R] in float32; per
+    ``"mlstm"`` layer C [B, H, hd, hd], n [B, H, hd] and m [B, H] in float32;
+    per ``"slstm"`` layer c, n, h, m [B, H, hd] in float32; per
+    ``"attn_local"`` layer a ring of ``slots`` = min(window, max_len): k and
+    v [B, H_kv, slots, hd] in the config dtype and pos int32 [B, slots]."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dtype_of
+    r, w, h, hd = cfg.rnn_dim, cfg.conv_width, cfg.n_heads, cfg.hd
+    itemsize = dtype_of(cfg.dtype).itemsize
+    per = {"rec": 4 * batch * r * w,
+           "mlstm": 4 * batch * h * (hd * hd + hd + 1),
+           "slstm": 4 * batch * h * hd * 4,
+           "attn_local": (2 * batch * cfg.n_kv_heads * slots * hd * itemsize
+                          + 4 * batch * slots)}
+    return sum(per[k] for k in transformer.layer_kinds(cfg))
+
+
+def layer0_cell_input(cfg, params, tokens):
+    """Layer 0's cell input on ``tokens``, as the forward gives it: the
+    embedding rows (plus the sinusoid for ``rope_kind="none"``) through
+    ``ln1``, in the model's dtype."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import apply_norm
+    b, t = tokens.shape
+    pos = torch.arange(t, dtype=torch.int32, device=tokens.device).expand(
+        b, t)
+    x = transformer._add_positions(cfg, params.embed[tokens.long()], pos)
+    return apply_norm(cfg.norm_kind, params.layers[0].ln1, x)
+
+
+def rglru_scan_check(cfg, params, prompt) -> None:
+    """rglru_scan: layer 0's (a, b) on the serve prompt at full width, the
+    log-depth scan against the sequential float64 recurrence
+    (RGLRU_SCAN_BOUND)."""
+    import torch
+    from repro_torch.models import rglru
+    from repro_torch.models.layers import mm, widen
+    cell = params.layers[0].cell
+    x = layer0_cell_input(cfg, params, prompt)
+    u = rglru._causal_conv(widen(mm(x, cell.w_in)), cell.conv_w)
+    a, b = rglru._gates(cell, u)
+    del x, u
+    _, h32 = rglru.associative_scan(a, b)
+    a64, b64 = a.double(), b.double()
+    del a, b
+    t = b64.shape[1]
+    adds = 2 * math.ceil(math.log2(t))
+    h64, bound64 = torch.empty_like(b64), torch.empty_like(b64)
+    hh = torch.zeros_like(b64[:, 0])
+    mag, lag = torch.zeros_like(hh), torch.zeros_like(hh)
+    for i in range(t):
+        ai = a64[:, i]
+        hh = ai * hh + b64[:, i]
+        lag = ai * (lag + mag)          # sum_s (t - s) P_st |b_s|
+        mag = ai * mag + b64[:, i].abs()  # sum_s P_st |b_s|
+        h64[:, i] = hh
+        bound64[:, i] = 2.0 ** -24 * (lag + adds * mag)
+    diff = (h32.double() - h64).abs()
+    hmax = float(h64.abs().max())
+    err = float(diff.max()) / hmax
+    derived = bool((diff <= 1.001 * bound64 + 1e-300).all())
+    print(f"rglru_scan: layer 0, [{b64.shape[0]}x{t}x{b64.shape[2]}] a in "
+          f"[{float(a64.min()):.3e}, {float(a64.max()):.3e}]: log-depth scan "
+          f"(float32, {math.ceil(math.log2(t))} levels) vs sequential "
+          f"float64 {err:.3e} of max|h| (bound {RGLRU_SCAN_BOUND}); the "
+          f"rounding bound u (lag + {adds} adds) sum|terms| reaches "
+          f"{float(bound64.max()) / hmax:.3e} of max|h| and holds "
+          f"everywhere: {derived}", flush=True)
+    check(err <= RGLRU_SCAN_BOUND and derived,
+          f"rglru_scan: the scan is off the float64 recurrence by {err:.3e}")
+
+
+def mlstm_chunk_check(cfg, params, tokens) -> None:
+    """mlstm_chunks: layer 0's cell on ``tokens`` [B, T], the chunked
+    forward in float32 against T steps of mlstm_decode in float64
+    (MLSTM_CHUNK_BOUND, relative L2)."""
+    import copy
+    import torch
+    from repro_torch.models import ssm
+    cell = params.layers[0].cell
+    x = layer0_cell_input(cfg, params, tokens)
+    y32 = ssm.mlstm_forward(cfg, copy.deepcopy(cell).float(), x.float())
+    cell64 = copy.deepcopy(cell).double()
+    x64 = x.double()
+    state = {k: v.double() for k, v in ssm.init_mlstm_state(
+        cfg, x.shape[0], x.device).items()}
+    ys = []
+    for i in range(x.shape[1]):
+        y, state = ssm.mlstm_decode(cfg, cell64, x64[:, i:i + 1], state)
+        ys.append(y)
+    y64 = torch.cat(ys, dim=1)
+    err = float(torch.linalg.vector_norm(y32.double() - y64)
+                / torch.linalg.vector_norm(y64))
+    print(f"mlstm_chunks: layer 0, [{x.shape[0]}x{x.shape[1]}], chunk "
+          f"{cfg.mlstm_chunk}: chunked forward (float32) vs {x.shape[1]} "
+          f"float64 decode steps, relative L2 {err:.3e} (bound "
+          f"{MLSTM_CHUNK_BOUND})", flush=True)
+    check(err <= MLSTM_CHUNK_BOUND, f"mlstm_chunks: the chunked forward is "
+                                    f"off the recurrence by {err:.3e}")
+
+
+def slstm_loops(cfg, params, prompt) -> float:
+    """Seconds that the sLSTM layers' time loops take alone: each sLSTM
+    layer's cell run on layer 0's cell input for ``prompt`` (the loop's
+    cost does not depend on the values), between device syncs."""
+    from repro_torch.models import ssm, transformer
+    x = layer0_cell_input(cfg, params, prompt)
+    sync()
+    t0 = time.perf_counter()
+    for kind, block in zip(transformer.layer_kinds(cfg), params.layers):
+        if kind == "slstm":
+            ssm.slstm_forward(cfg, block.cell, x)
+    sync()
+    return time.perf_counter() - t0
+
+
+def recurrent_model(args, dev, phases, cfg, sh, label) -> None:
+    """One recurrent model at full width and depth: ``{label}_forward``,
+    ``{label}_serve`` (through ``launch/serve.py``'s ``serve``) and their
+    checks; no kernel launches."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    sync()
+    kinds = transformer.layer_kinds(cfg)
+    counted = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers ({counted}; unit "
+          f"{cfg.unit} x {cfg.n_units}, tail {cfg.tail}) "
+          f"d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} "
+          f"rnn {cfg.rnn_dim} conv {cfg.conv_width} window {cfg.window} "
+          f"chunk {cfg.mlstm_chunk} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"rope {cfg.rope_kind} {cfg.norm_kind} {cfg.dtype}: "
+          f"{transformer.param_count(params)} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to init on the card)",
+          flush=True)
+
+    def no_kernel(name, counts):
+        check(not any(counts.values()),
+              f"{name}: launched {counts}; the recurrent kinds and the "
+              f"local window run no kernel")
+
+    B, T = sh["fwd_batch"], sh["fwd_seq"]
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed + 11,
+                           device=dev).batch_at(0)["tokens"]
+    name = f"{label}_forward"
+    # The sLSTM loops are bound by the host: a warm-up call would only
+    # double xlstm's time.
+    warm = "slstm" not in kinds
+    logits, wall, counts, peak = phases.run(
+        name, name, (), lambda: transformer.forward(cfg, params, tokens)[0],
+        warm_up=warm)
+    no_kernel(name, counts)
+    check(logits.shape == (B, T, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          f"{name}: logits {tuple(logits.shape)} not finite")
+    print(f"phase {name}: [{B}x{T}] wall {wall:.3f} s {B * T / wall:.0f} "
+          f"tok/s launches {counts} peak_mem {peak:.2f} GiB; card "
+          f"{card_line()}", flush=True)
+    del logits, tokens
+    torch.cuda.empty_cache()
+
+    B, P, new, n = sh["serve_batch"], sh["prompt"], sh["new"], \
+        sh["decode_steps"]
+    ext = TokenPipeline(cfg.vocab, P + n, B, seed=args.seed + 12,
+                        device=dev).batch_at(0)["tokens"]
+    prompt = ext[:, :P].contiguous()
+    name = f"{label}_serve"
+    res, wall, counts, peak = phases.run(
+        name, name, (), lambda: serve(cfg, params, prompt, new),
+        warm_up=warm)
+    no_kernel(name, counts)
+    toks = res.tokens
+    check(toks.shape == (B, new) and toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()) and
+          bool(torch.isfinite(res.prefill_logits).all()),
+          f"{name}: tokens {toks.dtype}{tuple(toks.shape)} out of range")
+    print(serve_line(name, B, P, new, res, wall, counts, peak), flush=True)
+    # One more prefill: serve's logits, the state's bytes against the
+    # formula beside a full K/V cache's, and the cache the teacher-forced
+    # decode below starts from.
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill_forward(cfg, params, prompt, P + new)
+    sync()
+    pre_wall = time.perf_counter() - t0
+    check(torch.equal(logits, res.prefill_logits),
+          f"{name}: prefill logits differ from serve's")
+    if "slstm" in kinds:
+        spent = slstm_loops(cfg, params, prompt)
+        print(f"{name}: the sLSTM time loops ({kinds.count('slstm')} layers "
+              f"x {P} steps) take {spent:.3f} s alone (each layer's cell on "
+              f"layer 0's input), beside a {pre_wall:.3f} s prefill "
+              f"({spent / pre_wall:.1%})", flush=True)
+    got = sum(nbytes(*leaves.values()) for c in cache["layers"]
+              for leaves in c.values())
+    slots = min(cfg.window, P + new) if cfg.window else P + new
+    want = state_bytes(cfg, B, slots)
+    kv = cfg.n_layers * B * (P + new) * 2 * cfg.n_kv_heads * cfg.hd * 2
+    ring = f"; a ring of {slots} slots" if "attn_local" in kinds else ""
+    print(f"{name}: cache {got} bytes ({got / 1e9:.4f} GB: "
+          f"{', '.join(sorted(set(kinds)))}{ring}) against "
+          f"{kv / 1e9:.3f} GB for a full K/V cache of {P + new} positions "
+          f"in {cfg.n_layers} layers of {cfg.n_kv_heads} KV heads of "
+          f"{cfg.hd}", flush=True)
+    check(got == want, f"{name}: the cache holds {got} bytes, not {want}")
+    dec = decode_steps(cfg, params, cache, ext, P, n)
+    del logits, cache
+    torch.cuda.empty_cache()
+    if "rec" in kinds:
+        rglru_scan_check(cfg, params, prompt)
+    if "mlstm" in kinds:
+        mlstm_chunk_check(cfg, params,
+                          ext[:sh["mlstm_batch"], :sh["mlstm_seq"]])
+    torch.cuda.empty_cache()
+
+    full, _ = transformer.forward(cfg, params, prompt)
+    last = full[:, -1:].clone()
+    del full
+    err_prefill = rel_err(res.prefill_logits, last)
+    full, _ = transformer.forward(cfg, params, ext)
+    tail = full[:, P:].clone()
+    del full
+    err_dec = rel_err(dec, tail)
+    # Decode's and the bf16 forward's distances from the same weights
+    # evaluated in float32 (RECURRENT_DECODE_FACTOR).
+    cfg_up = dataclasses.replace(cfg, dtype="float32")
+    full, _ = transformer.forward(cfg_up, copy.deepcopy(params).float(), ext)
+    fwd32 = rel_err(tail, full[:, P:])
+    dec32 = rel_err(dec, full[:, P:])
+    held = cfg.name in RECURRENT_DECODE_HELD
+    del full, tail, last, params, dec
+    torch.cuda.empty_cache()
+
+    # Full width, float32, tight depth, a prompt of tight_prompt tokens.
+    cfg32 = dataclasses.replace(cfg, n_layers=RECURRENT_TIGHT_LAYERS[cfg.name],
+                                dtype="float32")
+    p32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    P32 = sh["tight_prompt"]
+    ext32 = ext[:, :P32 + n].contiguous()
+    before = phases.counts()
+    f32, _ = transformer.forward(cfg32, p32, ext32)
+    pre32, cache32 = transformer.prefill_forward(
+        cfg32, p32, ext32[:, :P32].contiguous(), P32 + n)
+    err_pre32 = rel_err(pre32, f32[:, P32 - 1:P32])
+    err_dec32 = rel_err(decode_steps(cfg32, p32, cache32, ext32, P32, n),
+                        f32[:, P32:])
+    check(phases.counts() == before, f"{name} float32: a kernel launched")
+    del p32, f32, pre32, cache32
+    torch.cuda.empty_cache()
+    print(f"{name}: prefill last logits vs forward {err_prefill:.3e} (bound "
+          f"{LM_PREFILL_BOUND:.3e}); teacher-forced decode ({n} steps) vs "
+          f"forward {err_dec:.3e} (bound "
+          f"{LM_DECODE_BOUND if held else 'none: see RECURRENT_DECODE_HELD'}"
+          f"); vs the float32 evaluation: decode {dec32:.3e}, the bf16 "
+          f"forward {fwd32:.3e} (decode's bound {RECURRENT_DECODE_FACTOR} x "
+          f"the forward's = {RECURRENT_DECODE_FACTOR * fwd32:.3e}); "
+          f"float32 at "
+          f"{cfg32.n_layers} layers "
+          f"({', '.join(transformer.layer_kinds(cfg32))}), full width, "
+          f"prompt {P32}: prefill vs forward {err_pre32:.3e}, "
+          f"decode vs forward {err_dec32:.3e} (bound {LM_TIGHT_BOUND}); "
+          f"sample {toks[0, :8].tolist()}", flush=True)
+    check(err_prefill <= LM_PREFILL_BOUND, f"{name}: prefill logits off the "
+                                           f"forward")
+    check(not held or err_dec <= LM_DECODE_BOUND,
+          f"{name}: decode off the forward")
+    check(dec32 <= RECURRENT_DECODE_FACTOR * fwd32,
+          f"{name}: decode farther from the float32 evaluation than the "
+          f"bf16 forward allows")
+    check(max(err_pre32, err_dec32) <= LM_TIGHT_BOUND,
+          f"{name} float32: prefill or decode off the forward")
+    del res, ext, prompt
+    torch.cuda.empty_cache()
+
+
+def recurrent_section(args, dev, phases, rows, cfgs=None,
+                      shapes=RECURRENT_SHAPES):
+    """The recurrent block kinds at full width and depth, served through
+    ``launch/serve.py``'s ``serve``: recurrentgemma-2b (RG-LRU and local
+    attention, 26 layers with a ("rec", "rec") tail) and xlstm-350m
+    (mLSTM and sLSTM, 24 layers).  No kernel: the recurrences are plain
+    torch in both packages, and the local window takes the window paths
+    at a head dim of 256, which no flash kernel takes (``cfgs``, a pair of
+    configs, and ``shapes`` shrink it for a rehearsal on the CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rg, xl = cfgs or (get_arch(RECGEMMA_ARCH), get_arch(XLSTM_ARCH))
+    recurrent_model(args, dev, phases, rg, shapes, "recgemma")
+    torch.cuda.empty_cache()
+    recurrent_model(args, dev, phases, xl, shapes, "xlstm")
+    torch.cuda.empty_cache()
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -4598,6 +5000,8 @@ def main(argv=None) -> int:
     vlm_section(args, dev, phases, rows)
     torch.cuda.empty_cache()
     whisper_section(args, dev, phases, rows)
+    torch.cuda.empty_cache()
+    recurrent_section(args, dev, phases, rows)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,5 +1,5 @@
-"""Architecture configs: the reference's dense, MoE, MLA and VLM LMs and
-its Whisper encoder-decoder (``configs/base.py``)."""
+"""Architecture configs: the reference's dense, MoE, MLA, VLM and
+recurrent LMs and its Whisper encoder-decoder (``configs/base.py``)."""
 from repro_torch.configs.base import (PENDING, SHAPES, ArchConfig, Shape,
                                       all_archs, get_arch, register)
 

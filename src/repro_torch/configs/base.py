@@ -1,13 +1,14 @@
 """Architecture configs and shape registry (the reference's
 ``configs/base.py``, copied: same fields, defaults and ``reduced()``).
 
-Only the configs whose code the port has are registered: the dense
+All ten of the reference's configs are registered: the dense
 ``olmo-1b``, ``llama3-8b`` and ``starcoder2-3b``, the MoE ``arctic-480b``
 and ``mixtral-8x22b``, ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE,
-vision stub) and ``whisper-large-v3`` (encoder-decoder, sinusoid
-positions, audio stub).  ``get_arch`` of another of the reference's
-configs raises ``NotImplementedError`` naming the ROADMAP slice that
-brings it.
+vision stub), ``whisper-large-v3`` (encoder-decoder, sinusoid positions,
+audio stub), ``recurrentgemma-2b`` (RG-LRU and local attention, a
+two-layer tail) and ``xlstm-350m`` (mLSTM and sLSTM).  ``PENDING`` maps
+a config still to be ported to the ROADMAP slice that brings it, and
+``get_arch`` of one raises ``NotImplementedError`` naming it; it is empty.
 
 Shape semantics (LM family):
   train_4k     — train_step,  seq 4096,   global batch 256
@@ -119,12 +120,9 @@ class ArchConfig:
             mlstm_chunk=8, dtype="float32", remat=False)
 
 
-# The reference's other configs, and the ROADMAP slice (queue 1) that
-# brings each.
-PENDING = {
-    "recurrentgemma-2b": "slice 9g (RG-LRU, sliding window)",
-    "xlstm-350m": "slice 9g (xLSTM)",
-}
+# The reference's configs not yet ported, and the ROADMAP slice (queue 1)
+# that brings each: none.
+PENDING: dict = {}
 
 _REGISTRY: dict = {}
 
@@ -153,5 +151,6 @@ def _load_all():
     # Import side-effect registers every ported config.
     from repro_torch.configs import (arctic_480b, llama3_8b,  # noqa
                                      minicpm3_4b, mixtral_8x22b, olmo_1b,
-                                     qwen2_vl_2b, starcoder2_3b,
-                                     whisper_large_v3)
+                                     qwen2_vl_2b, recurrentgemma_2b,
+                                     starcoder2_3b, whisper_large_v3,
+                                     xlstm_350m)

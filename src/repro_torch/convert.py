@@ -6,8 +6,9 @@ name).  They become the port's tensors, with the port's pinned types, on a
 given device; ``to_numpy`` goes back.  Both sides then run on identical
 data.
 
-``lm_params_from_jax`` carries the reference's LM parameter tree (dense,
-MoE, MLA or Whisper's encoder-decoder) into a ``models.transformer.LM``;
+``lm_params_from_jax`` carries the reference's LM parameter tree (any
+config: dense, MoE, MLA, recurrent with its tail, or Whisper's
+encoder-decoder) into a ``models.transformer.LM``;
 ``train_state_from_jax`` a whole TrainState (parameters, AdamW's step, μ
 and ν, the compression residuals) into the port's, and
 ``train_state_to_jax`` back into the reference's tree of numpy arrays.
@@ -89,14 +90,18 @@ def _array_to_torch(arr) -> torch.Tensor:
 
 def lm_params_from_jax(cfg, params, device=None) -> LM:
     """An ``LM`` on ``device`` holding the reference's parameters
-    ``params`` (its ``transformer.init_params`` tree; the per-layer arrays
-    are stacked under ``units/b0_<kind>`` with a leading layer axis: for
-    MoE the float32 router, the experts and arctic's ``ffn.dense``; for
-    MLA ``attn.{w_dq, w_uq, w_dkv, w_uk, w_uv, w_kr, wo}`` and the float32
-    ``attn.{q_norm, kv_norm}``; for Whisper each decoder block's
-    ``ln_cross`` and ``cross.{wq, wk, wv, wo}``, and the encoder's blocks
-    stacked under ``enc_units/b0_enc`` beside ``enc_norm``), bit for bit.
-    Names, shapes and types must match exactly."""
+    ``params`` (its ``transformer.init_params`` tree; the unit's arrays
+    are stacked under ``units/b{i}_<kind>`` with a leading unit axis, a
+    tail layer's under ``tail/t{j}_<kind>`` unstacked
+    (``transformer.layer_leaf``): for MoE the float32 router, the experts
+    and arctic's ``ffn.dense``; for MLA ``attn.{w_dq, w_uq, w_dkv, w_uk,
+    w_uv, w_kr, wo}`` and the float32 ``attn.{q_norm, kv_norm}``; for the
+    recurrent kinds ``cell``'s weights (RG-LRU's float32 ``conv_w``,
+    ``w_a``, ``w_x``, ``lam``; mLSTM's float32 ``w_if``; sLSTM's float32
+    ``r_gates``); for Whisper each decoder block's ``ln_cross`` and
+    ``cross.{wq, wk, wv, wo}``, and the encoder's blocks stacked under
+    ``enc_units/b0_enc`` beside ``enc_norm``), bit for bit.  Names, shapes
+    and types must match exactly, and every leaf of the tree is filled."""
     model = LM(cfg, resolve_device(device))
 
     def put(dst, src, name):
@@ -115,8 +120,8 @@ def lm_params_from_jax(cfg, params, device=None) -> LM:
     n_leaves = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            src = leaf(params, stacked_name(name, model.unit))
-            u = stacked_row(name)
+            src = leaf(params, stacked_name(name, model))
+            u = stacked_row(name, model)
             if u is not None:
                 put(p, np.asarray(src)[u], name)
                 n_leaves += u == 0

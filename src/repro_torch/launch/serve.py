@@ -12,8 +12,11 @@ flash_attention kernel on the card), then ``new_tokens - 1`` greedy
 (``--arch whisper-large-v3``) first encodes float32 frames [B,
 encoder_seq, d_model] drawn from ``--seed`` (the audio frontend is a
 stub, as the reference's ``main`` draws its frames), and its prefill
-fills each layer's cross-attention K/V from them.  ``--device`` defaults
-to CUDA; ``--device cpu --reduced`` runs a tiny config on the CPU.
+fills each layer's cross-attention K/V from them.  The recurrent configs
+(``--arch recurrentgemma-2b``, ``xlstm-350m``) serve the same way: their
+prefill leaves each recurrent layer's state, and each local-attention
+layer's ring, in the cache.  ``--device`` defaults to CUDA; ``--device cpu
+--reduced`` runs a tiny config on the CPU.
 """
 from __future__ import annotations
 

@@ -171,6 +171,13 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 at least: where the reference casts up to float32
+    (``astype(jnp.float32)``), bf16 and float32 give float32 and float64
+    stays float64, so a float64 copy of a model runs in float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def apply_mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(mm(x, params.w_gate))
     return mm(gate * mm(x, params.w_up), params.w_down)

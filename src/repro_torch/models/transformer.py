@@ -1,50 +1,63 @@
-"""Model assembly for the dense, MoE, MLA and Whisper block kinds: init,
-full-sequence forward, prefill, single-token decode and the encoder (the
-``"dense"``, ``"moe"``, ``"mla"``, ``"enc"`` and ``"dec_cross"`` parts of
-the reference's ``models/transformer.py``).
+"""Model assembly for every block kind: init, full-sequence forward,
+prefill, single-token decode and the encoder (the reference's
+``models/transformer.py``).
+
+An architecture is a repeating **unit** of block kinds (``cfg.unit``)
+repeated ``cfg.n_units`` times, then an exact **tail**, the unit's first
+``n_layers % len(unit)`` kinds: recurrentgemma-2b's unit is ``("rec",
+"rec", "attn_local")`` with a ``("rec", "rec")`` tail (26 = 8·3 + 2),
+xlstm-350m's ``("mlstm", "slstm")``, every other config's a single kind.
+:func:`layer_kinds` lists each layer's kind.
 
 The parameters live in an :class:`LM` (``nn.Module``): ``embed``,
 ``final_norm``, ``lm_head`` (untied configs) and ``layers``, an
 ``nn.ModuleList`` with one :class:`Block` per layer in place of the
-reference's stacked leading U axis (:func:`stacked_leaves` names each
-parameter by its reference leaf, under ``units.b0_<kind>``); an
-encoder-decoder (Whisper) also holds ``encoder``, one ``"enc"`` block a
-layer (``enc_units.b0_enc``), and ``enc_norm``.  The forward functions
-are plain functions on tensors that mirror the reference's signatures.
-Where the config sets ``remat`` and a parameter asks for a gradient, the
+reference's stacked leading U axis; an encoder-decoder (Whisper) also
+holds ``encoder``, one ``"enc"`` block a layer (``enc_units.b0_enc``),
+and ``enc_norm``.  :func:`stacked_leaves` names each parameter by its
+reference leaf: layer ℓ of the units is row ℓ // len(unit) of
+``units.b{ℓ % len(unit)}_<kind>.…``, a tail layer j is
+``tail.t{j}_<kind>.…`` and is not stacked.  The forward functions are
+plain functions on tensors that mirror the reference's signatures.  Where
+the config sets ``remat`` and a parameter asks for a gradient, the
 forward recomputes each decoder block in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per unit;
 the encoder, like the reference's, keeps its activations); ``unroll`` has
 no meaning in eager PyTorch and is accepted and ignored.  Caches are
-``{"layers": [{"attn": {k, v, pos}}, ...]}`` (MLA: ``{"attn": {c,
-kr}}``; ``"dec_cross"`` adds ``"cross_kv"``, the encoder's (k, v)), one
-dict per layer.
+``{"layers": [...]}``, one dict per layer: ``{"attn": {k, v, pos}}`` for
+GQA (``"dec_cross"`` adds ``"cross_kv"``, the encoder's (k, v)), ``{"attn":
+{c, kr}}`` for MLA, ``{"cell": {...}}``, the recurrence's state, for
+``"rec"`` (``models/rglru.py``), ``"mlstm"`` and ``"slstm"``
+(``models/ssm.py``).
 
 A dense block is pre-norm GQA attention plus a SwiGLU MLP, both residual;
-an MoE block the same attention plus the expert FFN (``models/moe.py``),
-whose load-balancing loss each path sums over the layers (``forward``
-returns it; prefill and decode drop it, as the reference's do); an MLA
-block multi-head latent attention plus the MLP; an ``"enc"`` block
-bidirectional GQA plus the MLP; a ``"dec_cross"`` block causal GQA, then
-cross-attention to the encoder output (``ln_cross``, ``cross``), then the
-MLP.  ``forward`` and ``prefill_forward`` take ``embeds`` [B, T, D] in
-place of tokens (the vision stub's patch and text embeddings, cast to the
-embedding's dtype), and ``forward`` takes positions [B, T] or, for
-M-RoPE, [3, B, T]; ``prefill_forward`` keeps the default positions
-0..T-1, as the reference's does.  With ``rope_kind="none"`` every path
-adds :func:`_sinusoid` positions to its input, as the reference's does.
-:func:`encode` runs the encoder over precomputed frames [B, S, D] (the
-audio frontend is a stub, as in the reference), in the frames' dtype:
-float32 frames run a bf16 model's encoder in float32.  Departure: it
-takes ``use_kernel`` (default True), so on the card the encoder's
-attention runs the flash kernels; the reference's ``encode`` always runs
-``attention_ref`` (``use_kernel=False`` here).  Other block kinds raise
-``NotImplementedError`` naming their ROADMAP slice (queue 1).
+an ``"attn_local"`` block the same over the config's sliding window
+(``attention.py``'s window paths); an MoE block the same attention plus
+the expert FFN (``models/moe.py``), whose load-balancing loss each path
+sums over the layers (``forward`` returns it; prefill and decode drop it,
+as the reference's do); an MLA block multi-head latent attention plus the
+MLP; an ``"enc"`` block bidirectional GQA plus the MLP; a ``"dec_cross"``
+block causal GQA, then cross-attention to the encoder output
+(``ln_cross``, ``cross``), then the MLP; a ``"rec"`` block the RG-LRU
+cell plus the MLP; ``"mlstm"`` and ``"slstm"`` blocks their xLSTM cell
+alone (no MLP, as the reference's).  ``forward`` and ``prefill_forward``
+take ``embeds`` [B, T, D] in place of tokens (the vision stub's patch and
+text embeddings, cast to the embedding's dtype), and ``forward`` takes
+positions [B, T] or, for M-RoPE, [3, B, T]; ``prefill_forward`` keeps the
+default positions 0..T-1, as the reference's does.  With
+``rope_kind="none"`` every path adds :func:`_sinusoid` positions to its
+input, as the reference's does.  :func:`encode` runs the encoder over
+precomputed frames [B, S, D] (the audio frontend is a stub, as in the
+reference), in the frames' dtype: float32 frames run a bf16 model's
+encoder in float32.  Departure: it takes ``use_kernel`` (default True), so
+on the card the encoder's attention runs the flash kernels; the
+reference's ``encode`` always runs ``attention_ref`` (``use_kernel=False``
+here).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -52,18 +65,37 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (MLP, Norm, _param, apply_mlp,
                                        apply_norm, dtype_of, init_mlp,
                                        init_norm, normal_)
 
-KINDS = ("dense", "moe", "mla", "enc", "dec_cross")   # the port's kinds
-KIND_SLICES = {
-    "attn_local": "slice 9g (sliding window)",
-    "rec": "slice 9g (RG-LRU)",
-    "mlstm": "slice 9g (xLSTM)",
-    "slstm": "slice 9g (xLSTM)",
+KINDS = ("dense", "moe", "mla", "enc", "dec_cross", "attn_local", "rec",
+         "mlstm", "slstm")   # the port's kinds
+# Kinds still to be ported, and the ROADMAP slice (queue 1) that brings
+# each: none.
+KIND_SLICES: dict = {}
+
+
+class Cell(NamedTuple):
+    """A recurrent kind's functions: its block holds ``module(cfg,
+    device)`` as ``cell``, and its cache is {"cell": a state}."""
+    module: type
+    init: Callable
+    forward: Callable      # (cfg, cell, x, return_state=False)
+    decode: Callable       # (cfg, cell, x, state) -> (y, state)
+    init_state: Callable   # (cfg, batch, device)
+
+
+CELLS = {
+    "rec": Cell(rglru.RGLRU, rglru.init_rglru, rglru.rglru_forward,
+                rglru.rglru_decode, rglru.init_rglru_state),
+    "mlstm": Cell(ssm.MLSTM, ssm.init_mlstm, ssm.mlstm_forward,
+                  ssm.mlstm_decode, ssm.init_mlstm_state),
+    "slstm": Cell(ssm.SLSTM, ssm.init_slstm, ssm.slstm_forward,
+                  ssm.slstm_decode, ssm.init_slstm_state),
 }
+NO_MLP = ("mlstm", "slstm")   # xLSTM cells stand alone, as the reference's
 
 
 def _check_kind(kind: str) -> None:
@@ -80,6 +112,24 @@ def _check_model(cfg) -> None:
     attn._check_cfg(cfg)
 
 
+def layer_kinds(cfg) -> tuple:
+    """Each layer's block kind: the unit ``n_units`` times, then the
+    tail."""
+    return tuple(cfg.unit) * cfg.n_units + tuple(cfg.tail)
+
+
+def layer_leaf(cfg, layer: int) -> tuple[str, Optional[int]]:
+    """(the reference's leaf prefix of decoder layer ``layer``, its row of
+    the stacked leaf, None for a tail layer): ``units.b{i}_<kind>`` row u
+    for layer u·len(unit) + i, ``tail.t{j}_<kind>`` for tail layer j."""
+    n = len(cfg.unit)
+    if layer < n * cfg.n_units:
+        i = layer % n
+        return f"units.b{i}_{cfg.unit[i]}", layer // n
+    j = layer - n * cfg.n_units
+    return f"tail.t{j}_{cfg.tail[j]}", None
+
+
 def _check_enc_out(cfg, enc_out) -> None:
     if cfg.encoder_layers and enc_out is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: its decoder "
@@ -91,48 +141,51 @@ def _check_enc_out(cfg, enc_out) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """ln1, attn (:class:`attn.MLA` for ``"mla"``, GQA otherwise), for
-    ``"dec_cross"`` ln_cross + cross (GQA weights), then ln2 + ffn
-    (:class:`moe.MoE`) for ``"moe"``, ln2 + mlp for the other kinds where
-    the config has d_ff."""
+    """ln1, then cell (the recurrence's weights) for ``"rec"``,
+    ``"mlstm"`` and ``"slstm"``, attn (:class:`attn.MLA` for ``"mla"``,
+    GQA otherwise) for the others; for ``"dec_cross"`` ln_cross + cross
+    (GQA weights), then ln2 + ffn (:class:`moe.MoE`) for ``"moe"``, ln2 +
+    mlp for the other kinds but ``NO_MLP`` where the config has d_ff."""
 
     def __init__(self, kind: str, cfg, device=None):
         super().__init__()
         _check_kind(kind)
         self.ln1 = Norm(cfg.norm_kind, cfg.d_model, device)
-        self.attn = (attn.MLA(cfg, device) if kind == "mla"
-                     else attn.GQA(cfg, device))
+        if kind in CELLS:
+            self.cell = CELLS[kind].module(cfg, device)
+        else:
+            self.attn = (attn.MLA(cfg, device) if kind == "mla"
+                         else attn.GQA(cfg, device))
         if kind == "dec_cross":
             self.ln_cross = Norm(cfg.norm_kind, cfg.d_model, device)
             self.cross = attn.GQA(cfg, device)
         if kind == "moe":
             self.ln2 = Norm(cfg.norm_kind, cfg.d_model, device)
             self.ffn = moe.MoE(cfg, device)
-        elif cfg.d_ff:
+        elif cfg.d_ff and kind not in NO_MLP:
             self.ln2 = Norm(cfg.norm_kind, cfg.d_model, device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype_of(cfg.dtype), device)
 
 
 class LM(nn.Module):
     """The parameters of an LM, uninitialised (see :func:`init_params` and
-    ``convert.lm_params_from_jax``).  ``kind`` is the config's one block
-    kind, ``unit`` the reference's name of the stacked unit
-    (``units.b0_<kind>``); an encoder-decoder also has ``encoder`` and
-    ``enc_norm``."""
+    ``convert.lm_params_from_jax``).  ``cfg`` is the config it was built
+    for, ``kinds`` each layer's block kind (:func:`layer_kinds`); an
+    encoder-decoder also has ``encoder`` and ``enc_norm``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         _check_model(cfg)
-        self.kind = cfg.unit[0]
-        self.unit = f"units.b0_{self.kind}"
+        self.cfg = cfg
+        self.kinds = layer_kinds(cfg)
         dt = dtype_of(cfg.dtype)
         self.embed = _param(cfg.vocab, cfg.d_model, dtype=dt, device=device)
         self.final_norm = Norm(cfg.norm_kind, cfg.d_model, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param(cfg.d_model, cfg.vocab, dtype=dt,
                                   device=device)
-        self.layers = nn.ModuleList(Block(self.kind, cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(kind, cfg, device)
+                                    for kind in self.kinds)
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(Block("enc", cfg, device)
                                          for _ in range(cfg.encoder_layers))
@@ -143,7 +196,9 @@ def init_block(kind: str, cfg, block: Block,
                gen: torch.Generator) -> None:
     _check_kind(kind)
     init_norm(block.ln1)
-    if kind == "mla":
+    if kind in CELLS:
+        CELLS[kind].init(block.cell, cfg, gen)
+    elif kind == "mla":
         attn.init_mla(block.attn, cfg, gen)
     else:
         attn.init_gqa(block.attn, cfg, gen)
@@ -153,7 +208,7 @@ def init_block(kind: str, cfg, block: Block,
     if kind == "moe":
         init_norm(block.ln2)
         moe.init_moe(block.ffn, cfg, gen)
-    elif cfg.d_ff:
+    elif hasattr(block, "mlp"):
         init_norm(block.ln2)
         init_mlp(block.mlp, gen)
 
@@ -173,8 +228,8 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, device=None
     init_norm(params.final_norm)
     if not cfg.tie_embeddings:
         normal_(params.lm_head, cfg.d_model ** -0.5, gen)
-    for block in params.layers:
-        init_block(params.kind, cfg, block, gen)
+    for kind, block in zip(params.kinds, params.layers):
+        init_block(kind, cfg, block, gen)
     if cfg.encoder_layers:
         for block in params.encoder:
             init_block("enc", cfg, block, gen)
@@ -189,40 +244,50 @@ def param_count(params: nn.Module) -> int:
 ENC_UNIT = "enc_units.b0_enc"     # the reference's stacked encoder unit
 
 
-def stacked_name(name: str, unit: str) -> str:
-    """The reference leaf that a parameter of the port belongs to, for a
-    model whose stacked unit is ``unit`` (``LM.unit``):
+def _leaf(name: str, params: LM) -> tuple[str, Optional[int]]:
+    head, _, rest = name.partition(".")
+    if head not in ("layers", "encoder"):
+        return name, None
+    layer, _, rest = rest.partition(".")
+    if head == "encoder":
+        return f"{ENC_UNIT}.{rest}", int(layer)
+    prefix, row = layer_leaf(params.cfg, int(layer))
+    return f"{prefix}.{rest}", row
+
+
+def stacked_name(name: str, params: LM) -> str:
+    """The reference leaf that a parameter of the port belongs to:
     ``layers.3.attn.wq`` -> ``units.b0_dense.attn.wq`` (row 3 of the
-    stacked leaf), ``encoder.3.attn.wq`` -> ``enc_units.b0_enc.attn.wq``,
+    stacked leaf) for a one-kind unit; for recurrentgemma-2b's ``layers.5``
+    -> ``units.b2_attn_local`` (row 1) and ``layers.25`` ->
+    ``tail.t1_rec``; ``encoder.3.attn.wq`` -> ``enc_units.b0_enc.attn.wq``;
     any other name as it is."""
-    if name.startswith("layers."):
-        return f"{unit}.{name.split('.', 2)[2]}"
-    if name.startswith("encoder."):
-        return f"{ENC_UNIT}.{name.split('.', 2)[2]}"
-    return name
+    return _leaf(name, params)[0]
 
 
-def stacked_row(name: str) -> Optional[int]:
+def stacked_row(name: str, params: LM) -> Optional[int]:
     """The row of its stacked leaf that a per-layer parameter is
-    (``layers.3.…`` and ``encoder.3.…``: 3); None for the others."""
-    if name.startswith(("layers.", "encoder.")):
-        return int(name.split(".")[1])
-    return None
+    (``layers.3.…`` of a one-kind unit and ``encoder.3.…``: 3); None for a
+    tail layer's and for the others."""
+    return _leaf(name, params)[1]
 
 
 def stacked_leaves(params: LM) -> dict:
     """{reference leaf name: [the port's parameters that make it]}, the
     per-layer ones in layer order, the leaves in the order in which
     ``jax.tree`` flattens the reference's tree (dict keys sorted at every
-    level).  A leaf under ``units`` is stacked: its shape is
-    ``(n_layers, *parameter shape)``."""
+    level).  A leaf under ``units`` or ``enc_units`` is stacked: its shape
+    is ``(rows, *parameter shape)``; a ``tail`` leaf is one layer's."""
     groups: dict = {}
     for name, p in params.named_parameters():
-        groups.setdefault(stacked_name(name, params.unit), []).append(p)
+        groups.setdefault(stacked_name(name, params), []).append(p)
     return {k: groups[k] for k in sorted(groups, key=lambda n: n.split("."))}
 
 
 def is_stacked(leaf: str) -> bool:
+    """Whether the reference's leaf has a leading row axis: the units' and
+    the encoder's, not the tail's (so a tail's 1-D leaves, its norm scales
+    and ``lam``, take no weight decay, as the reference's do not)."""
     return leaf.startswith(("units.", "enc_units."))
 
 
@@ -239,7 +304,7 @@ def _ffn_residual(kind: str, cfg, p: Block, x: torch.Tensor,
         h2 = apply_norm(cfg.norm_kind, p.ln2, x)
         y, aux = moe.moe_ffn(cfg, p.ffn, h2, strategy=moe_strategy)
         x = x + y
-    elif cfg.d_ff:
+    elif hasattr(p, "mlp"):
         h2 = apply_norm(cfg.norm_kind, p.ln2, x)
         x = x + apply_mlp(p.mlp, h2)
     return x, aux
@@ -262,7 +327,9 @@ def apply_block(kind: str, cfg, p: Block, x: torch.Tensor,
     block attends to."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    if kind == "mla":
+    if kind in CELLS:
+        x = x + CELLS[kind].forward(cfg, p.cell, h)
+    elif kind == "mla":
         x = x + attn.mla_train(cfg, p.attn, h, positions, causal=True)
     else:
         x = x + attn.gqa_train(cfg, p.attn, h, positions,
@@ -280,16 +347,21 @@ def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, dict]:
     """The block's forward and its cache; a ``"dec_cross"`` block's cache
-    also holds ``cross_kv``, the encoder's (k, v)."""
+    also holds ``cross_kv``, the encoder's (k, v); a recurrent block's is
+    {"cell": its state after the last token}."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    if kind == "mla":
+    if kind in CELLS:
+        y, cache = CELLS[kind].forward(cfg, p.cell, h, return_state=True)
+        out = {"cell": cache}
+    elif kind == "mla":
         y, cache = attn.mla_prefill(cfg, p.attn, h, positions, max_len)
+        out = {"attn": cache}
     else:
         y, cache = attn.gqa_prefill(cfg, p.attn, h, positions, max_len,
                                     use_kernel=use_kernel)
+        out = {"attn": cache}
     x = x + y
-    out = {"attn": cache}
     if kind == "dec_cross":
         out["cross_kv"] = attn.encode_cross_kv(cfg, p.cross, enc_out)
         x = _cross_residual(cfg, p, x, out["cross_kv"])
@@ -301,12 +373,16 @@ def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
                  cache: dict, pos: torch.Tensor, flash: bool = False
                  ) -> tuple[torch.Tensor, dict]:
     """One token; an MoE block runs ``moe_ffn``'s default strategy, an
-    MLA block ignores ``flash`` (which shards a GQA cache), as the
-    reference's do.  A ``"dec_cross"`` block reads its cache's
-    ``cross_kv`` and never writes it."""
+    MLA or recurrent block ignores ``flash`` (which shards a GQA cache), as
+    the reference's do.  A ``"dec_cross"`` block reads its cache's
+    ``cross_kv`` and never writes it; a recurrent block replaces its
+    cache's ``cell``."""
     _check_kind(kind)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
-    if kind == "mla":
+    if kind in CELLS:
+        y, cache["cell"] = CELLS[kind].decode(cfg, p.cell, h,
+                                                cache["cell"])
+    elif kind == "mla":
         y, cache["attn"] = attn.mla_decode(cfg, p.attn, h, cache["attn"],
                                            pos)
     else:
@@ -322,6 +398,8 @@ def decode_block(kind: str, cfg, p: Block, x: torch.Tensor,
 def init_block_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                      device=None) -> dict:
     _check_kind(kind)
+    if kind in CELLS:
+        return {"cell": CELLS[kind].init_state(cfg, batch, device)}
     if kind == "mla":
         return {"attn": attn.init_mla_cache(cfg, batch, max_len, dtype,
                                             device)}
@@ -450,13 +528,13 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
-    for block in params.layers:
+    for kind, block in zip(params.kinds, params.layers):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                apply_block, params.kind, cfg, block, x, positions,
+                apply_block, kind, cfg, block, x, positions,
                 use_kernel, moe_strategy, enc_out, use_reentrant=False)
         else:
-            x, a = apply_block(params.kind, cfg, block, x, positions,
+            x, a = apply_block(kind, cfg, block, x, positions,
                                use_kernel=use_kernel,
                                moe_strategy=moe_strategy, enc_out=enc_out)
         aux = aux + a
@@ -483,8 +561,8 @@ def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
     positions = _default_positions(b, t, x.device)
     x = _add_positions(cfg, x, positions)
     caches = []
-    for block in params.layers:
-        x, c = prefill_block(params.kind, cfg, block, x, positions,
+    for kind, block in zip(params.kinds, params.layers):
+        x, c = prefill_block(kind, cfg, block, x, positions,
                              max_len, use_kernel=use_kernel,
                              moe_strategy=moe_strategy, enc_out=enc_out)
         caches.append(c)
@@ -497,15 +575,15 @@ def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
-    """An empty cache of ``max_len`` slots a layer, on ``device`` (None =
-    CUDA); an encoder-decoder's ``cross_kv`` zeros of ``encoder_seq``
-    rows, which ``serve_step.fill_cross_kv`` replaces."""
+    """An empty cache of ``max_len`` slots an attention layer, on
+    ``device`` (None = CUDA); a recurrent layer's zero state; an
+    encoder-decoder's ``cross_kv`` zeros of ``encoder_seq`` rows, which
+    ``serve_step.fill_cross_kv`` replaces."""
     _check_model(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
-    return {"layers": [init_block_cache(cfg.unit[0], cfg, batch, max_len,
-                                        dt, dev)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [init_block_cache(kind, cfg, batch, max_len, dt, dev)
+                       for kind in layer_kinds(cfg)]}
 
 
 def decode_step(cfg, params: LM, token: torch.Tensor, cache: dict,
@@ -516,8 +594,8 @@ def decode_step(cfg, params: LM, token: torch.Tensor, cache: dict,
     x = params.embed[token.long()]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x = _add_positions(cfg, x, pos.reshape(1, 1).expand(token.shape))
-    for block, c in zip(params.layers, cache["layers"]):
-        x, _ = decode_block(params.kind, cfg, block, x, c, pos,
-                            flash_decode)
+    for kind, block, c in zip(params.kinds, params.layers,
+                              cache["layers"]):
+        x, _ = decode_block(kind, cfg, block, x, c, pos, flash_decode)
     x = apply_norm(cfg.norm_kind, params.final_norm, x)
     return (x @ _head(cfg, params)).float(), cache

@@ -12,14 +12,16 @@ REX keeps un-propagated Δ mass in operator state):
 
 The reference's trees become dicts keyed by the reference's leaf names
 (``models.transformer.stacked_leaves``), in its flatten order.  A leaf of
-the stacked unit has the reference's stacked shape ``(n_layers, ...)``:
-μ, ν, residuals and gradients are kept so, and the parameters are the
-port's per-layer tensors.  Two things are decided on the stacked leaf,
-as the reference decides them: weight decay applies to leaves of two or
-more dimensions, which includes the per-layer norm scales (``(U, D)``)
-and excludes ``final_norm``'s; and compression runs over the whole
-stacked leaf (the layer-ordered concatenation of its parameters): one
-top-k and one run of 256-value blocks across the layers.
+the stacked unit has the reference's stacked shape ``(n_units, ...)``
+(a tail layer's leaf its own shape): μ, ν, residuals and gradients are
+kept so, and the parameters are the port's per-layer tensors.  Two things
+are decided on the stacked leaf, as the reference decides them: weight
+decay applies to leaves of two or more dimensions, which includes the
+per-layer norm scales (``(U, D)``) and RG-LRU's ``lam`` (``(U, R)``) and
+excludes ``final_norm``'s and the tail's 1-D leaves; and compression runs
+over the whole stacked leaf (the layer-ordered concatenation of its
+parameters): one top-k and one run of 256-value blocks across the
+layers.
 
 Departure: :func:`adamw_update` updates the parameters, μ and ν in place
 (the reference returns new arrays); the state it returns shares them.

@@ -27,6 +27,7 @@ from repro_torch.algorithms import adsorption as TA
 from repro_torch.algorithms import emission as TE
 from repro_torch.core.delta import DeltaBuffer
 from repro_torch.data.graphs import CSRGraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S, L = 1024, 4, 4
 CAP = dict(edge_capacity=2048, src_capacity=256, ladder_tiers=4)

@@ -29,6 +29,7 @@ from repro_torch.algorithms import emission as t_emission
 from repro_torch.core import delta as T
 from repro_torch.core.handlers import pre_aggregate as t_pre_aggregate
 from repro_torch.data.graphs import CSRGraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

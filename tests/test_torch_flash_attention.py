@@ -42,6 +42,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(2, 4, 2, 256, 256, 64), (1, 8, 8, 128, 128, 32),
           (2, 4, 1, 256, 384, 64), (1, 2, 2, 384, 128, 128),

@@ -33,6 +33,7 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [  # B, H, H_kv, T, S, D
     (2, 4, 4, 37, 37, 16), (1, 4, 2, 75, 75, 32), (2, 8, 2, 19, 19, 16),

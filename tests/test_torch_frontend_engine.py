@@ -34,6 +34,7 @@ from repro_torch.core.engine import ShardedExecutor
 from repro_torch.data.graphs import CSRGraph, shard_csr
 from repro_torch.frontend.lower import CompiledProgram, _extract_spec
 from repro_torch.runtime import FaultEvent, FaultSchedule
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 512, 4
 CAP = dict(edge_capacity=1024, src_capacity=128)

@@ -29,6 +29,7 @@ from repro.data.graphs import make_powerlaw_graph, shard_csr as j_shard_csr
 from repro_torch import convert
 from repro_torch import frontend as TFe
 from repro_torch.data.graphs import CSRGraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 512, 4
 KW = dict(edge_capacity=1024, src_capacity=128, route_strategy="sort",

@@ -30,6 +30,7 @@ from repro_torch.algorithms import connected_components as TC
 from repro_torch.algorithms import pagerank as TP
 from repro_torch.algorithms import sssp as TS
 from repro_torch.data.graphs import CSRGraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 512, 4
 CAP = dict(edge_capacity=1024, src_capacity=128)

@@ -35,7 +35,11 @@ the card match the CPU's within 1e-5 of the largest value (float32, TF32
 off); reduced whisper-large-v3's encoder, prefill (self and cross caches)
 and decode within 1e-4 (the float32 kernel in the encoder and prefill), and
 a bf16 Whisper at head dim 64 through the bf16 kernel within 5e-2 of the
-plain path.  The bf16 kernels are held at D = 64, forward and backward,
+plain path.  Reduced recurrentgemma-2b and xlstm-350m on the card match
+the CPU within 1e-5 (prefill, every cache leaf, decode), the RG-LRU scan
+holds its rounding bound against a float64 recurrence and the chunked
+mLSTM is within 1e-4 (relative L2) of float64 decode steps.  The bf16
+kernels are held at D = 64, forward and backward,
 at Whisper's 20/20 heads and at a GQA group.  ``moe_ffn`` on the card makes the
 CPU's expert choices and lands within 1e-5 of max |y| of its output, and
 windowed and blocked attention within 1e-5 of max |out| of theirs
@@ -869,6 +873,93 @@ def test_mla_prefill_and_decode_on_card_match_cpu(cuda):
                                             for k in ("c", "kr")]):
         assert float((got - want).abs().max()) <= \
             1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-350m"])
+def test_recurrent_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """Reduced recurrentgemma-2b (RG-LRU, local attention, its tail) and
+    xlstm-350m (mLSTM, sLSTM), float32, TF32 off: the prefill's logits and
+    every cache leaf and 4 decode steps on the card against the same model
+    on the CPU, within 1e-5 of the largest value; no kernel launches (the
+    recurrences and the window are plain torch on every device)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    params_gpu = copy.deepcopy(params).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 41), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    before = (fa_ops.launches, fa_ops.launches_bf16)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_gpu)):
+        toks = tokens.to(dev)
+        logits, cache = transformer.prefill_forward(cfg, p, toks[:, :37], 41)
+        steps = [logits]
+        for i in range(37, 41):
+            logits, cache = transformer.decode_step(
+                cfg, p, toks[:, i:i + 1], cache,
+                torch.tensor(i, dtype=torch.int32, device=dev))
+            steps.append(logits)
+        out[dev] = [torch.cat(steps, 1).cpu()] + [
+            x.cpu() for c in cache["layers"] for leaves in c.values()
+            for x in leaves.values()]
+    assert (fa_ops.launches, fa_ops.launches_bf16) == before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        if not want.dtype.is_floating_point:
+            assert torch.equal(got, want)
+            continue
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+def test_rglru_scan_on_card_matches_float64(cuda):
+    """The log-depth RG-LRU scan on the card (float32, T = 1000) against
+    the sequential recurrence in float64: within u (t - s + 2 ceil(log2 T))
+    of each term's magnitude summed (chip_smoke.py's RGLRU_SCAN_BOUND
+    derivation), and within 1e-5 of max |h|."""
+    from repro_torch.models import rglru
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.rand((2, 1000, 64), generator=g, device=cuda) * 0.9
+    b = torch.randn((2, 1000, 64), generator=g, device=cuda)
+    _, h = rglru.associative_scan(a, b)
+    a64, b64 = a.double(), b.double()
+    hh, mag, lag = (torch.zeros_like(b64[:, 0]) for _ in range(3))
+    adds = 2 * math.ceil(math.log2(a.shape[1]))
+    for i in range(a.shape[1]):
+        hh = a64[:, i] * hh + b64[:, i]
+        lag = a64[:, i] * (lag + mag)
+        mag = a64[:, i] * mag + b64[:, i].abs()
+        diff = (h[:, i].double() - hh).abs()
+        assert bool((diff <= 1.001 * 2.0 ** -24 * (lag + adds * mag)).all())
+    _, h_cpu = rglru.associative_scan(a.cpu(), b.cpu())
+    assert float((h.cpu() - h_cpu).abs().max()) <= 1e-6 * float(
+        h_cpu.abs().max())
+
+
+def test_mlstm_chunks_on_card_match_float64(cuda):
+    """The chunked mLSTM forward on the card (float32; reduced xlstm-350m,
+    chunk 8, T = 50 so the last chunk is padded) against T steps of
+    mlstm_decode in float64: relative L2 within 1e-4 (chip_smoke.py's
+    MLSTM_CHUNK_BOUND)."""
+    from repro_torch.models import ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("xlstm-350m").reduced()
+    cell = ssm.MLSTM(cfg, cuda)
+    ssm.init_mlstm(cell, cfg, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn((2, 50, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    y32 = ssm.mlstm_forward(cfg, cell, x)
+    cell64 = copy.deepcopy(cell).double()
+    state = {k: v.double() for k, v in
+             ssm.init_mlstm_state(cfg, 2, cuda).items()}
+    ys = []
+    for i in range(x.shape[1]):
+        y, state = ssm.mlstm_decode(cfg, cell64, x[:, i:i + 1].double(),
+                                    state)
+        ys.append(y)
+    y64 = torch.cat(ys, 1)
+    assert float(torch.linalg.vector_norm(y32.double() - y64)
+                 / torch.linalg.vector_norm(y64)) <= 1e-4
 
 
 def test_whisper_prefill_and_decode_on_card_match_cpu(cuda):

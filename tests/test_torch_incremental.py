@@ -39,6 +39,7 @@ from repro_torch.core.delta import ANN_ADJUST, ANN_DELETE, ANN_REPLACE
 from repro_torch.incremental import (EdgeDelete, EdgeInsert, EdgeReweight,
                                      GraphStore, PointInsert, PointRemove,
                                      PointStore, ViewManager)
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 256, 4
 KERNELS = (True, False)

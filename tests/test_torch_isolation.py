@@ -6,7 +6,9 @@ shard_map backend, over a gloo world of one rank), greedy generation of
 a reduced llama3-8b, of a reduced mixtral-8x22b (MoE, its window
 crossed), of a reduced minicpm3-4b (MLA) and of a reduced
 whisper-large-v3 (encoder, cross-attention, sinusoid positions; also
-through ``launch/serve.py``'s ``main``), a reduced qwen2-vl-2b's
+through ``launch/serve.py``'s ``main``), of a reduced recurrentgemma-2b
+(RG-LRU, local attention, its tail) and of a reduced xlstm-350m (mLSTM,
+sLSTM), a reduced qwen2-vl-2b's
 forward from embeds at [3, B, T] positions (M-RoPE), a traced resilient
 PageRank with one failure and adsorption on the CPU, two journaled views
 restored, and reachability compiled from its rule text, then reports
@@ -86,6 +88,14 @@ wh_toks = repro_torch.serve.serve_step.generate(
 repro_torch.launch.serve.main(["--arch", "whisper-large-v3", "--reduced",
                                "--device", "cpu", "--batch", "1",
                                "--prompt-len", "4", "--new-tokens", "2"])
+rec_toks = {}
+for rec_name in ("recurrentgemma-2b", "xlstm-350m"):
+    rec_cfg = get_arch(rec_name).reduced()
+    rec_lm = transformer.init_params(rec_cfg,
+                                     torch.Generator().manual_seed(0), "cpu")
+    rec_toks[rec_name] = list(repro_torch.serve.serve_step.generate(
+        rec_cfg, rec_lm, torch.zeros((1, 18), dtype=torch.int32), 2,
+        20).shape)
 vlm_cfg = get_arch("qwen2-vl-2b").reduced()
 vlm_lm = transformer.init_params(vlm_cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -143,7 +153,7 @@ print(json.dumps({"mods": sorted(sys.modules), "iters": int(res.stats.iterations
                   "shard_map_equal": bool(torch.equal(pr, pr_smap)),
                   "lm": list(toks.shape), "moe": list(moe_toks.shape),
                   "mla": list(mla_toks.shape),
-                  "whisper": list(wh_toks.shape),
+                  "whisper": list(wh_toks.shape), "recurrent": rec_toks,
                   "vlm": list(vlm_logits.shape),
                   "resilient": rr.metrics["recoveries"],
                   "adsorption": list(vec.shape), "views": views,
@@ -162,6 +172,8 @@ def test_import_and_run_load_no_jax_or_reference():
     assert got["moe"] == [1, 22]
     assert got["mla"] == [1, 7]
     assert got["whisper"] == [1, 7]
+    assert got["recurrent"] == {"recurrentgemma-2b": [1, 20],
+                                "xlstm-350m": [1, 20]}
     assert got["vlm"] == [1, 6, 256]
     assert got["resilient"] == 1
     assert got["adsorption"] == [256, 4]
@@ -225,6 +237,17 @@ def test_entry_points_need_cuda_unless_told_otherwise(tmp_path):
                                      "--reduced"]),
                  lambda: transformer.init_cache(
                      get_arch("whisper-large-v3").reduced(), 1, 4),
+                 lambda: transformer.init_params(
+                     get_arch("recurrentgemma-2b").reduced()),
+                 lambda: transformer.init_cache(
+                     get_arch("recurrentgemma-2b").reduced(), 1, 4),
+                 lambda: serve.main(["--arch", "recurrentgemma-2b",
+                                     "--reduced"]),
+                 lambda: transformer.init_params(
+                     get_arch("xlstm-350m").reduced()),
+                 lambda: transformer.init_cache(
+                     get_arch("xlstm-350m").reduced(), 1, 4),
+                 lambda: serve.main(["--arch", "xlstm-350m", "--reduced"]),
                  lambda: train.main(["--reduced", "--steps", "1"]),
                  lambda: adsorption.run(g, snap, torch.zeros(64, 4)),
                  lambda: reach.run(g, snap),

@@ -56,6 +56,7 @@ from repro_torch.kernels import delta_route as t_dr
 from repro_torch.kernels import delta_scatter as t_ds
 from repro_torch.kernels import edge_propagate as t_ep
 from repro_torch.kernels import scatter_route as t_sr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

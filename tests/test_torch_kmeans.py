@@ -36,6 +36,7 @@ from repro_torch.algorithms import kmeans as TK
 from repro_torch.data.points import (make_geo_points,
                                      sample_initial_centroids)
 from repro_torch.kernels import kmeans_assign as t_ka
+from torch_threads import one_torch_thread  # noqa: F401
 
 U32 = 2.0 ** -24      # float32 unit roundoff
 

@@ -45,12 +45,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as tt
 from repro_torch.serve import serve_step as tss
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["olmo-1b", "llama3-8b", "starcoder2-3b"]
 MOE_ARCHS = ["arctic-480b", "mixtral-8x22b"]    # tests/test_torch_moe.py
 # tests/test_torch_mla.py, tests/test_torch_vlm.py and
 # tests/test_torch_whisper.py
 MLA_VLM_ARCHS = ["minicpm3-4b", "qwen2-vl-2b", "whisper-large-v3"]
+RECURRENT_ARCHS = ["recurrentgemma-2b", "xlstm-350m"]  # test_torch_recurrent
 ATOL = RTOL = 2e-5
 BF16_ATOL = 8e-2
 B, T, NEW = 2, 256, 8
@@ -111,7 +113,8 @@ def _drop_models():
 # Configs, data, conversion.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
+@pytest.mark.parametrize("name", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS
+                         + RECURRENT_ARCHS)
 def test_configs_equal_the_reference(name):
     j, t = j_get_arch(name), get_arch(name)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -120,15 +123,14 @@ def test_configs_equal_the_reference(name):
 
 
 def test_only_dense_configs_registered_others_name_their_slice():
-    """The dense, MoE, MLA, VLM and Whisper configs (eight) are registered;
-    the two others raise."""
-    assert list(all_archs()) == sorted(ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
-    assert len(all_archs()) == 8
-    assert sorted(PENDING) == ["recurrentgemma-2b", "xlstm-350m"]
-    for name, slice_ in PENDING.items():
-        j_get_arch(name)                   # a config of the reference
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            get_arch(name)
+    """All ten of the reference's configs are registered (dense, MoE, MLA,
+    VLM, Whisper and the recurrent two), and none is pending."""
+    everything = ARCHS + MOE_ARCHS + MLA_VLM_ARCHS + RECURRENT_ARCHS
+    assert list(all_archs()) == sorted(everything)
+    assert len(all_archs()) == 10
+    assert PENDING == {} and tt.KIND_SLICES == {}
+    for name in everything:
+        assert get_arch(name).name == j_get_arch(name).name
 
 
 def test_token_pipeline_equals_the_reference():
@@ -360,23 +362,23 @@ def test_bf16_head_dim_128_takes_the_bf16_op(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_unported_paths_name_their_slice():
-    _, cfg = _cfgs("llama3-8b")
-    with pytest.raises(NotImplementedError, match="slice 9g"):
-        tt.LM(dataclasses.replace(cfg, unit=("attn_local",)), "cpu")
+    """What is left is slice 9h's: MoE's a2a dispatch and flash decoding
+    over a sharded cache (dense, and recurrentgemma's local attention)."""
     moe_cfg = get_arch("mixtral-8x22b").reduced()
     moe_params = tt.init_params(moe_cfg, torch.Generator().manual_seed(0),
                                 "cpu")
     with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.forward(moe_cfg, moe_params, torch.zeros((1, 4), dtype=torch.int32),
                    moe_strategy="a2a")
-    with pytest.raises(NotImplementedError, match="slice 9g"):
-        tt.LM(dataclasses.replace(cfg, unit=("rec",)), "cpu")
     m = model("llama3-8b")
     cache = tt.init_cache(m.cfg, B, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 9h"):
         tt.decode_step(m.cfg, m.params, m.tokens[:, :1], cache,
                        torch.tensor(0), flash_decode=True)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tt.prefill_block("rec", m.cfg, m.params.layers[0],
-                         torch.zeros(1, 4, m.cfg.d_model),
-                         torch.zeros(1, 4, dtype=torch.int32), 4)
+    rg_cfg = get_arch("recurrentgemma-2b").reduced()
+    rg_params = tt.init_params(rg_cfg, torch.Generator().manual_seed(0),
+                               "cpu")
+    with pytest.raises(NotImplementedError, match="slice 9h"):
+        tt.decode_step(rg_cfg, rg_params, m.tokens[:, :1],
+                       tt.init_cache(rg_cfg, B, 8, device="cpu"),
+                       torch.tensor(0), flash_decode=True)

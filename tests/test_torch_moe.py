@@ -49,6 +49,7 @@ from repro_torch.models import transformer as tt
 from repro_torch.serve import serve_step as tss
 from repro_torch.train import optimizer as to
 from repro_torch.train import train_step as tts
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["arctic-480b", "mixtral-8x22b"]
 Y_TOL = 1e-5          # of max |y|

@@ -34,6 +34,7 @@ from repro_torch.obs import (MeasuredLatencies, MetricsRegistry,
                              write_metrics)
 from repro_torch.obs.calibrate import backend_name
 from repro_torch.runtime import FaultPlan, SpeculationPolicy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 512, 4
 PR_THRESHOLD = 1e-2   # fewer strata than PageRank's default 1e-3

@@ -28,6 +28,7 @@ from repro_torch.algorithms import pagerank as TP
 from repro_torch.core import fixpoint as TF
 from repro_torch.core.engine import ShardedExecutor
 from repro_torch.data.graphs import CSRGraph
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 1024, 4
 CAP = dict(edge_capacity=2048, src_capacity=256, ladder_tiers=4)

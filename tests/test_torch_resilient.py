@@ -39,6 +39,7 @@ from repro_torch.runtime.recovery import (FaultEvent, FaultPlan,
                                           FaultSchedule, StratumRunner,
                                           run_with_failure)
 from repro_torch.runtime.straggler import SpeculationPolicy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S, CAP = 512, 4, 8192
 PR_THRESHOLD = 1e-2   # PageRank converges in fewer strata than at 1e-3

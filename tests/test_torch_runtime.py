@@ -42,6 +42,7 @@ from repro_torch.runtime.retry import (RecoveryExhausted, Retrier,
                                        RetryBudget, RetryPolicy)
 from repro_torch.runtime.straggler import (SpeculationPolicy,
                                            StragglerMitigator)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

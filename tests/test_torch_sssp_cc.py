@@ -36,6 +36,7 @@ from repro_torch.algorithms import sssp as TSP
 from repro_torch.core import fixpoint as TF
 from repro_torch.data.graphs import CSRGraph
 from repro_torch.kernels import scatter_route as t_sr
+from torch_threads import one_torch_thread  # noqa: F401
 
 S = 4
 CAP = dict(edge_capacity=8192, src_capacity=1024)

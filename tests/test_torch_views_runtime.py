@@ -37,6 +37,7 @@ from repro_torch.incremental import EdgeInsert, ViewManager
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.runtime import FaultEvent, FaultPlan, FaultSchedule
 from repro_torch.runtime.retry import RetryBudget
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, S = 256, 4
 # Recovery metrics read off the host clock.

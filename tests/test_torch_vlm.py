@@ -48,6 +48,7 @@ from repro_torch.models import transformer as tt
 from repro_torch.serve import serve_step as tss
 from repro_torch.train import optimizer as to
 from repro_torch.train import train_step as tts
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAME = "qwen2-vl-2b"
 ATOL = RTOL = 2e-5

@@ -45,6 +45,7 @@ from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.serve import serve_step as tss
 from repro_torch.train import optimizer as to
 from repro_torch.train import train_step as tts
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAME = "whisper-large-v3"
 ATOL = RTOL = 2e-5
