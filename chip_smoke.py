@@ -161,6 +161,32 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     checkpoint under ``build/`` (removed after), a restore equal to the
     saved state bit for bit and 2 more steps, the losses within
     TRAIN_RESUME_BOUND;
+  - ``shard_train``: the sharded LM (``launch/sharding.py``: parameters,
+    mu and nu stored as DTensors by the reference's specs) on a (1, 1)
+    ("data", "model") mesh over a one-rank NCCL group (``one_rank_mesh``,
+    its store under ``build/``, destroyed after): ``train(mesh="1x1")``,
+    3 steps at lm_train's shapes, then one ``make_train_step`` step with
+    the ZeRO-3 hook (``make_gather_fn``) from a fresh state; each loss
+    within SHARD_LOSS_RTOL of lm_train's at the same step (bit-identity
+    printed), the bf16 forward and backward kernels launched as in
+    lm_train; step walls beside lm_train's, peak memory and the
+    model-FLOP share of a step (``roofline.step_flops`` over the card's
+    datasheet bf16 peak), printed;
+* ``moe_train``: mixtral-8x22b at full width, 1 of its 56 layers,
+  trained 3 steps through ``train(mesh="1x1")`` on that mesh (4 x 1024
+  tokens a step in 2 microbatches; no kernel: the window's path), every
+  loss finite, peak memory beside the trained state's arithmetic; one
+  microbatch's gradients through the sharded step against the plain path
+  (``use_flash_kernel=False``, the routes replayed) within
+  TRAIN_BF16_GRAD_BOUND;
+* ``shard_decode`` (in the LM section, on its Llama-3-8B): 8
+  teacher-forced steps of flash decoding (``flash_decode=True``, the cache
+  shared out by ``shard_cache``) on a (1, 1) ambient mesh against the
+  plain decode from the same prefill, within LM_DECODE_BOUND; and
+  ``shard_decode_a2a`` (in the mixtral serving section): the a2a dispatch
+  on that mesh against the sort dispatch on layer 0's MoE input over 2 x
+  2048 tokens, both at capacity factor E / k, within MOE_DISPATCH_BOUND
+  of max |y|;
 * MoE serving through ``launch/serve.py``'s ``serve`` (bf16 weights from
   the port's seeded init, drawn an expert at a time):
   - ``moe_serve``: arctic-480b at full width (d 7168, GQA 56/8 heads of
@@ -324,6 +350,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -434,13 +461,33 @@ MOE_WINDOW_ARCH = "mixtral-8x22b"
 MOE_SHAPES = dict(layers=2, serve_batch=8, prompt=2048, new=64,
                   decode_steps=8, dispatch_tokens=256)
 MOE_WINDOW_SHAPES = dict(layers=4, serve_batch=2, prompt=6144, new=64,
-                         decode_steps=8)
+                         decode_steps=8, a2a_tokens=2048)
 # The dispatch's expert output (float32 products of bf16-exact inputs,
 # sums of 7168 and 4864 terms) against a float64 evaluation of the kept
 # copies: float32's sums err by about 1e-6 of their terms' magnitudes, so
 # 1e-3 of max |y| is loose for a right dispatch and far below a wrong
 # copy's contribution (a whole expert's output, the size of max |y|).
 MOE_DISPATCH_BOUND = 1e-3
+# The sharded LM (launch/sharding.py, DTensor) on a (1, 1) mesh over a
+# one-rank NCCL group.  shard_train: launch/train.py's train(mesh="1x1")
+# at lm_train's shapes, 3 steps, then one make_train_step step with the
+# ZeRO-3 hook; each loss within SHARD_LOSS_RTOL of lm_train's at the same
+# step (the same seed and batches; the warm-up's learning rates do not
+# depend on the run's length): on one rank the sharded step computes the
+# plain step's values, so the bound only leaves room for a reordered sum.
+# moe_train: mixtral-8x22b at full width, 1 of its 56 layers (the
+# embedding, one attention and expert layer and the head: 2.9 G bf16
+# parameters, 46 GB of trained state with float32 moments and gradient
+# accumulators), 4 x 1024 tokens a step in 2 microbatches (the window's
+# path materialises [B, H, T, T] float32 scores; 1024 keeps them at 0.4 GB
+# a microbatch beside the state), 3 steps; one microbatch's gradients
+# through the sharded step against the plain path's with the routes
+# replayed, within TRAIN_BF16_GRAD_BOUND.
+SHARD_TRAIN_STEPS = 3
+SHARD_LOSS_RTOL = 1e-5
+MOE_TRAIN_ARCH = "mixtral-8x22b"
+MOE_TRAIN_SHAPES = dict(layers=1, seq=1024, batch=4, microbatches=2,
+                        steps=3)
 # The MLA and VLM phases, each model at full width and depth.
 # minicpm3-4b: lm_serve's traffic (8 prompts of 2048 tokens, 64 new
 # tokens), 8 teacher-forced decode steps, the float32 check at 4 layers.
@@ -753,6 +800,25 @@ def card_line() -> str:
 def sync() -> None:
     import torch
     torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """A (1, 1) ("data", "model") mesh over a one-rank group (NCCL on the
+    card, gloo on the CPU), its store in a directory under ``build/``;
+    the group is destroyed and the directory removed after."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group, make_mesh
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="mesh_pg_") as td:
+        init_shard_group("nccl" if dev.type == "cuda" else "gloo",
+                         f"file://{td}/store", world_size=1, rank=0)
+        try:
+            yield make_mesh((1, 1), ("data", "model"), device=dev.type)
+        finally:
+            dist.destroy_process_group()
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -3034,19 +3100,134 @@ def teacher_forced(cfg, params, tokens, start, steps, enc_out=None):
     return decode_steps(cfg, params, cache, tokens, start, steps)
 
 
-def decode_steps(cfg, params, cache, tokens, start, steps):
+def decode_steps(cfg, params, cache, tokens, start, steps, flash=False):
     """Decode ``tokens[:, start + i]`` at position ``start + i`` for i <
-    ``steps`` from ``cache`` (changed in place); the logits f32[B, steps,
-    V]."""
+    ``steps`` from ``cache`` (changed in place; ``flash``: flash decoding,
+    under an ambient mesh); the logits f32[B, steps, V]."""
     import torch
     from repro_torch.models import transformer
     out = []
     for i in range(steps):
         logits, cache = transformer.decode_step(
             cfg, params, tokens[:, start + i:start + i + 1], cache,
-            torch.tensor(start + i, dtype=torch.int32, device=tokens.device))
+            torch.tensor(start + i, dtype=torch.int32, device=tokens.device),
+            flash_decode=flash)
         out.append(logits)
     return torch.cat(out, dim=1)
+
+
+def shard_decode_phase(cfg, params, ext, start, steps, dev, phases):
+    """shard_decode: teacher-forced flash decoding on a (1, 1) ambient mesh
+    (``attention.gqa_decode(flash=True)``: the rank's partial (m, l, acc)
+    over its block of the slots, combined over the model axis) against
+    the plain decode from the same prefill, within LM_DECODE_BOUND."""
+    import torch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.sharding import shard_cache
+    from repro_torch.models import transformer
+    _, cache = transformer.prefill_forward(cfg, params,
+                                           ext[:, :start].contiguous(),
+                                           start + steps)
+    with one_rank_mesh(dev) as mesh:
+        flash_cache = shard_cache(cache, mesh, cfg)
+        sync()
+        t0 = time.perf_counter()
+        plain = decode_steps(cfg, params, cache, ext, start, steps)
+        sync()
+        plain_wall = time.perf_counter() - t0
+
+        def flash():
+            with set_mesh(mesh):
+                return decode_steps(cfg, params, flash_cache, ext, start,
+                                    steps, flash=True)
+        out, wall, counts, peak = phases.run(
+            "shard_decode", "shard_decode", (), flash, warm_up=False)
+    err = rel_err(out, plain)
+    check(bool(torch.isfinite(out).all()) and out.shape == plain.shape,
+          f"shard_decode: logits {tuple(out.shape)} not finite")
+    print(f"phase shard_decode: {cfg.name} [{ext.shape[0]} x {start} + "
+          f"{steps}] flash decoding on a (1, 1) mesh, {steps} teacher-forced "
+          f"steps: wall {wall:.3f} s (plain decode {plain_wall:.3f} s), "
+          f"max|flash - plain| / max|logit| {err:.3e} (bound "
+          f"{LM_DECODE_BOUND}) launches {counts} peak_mem {peak:.2f} GiB; "
+          f"card {card_line()}", flush=True)
+    check(err <= LM_DECODE_BOUND, "shard_decode: flash decoding off the "
+                                  "plain decode")
+    del cache, flash_cache, out, plain
+    torch.cuda.empty_cache()
+
+
+def shard_a2a_phase(cfg, params, prompt, dev, phases):
+    """shard_decode_a2a: MoE's a2a dispatch on a (1, 1) ambient mesh
+    against the sort dispatch on layer 0's MoE input over ``prompt``,
+    both at a capacity factor of E / k (neither drops a copy), on the same
+    routes.  With float32 payloads the two compute the same products:
+    within MOE_DISPATCH_BOUND of max |y|.  With the model's bf16 payloads
+    (the path as it runs) the a2a rounds each copy's expert output and the
+    data row's sum to bf16, each by at most u = 2^-8 of itself (bf16's
+    unit roundoff): every element within 2^-8 (sum_k p_k |out_k| + |y|)
+    of sort's, the worst case of the two roundings, plus
+    MOE_DISPATCH_BOUND of max |y|."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm
+    full = dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+    layer = params.layers[0]
+    B, T = prompt.shape
+    with torch.no_grad():
+        x = params.embed[prompt.long()]
+        pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        x = x + attn.gqa_train(cfg, layer.attn,
+                               apply_norm(cfg.norm_kind, layer.ln1, x), pos)
+        xf = apply_norm(cfg.norm_kind, layer.ln2, x).reshape(B * T, -1)
+        del x
+        top_e, top_p, _ = moe._route(full, layer.ffn, xf)
+        cap = moe._capacity(full, B * T)
+        sync()
+        t0 = time.perf_counter()
+        want = moe._dispatch_sort(full, layer.ffn, xf, top_e, top_p, cap)
+        sync()
+        sort_wall = time.perf_counter() - t0
+        # sum_k p_k |out_k|, each element's scale before the sum.
+        flat_e, flat_p = top_e.reshape(-1).long(), top_p.reshape(-1)
+        token_of = torch.arange(B * T, device=dev).repeat_interleave(
+            full.top_k)
+        kept, rows = moe._sorted_kept(flat_e, flat_p, full.n_experts, cap)
+        scale = torch.zeros_like(want).index_add(
+            0, token_of[kept], moe._expert_ffn(
+                layer.ffn, xf[token_of[kept]].float(), rows).abs()
+            * flat_p[kept][:, None])
+        with one_rank_mesh(dev) as mesh:
+            def a2a(payload):
+                with set_mesh(mesh):
+                    return moe._dispatch_a2a(full, layer.ffn, payload,
+                                             top_e, top_p)
+            got32 = a2a(xf.float())
+            got, wall, counts, peak = phases.run(
+                "shard_decode_a2a", "shard_decode_a2a", (), lambda: a2a(xf))
+    ymax = float(want.abs().max())
+    err32 = float((got32 - want).abs().max()) / ymax
+    room = 2 ** -8 * (scale + want.abs()) + MOE_DISPATCH_BOUND * ymax
+    over = float(((got - want).abs() - room).max())
+    err = float((got - want).abs().max()) / ymax
+    print(f"phase shard_decode_a2a: {cfg.name} layer 0's MoE input over "
+          f"{B} x {T} tokens, capacity factor E / k = "
+          f"{full.capacity_factor:g} ({cap} copies an expert, none "
+          f"dropped): a2a on a (1, 1) mesh {wall:.3f} s, sort "
+          f"{sort_wall:.3f} s; float32 payloads: max|a2a - sort| / max|y| "
+          f"{err32:.3e} (bound {MOE_DISPATCH_BOUND}); {xf.dtype} payloads: "
+          f"{err:.3e} of max |y|, every element within its rounding bound: "
+          f"{over <= 0} (largest excess {over:.3e}) peak_mem {peak:.2f} "
+          f"GiB; card {card_line()}", flush=True)
+    check(bool(torch.isfinite(got).all()), "shard_decode_a2a: not finite")
+    check(err32 <= MOE_DISPATCH_BOUND and over <= 0,
+          "shard_decode_a2a: a2a off the sort dispatch")
+    del got, got32, want, xf, scale, room
+    torch.cuda.empty_cache()
 
 
 def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
@@ -3199,6 +3380,8 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     check(err_prefill_plain <= LM_BF16_BOUND, "lm_serve: prefill off the "
                                               "plain prefill")
     check(err_dec <= LM_DECODE_BOUND, "lm_serve: decode off the forward")
+    torch.cuda.empty_cache()
+    shard_decode_phase(cfg, params, ext, P, n, dev, phases)
     rows.append(flash_row("prefill", "lm_serve",
                           *layer0_qkv(cfg, params, prompt), True))
     del params, res, ext, prompt
@@ -3478,6 +3661,7 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
     check(res.losses[-1] < res.losses[0], "lm_train: the loss did not fall")
     bf16_grad_check(cfg, res.state.params, mbatch,
                     f"after lm_train's {sh['steps']} steps")
+    lm_train = (res.losses, res.walls)
     del res
     torch.cuda.empty_cache()
 
@@ -3500,7 +3684,7 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
         qkv = layer0_qkv(cfg, params, mbatch["tokens"])
     del params
     torch.cuda.empty_cache()
-    groups = ("lm_train", "lm_train_delta", "lm_train_resume")
+    groups = ("lm_train", "lm_train_delta", "lm_train_resume", "shard_train")
     rows.append(flash_row("train", groups, *qkv, True))
     rows.append(flash_bwd_row("train", groups, *qkv, True, g))
     rows.append(flash_bwd_row("train_f32", OFF_PATH,
@@ -3561,6 +3745,199 @@ def train_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES):
                                      "are off the straight run's")
     del straight, half, resumed
     torch.cuda.empty_cache()
+    shard_train_phases(args, dev, phases, cfg, sh, *lm_train)
+
+
+def flop_share(cfg, kind, batch, seq, wall) -> str:
+    """The step's model FLOPs (``roofline.step_flops``) over the card's
+    dense bf16 peak for ``wall`` seconds, as text."""
+    from repro_torch.launch import roofline
+    try:
+        chip = roofline.chip_constants()
+    except (ValueError, RuntimeError) as e:   # no datasheet, no card
+        return f"not known ({e})"
+    share = roofline.step_flops(cfg, kind, batch, seq) / (
+        wall * chip.peak_flops)
+    return f"{share:.4f} of {chip.name}'s {chip.peak_flops / 1e12:.1f} TFLOP/s"
+
+
+def shard_train_phases(args, dev, phases, cfg, sh, lm_losses, lm_walls):
+    """shard_train: launch/train.py's train on the DTensor path over a
+    (1, 1) mesh (SHARD_TRAIN_STEPS steps at lm_train's shapes; its step
+    gathers through ``make_gather_fn`` by default), then one
+    make_train_step step given the ZeRO-3 hook explicitly from a fresh
+    state, each loss held to lm_train's at the same step."""
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.sharding import make_gather_fn, param_mesh
+    from repro_torch.launch.train import WARMUP_STEPS, train
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+    T, B, mb = sh["seq"], sh["batch"], sh["microbatches"]
+    n = SHARD_TRAIN_STEPS
+    needs = ("flash_attention_bf16", "flash_attention_bwd")
+    fwd = cfg.n_layers * mb * (2 if cfg.remat else 1)
+    bwd = cfg.n_layers * mb * BWD_LAUNCHES
+    with one_rank_mesh(dev) as mesh:
+        stats_before = fa_ops.lse_written
+        res, wall, counts, peak = phases.run(
+            "shard_train", "shard_train", needs, lambda: train(
+                cfg, n, seq_len=T, global_batch=B, lr=TRAIN_LR,
+                microbatches=mb, ckpt_every=0, mesh="1x1", seed=args.seed,
+                device=dev, log=lambda *_: None), warm_up=False)
+        check(param_mesh(res.state.params) is not None,
+              "shard_train: the state is not stored on the mesh")
+        check(counts["flash_attention_bf16"] == n * fwd and
+              counts["flash_attention_bwd"] == n * bwd and
+              counts["flash_attention"] == 0 and
+              fa_ops.lse_written - stats_before == n * fwd,
+              f"shard_train: launches {counts} in {n} steps (want {fwd} "
+              f"bf16 forward and {bwd} backward a step)")
+        losses, walls = res.losses, res.walls
+        del res
+        torch.cuda.empty_cache()
+        tcfg = TrainConfig(
+            adamw=AdamWConfig(lr=TRAIN_LR, warmup_steps=WARMUP_STEPS,
+                              total_steps=n),
+            microbatches=mb, gather_fn=make_gather_fn(mesh))
+        state = shard_train_state(init_train_state(
+            cfg, tcfg, torch.Generator(device=dev).manual_seed(args.seed),
+            dev), mesh)
+        batch = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
+                              device=dev).batch_at(0)
+        step = make_train_step(cfg, tcfg)
+        (_, met), g_wall, g_counts, g_peak = phases.run(
+            "shard_train_gather", "shard_train", needs,
+            lambda: step(state, batch), warm_up=False)
+        g_loss = float(met["loss"])
+        del state, met
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, lm_losses))
+    g_rel = abs(g_loss - lm_losses[0]) / abs(lm_losses[0])
+    same = losses == lm_losses[:n] and g_loss == lm_losses[0]
+    warm, lm_warm = walls[1:] or walls, lm_walls[1:] or lm_walls
+    w, lm_w = sum(warm) / len(warm), sum(lm_warm) / len(lm_warm)
+    print(f"phase shard_train: {cfg.name} [{B}x{T}, {mb} microbatches] on a "
+          f"(1, 1) mesh, {n} steps: losses {losses} (lm_train's "
+          f"{lm_losses[:n]}), max relative difference {rel:.3e}; one step "
+          f"with the ZeRO-3 hook: loss {g_loss} (lm_train's step 0 "
+          f"{lm_losses[0]}, {g_rel:.3e}); bit-identical to lm_train: "
+          f"{same} (bound {SHARD_LOSS_RTOL}); step walls "
+          f"{[round(x, 3) for x in walls]} s, mean after the first {w:.3f} "
+          f"s against lm_train's {lm_w:.3f} s ({(w - lm_w) / lm_w:+.1%}, "
+          f"the DTensor path's cost); the hooked step {g_wall:.3f} s; "
+          f"model-FLOP share of a step: sharded {flop_share(cfg, 'train', B, T, w)}, "
+          f"lm_train {flop_share(cfg, 'train', B, T, lm_w)}, hooked "
+          f"{flop_share(cfg, 'train', B, T, g_wall)}; launches {counts} "
+          f"(hooked step {g_counts}) peak_mem {peak:.2f} GiB (hooked "
+          f"{g_peak:.2f} GiB); card {card_line()}", flush=True)
+    check(all(math.isfinite(x) for x in losses), "shard_train: a loss is "
+                                                 "not finite")
+    check(rel <= SHARD_LOSS_RTOL and g_rel <= SHARD_LOSS_RTOL,
+          "shard_train: losses off lm_train's")
+
+
+def moe_train_section(args, dev, phases, rows, cfg=None,
+                      shapes=MOE_TRAIN_SHAPES):
+    """moe_train: mixtral-8x22b at full width, depth cut to
+    MOE_TRAIN_SHAPES["layers"], trained through launch/train.py's train
+    on the DTensor path over a (1, 1) mesh; then one microbatch's
+    gradients through the sharded step against the plain path's, the
+    routes replayed (``cfg`` and ``shapes`` shrink it for a rehearsal on
+    the CPU).  It adds no kernel row to ``rows``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.sharding import local, shard_params
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+    from repro_torch.train.train_step import (TrainConfig, make_loss_fn,
+                                              make_rank_loss_fn)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = shapes
+    cfg = cfg or dataclasses.replace(get_arch(MOE_TRAIN_ARCH),
+                                     n_layers=sh["layers"])
+    T, B, mb, n = sh["seq"], sh["batch"], sh["microbatches"], sh["steps"]
+    n_params = transformer.param_count(transformer.LM(cfg, device="meta"))
+    state_gb = n_params * (2 + 4 + 4 + 4 + 2) / 1e9
+    print(f"moe_train: {cfg.name} {cfg.n_layers} layer(s) d={cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} experts "
+          f"{cfg.n_experts} top-{cfg.top_k} d_ff={cfg.d_ff} window "
+          f"{cfg.window} vocab={cfg.vocab} {cfg.dtype}: {n_params} "
+          f"parameters, trained state {state_gb:.1f} GB (16 bytes a "
+          f"parameter: bf16 parameters, float32 mu, nu and gradient "
+          f"accumulators, a microbatch's bf16 gradient); {B}x{T} tokens a "
+          f"step in {mb} microbatches, lr "
+          f"{TRAIN_LR}", flush=True)
+    with one_rank_mesh(dev) as mesh:
+        res, wall, counts, peak = phases.run(
+            "moe_train", "moe_train", (), lambda: train(
+                cfg, n, seq_len=T, global_batch=B, lr=TRAIN_LR,
+                microbatches=mb, ckpt_every=0, mesh="1x1", seed=args.seed,
+                device=dev, log=lambda *_: None), warm_up=False)
+        losses, walls = res.losses, res.walls
+        del res
+        torch.cuda.empty_cache()
+        warm = walls[1:] or walls
+        print(f"phase moe_train: [{B}x{T}, {mb} microbatches] {n} steps "
+              f"wall {wall:.3f} s step walls {[round(x, 3) for x in walls]} "
+              f"s, {T * B * len(warm) / sum(warm):.0f} tok/s after the "
+              f"first step; losses {losses}; model-FLOP share "
+              f"{flop_share(cfg, 'train', B, T, sum(warm) / len(warm))}; "
+              f"launches {counts} peak_mem {peak:.2f} GiB (trained state "
+              f"{state_gb / 1.073741824:.1f} GiB by the arithmetic); card "
+              f"{card_line()}", flush=True)
+        check(all(math.isfinite(x) for x in losses), "moe_train: a loss is "
+                                                     "not finite")
+
+        # One microbatch's gradients: the sharded step's loss on stored
+        # DTensors against the plain path's, which replays its routes.
+        mbatch = {k: v[:B // mb] for k, v in TokenPipeline(
+            cfg.vocab, T, B, seed=args.seed, device=dev).batch_at(0).items()}
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed + 5), dev)
+        params.requires_grad_(True)
+        with RouteLog() as k_log:
+            shard_params(params, mesh)
+            total, (loss_k, _) = make_rank_loss_fn(cfg, TrainConfig(),
+                                                   mesh)(params, mbatch,
+                                                         False)
+            g_k = [local(g) for g in torch.autograd.grad(
+                total, list(params.parameters()))]
+        loss_k = float(loss_k.detach())
+        del total, params
+        torch.cuda.empty_cache()
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed + 5), dev)
+        params.requires_grad_(True)
+        with RouteLog(replay=k_log.calls, keep_grad=True) as p_log:
+            total, (loss_p, _) = make_loss_fn(cfg, TrainConfig(
+                use_flash_kernel=False))(params, mbatch)
+            g_p = torch.autograd.grad(total, list(params.parameters()))
+        loss_p = float(loss_p.detach())
+        del total, params
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(g_k, g_p))
+    den = sum(float(b.float().square().sum()) for b in g_p)
+    rel = math.sqrt(num / den)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    print(f"moe_train gradients, one microbatch {tuple(mbatch['tokens'].shape)}"
+          f": loss sharded {loss_k:.6f} plain {loss_p:.6f} (relative "
+          f"{loss_rel:.3e}, bound {TRAIN_BF16_LOSS_BOUND}); gradients' "
+          f"relative L2 error {rel:.3e} (bound {TRAIN_BF16_GRAD_BOUND}); "
+          f"{p_log.flips} of {B // mb * T * cfg.n_layers} token-layers "
+          f"would have chosen other experts", flush=True)
+    check(finite, "moe_train gradients: not finite")
+    check(loss_rel <= TRAIN_BF16_LOSS_BOUND and rel <= TRAIN_BF16_GRAD_BOUND,
+          "moe_train gradients: the sharded step off the plain path")
+    del g_k, g_p
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3573,11 +3950,16 @@ class RouteLog:
     computes the same values with it or without).  With ``replay`` (an
     earlier log's calls), each call returns the replayed choices and
     probabilities instead, and the log records its own; ``flips`` then
-    counts the tokens whose own choices differed from the replayed ones."""
+    counts the tokens whose own choices differed from the replayed ones.
+    With ``keep_grad`` a replay takes a token's own choices and
+    probabilities (which carry the router's gradient) where its experts
+    agree with the replayed ones, and the replayed ones only where they
+    do not."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, keep_grad=False):
         self.calls = []    # (top_e int32[n, k], top_p f32[n, k]), in order
         self.replay = replay
+        self.keep_grad = keep_grad
         self.flips = 0
 
     def __enter__(self):
@@ -3591,8 +3973,12 @@ class RouteLog:
             if self.replay is None:
                 return top_e, top_p, aux
             old_e, old_p = self.replay[len(self.calls) - 1]
-            self.flips += int((torch.sort(top_e, -1).values !=
-                               torch.sort(old_e, -1).values).any(-1).sum())
+            differ = (torch.sort(top_e, -1).values !=
+                      torch.sort(old_e, -1).values).any(-1)
+            self.flips += int(differ.sum())
+            if self.keep_grad:
+                return (torch.where(differ[:, None], old_e, top_e),
+                        torch.where(differ[:, None], old_p, top_p), aux)
             return old_e, old_p, aux
         moe._route = logged
         return self
@@ -4047,6 +4433,10 @@ def moe_window_section(args, dev, phases, rows, cfg=None,
                                         "forward")
     check(err_dec <= LM_DECODE_BOUND, "moe_window_serve: decode off the "
                                       "forward")
+
+    torch.cuda.empty_cache()
+    shard_a2a_phase(cfg, params, prompt[:, :sh["a2a_tokens"]].contiguous(),
+                    dev, phases)
 
     # blocked_attention against _windowed_attention on layer 0's q, k, v.
     q, k, v = (a.float() for a in layer0_qkv(cfg, params, prompt))
@@ -4981,27 +5371,15 @@ def main(argv=None) -> int:
     phases.counters["flash_attention_bf16"] = (fa_ops, "launches_bf16")
     phases.counters["flash_attention_bwd"] = (fa_ops, "launches_bwd")
     rows: list = []
-    graph_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    kmeans_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    kmeans_view_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    lm_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    train_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    moe_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    moe_window_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    mla_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    vlm_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    whisper_section(args, dev, phases, rows)
-    torch.cuda.empty_cache()
-    recurrent_section(args, dev, phases, rows)
+    for section in (graph_section, kmeans_section, kmeans_view_section,
+                    lm_section, train_section, moe_train_section,
+                    moe_section, moe_window_section, mla_section,
+                    vlm_section, whisper_section, recurrent_section):
+        t0 = time.perf_counter()
+        section(args, dev, phases, rows)
+        torch.cuda.empty_cache()
+        print(f"section {section.__name__}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_rows(rows)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

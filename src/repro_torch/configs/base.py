@@ -154,3 +154,20 @@ def _load_all():
                                      qwen2_vl_2b, recurrentgemma_2b,
                                      starcoder2_3b, whisper_large_v3,
                                      xlstm_350m)
+
+
+def cells() -> list[tuple[str, str, str]]:
+    """All (arch, shape, skip_reason) dry-run cells, the reference's:
+    decode cells of an encoder-only config and long_500k of a
+    full-attention one carry their reason."""
+    out = []
+    for arch in all_archs():
+        cfg = get_arch(arch)
+        for shape in SHAPES.values():
+            reason = ""
+            if shape.kind == "decode" and not cfg.decode_ok:
+                reason = "encoder-only: no decode step"
+            elif shape.name == "long_500k" and not cfg.long_context_ok:
+                reason = "full attention is quadratic at 500k"
+            out.append((arch, shape.name, reason))
+    return out

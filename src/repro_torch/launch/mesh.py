@@ -14,13 +14,31 @@ Device and backend rules: by default a rank computes on
 when the caller names them (``device="cpu"``, ``backend="gloo"``), as the
 tests do; without CUDA the defaults raise instead of falling back.
 
-``make_production_mesh`` and the LM helpers (``dp_axes`` and the rest)
-come with the port of ``launch/sharding.py``.
+The LM half (the reference's ``make_mesh``, ``make_production_mesh``,
+``dp_axes``, ``model_axis_size``, ``dp_size``): :func:`make_mesh` builds a
+``torch.distributed`` ``DeviceMesh`` over the initialised default group,
+whose axes are named (``("data", "model")`` for the LM);
+:func:`make_production_mesh` is shape-only (:class:`AxisMesh`: names and
+sizes, no devices), as the reference's works only under forced host
+devices.  The helpers read names and sizes from either kind.
+:func:`set_mesh` makes a mesh ambient (the counterpart of
+``jax.sharding.set_mesh``, read back by :func:`get_mesh`): flash decoding
+and MoE's ``a2a`` dispatch read it.  :func:`batch_group` says whether the
+batch the code sees is this rank's share of a batch split over the
+data-parallel axes (the sharded train step declares it), so a mean over
+the batch sums over that group.
+
+The autograd collectives at the end run over one axis of a mesh, under
+the port's convention for a sharded step: the loss is the sum of the
+data-parallel ranks' local terms, and every rank of the ``"model"`` axis
+computes the same values but for what a collective splits among them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import math
 from typing import Optional
 
 import torch
@@ -169,3 +187,272 @@ def init_shard_group(backend: Optional[str] = None,
                             world_size=world_size, rank=rank, **kw)
     if backend == "nccl":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+
+
+# ---------------------------------------------------------------------------
+# The LM half: named meshes, their axes, the ambient mesh.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AxisMesh:
+    """A shape-only mesh: axis names and sizes, no devices (the production
+    meshes of 256 and 512 chips, read by the sharding rules alone)."""
+
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AxisMesh:
+    """(16, 16) over ("data", "model") = 256 chips; multi-pod (2, 16, 16)
+    over ("pod", "data", "model") = 512."""
+    if multi_pod:
+        return AxisMesh(("pod", "data", "model"), (2, 16, 16))
+    return AxisMesh(("data", "model"), (16, 16))
+
+
+def make_mesh(shape, axes, device=None):
+    """A ``DeviceMesh`` of ``shape`` over the default group's ranks in rank
+    order, its dims named ``axes``.  The group must be initialised and
+    have prod(shape) ranks.  ``device`` None = CUDA (raises without it);
+    ``"cpu"`` for a gloo group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} mesh needs an initialised "
+            f"process group of {math.prod(shape)} ranks: call "
+            f"repro_torch.launch.mesh.init_shard_group first")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} mesh needs a process group of "
+            f"{math.prod(shape)} ranks; the initialised group has {world}")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' (and "
+                           "a gloo group) to build a mesh on the CPU")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def axis_names(mesh) -> tuple:
+    """The mesh's axis names (a ``DeviceMesh``'s dim names)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of axis ``name`` (1 where the mesh has no such axis)."""
+    names = axis_names(mesh)
+    if name not in names:
+        return 1
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh.size(names.index(name))
+    return mesh.shape[name]
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes of a mesh (batch sharding)."""
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
+
+
+def model_axis_size(mesh) -> int:
+    return axis_size(mesh, "model")
+
+
+def dp_size(mesh) -> int:
+    return math.prod(axis_size(mesh, a) for a in dp_axes(mesh))
+
+
+_AMBIENT = {"mesh": None, "batch_group": None}
+
+
+@contextlib.contextmanager
+def set_mesh(mesh, *, batch_split: bool = False):
+    """Within the block ``mesh`` is ambient (:func:`get_mesh`).  With
+    ``batch_split`` the batch each rank holds is its share of a batch
+    split over the mesh's data axis (:func:`batch_group`)."""
+    old = dict(_AMBIENT)
+    _AMBIENT["mesh"] = mesh
+    _AMBIENT["batch_group"] = None
+    if batch_split and axis_size(mesh, "data") > 1:
+        if dp_axes(mesh) != ("data",):
+            raise ValueError(f"a batch split over {dp_axes(mesh)}: the "
+                             f"sharded step takes one data axis")
+        _AMBIENT["batch_group"] = mesh.get_group("data")
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.update(old)
+
+
+def get_mesh():
+    """The ambient mesh, None outside :func:`set_mesh`."""
+    return _AMBIENT["mesh"]
+
+
+def batch_group():
+    """The data axis's group where the batch is split over it, else
+    None."""
+    return _AMBIENT["batch_group"]
+
+
+def axis_group(mesh, name: str):
+    """(the process group of axis ``name``, this rank's index on it)."""
+    return mesh.get_group(name), mesh.get_local_rank(name)
+
+
+# ---------------------------------------------------------------------------
+# Collectives with gradients, over one axis's group.
+# ---------------------------------------------------------------------------
+
+class _SumTerms(torch.autograd.Function):
+    """Forward: the sum over the group.  Backward: the sum of the
+    gradients, each rank's output feeding its own term of the loss (the
+    data axis's convention)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    """Forward: the sum over the group, which every rank then uses alike
+    (the model axis's convention).  Backward: each rank's gradient as it
+    is."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ToReplicated(torch.autograd.Function):
+    """Forward: the identity into computations that each rank does on its
+    own part.  Backward: the parts' gradients summed over the group."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: every rank's rows concatenated in rank order.  Backward:
+    this rank's rows of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, index, size):
+        ctx.index, ctx.rows = index, t.shape[0]
+        t = t.contiguous()
+        out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.rows
+        return g[ctx.index * n:(ctx.index + 1) * n], None, None, None
+
+
+class _SplitRows(torch.autograd.Function):
+    """Forward: this rank's block of the (replicated) rows.  Backward:
+    every rank's block gradient gathered, so the input's gradient is whole
+    on each rank."""
+
+    @staticmethod
+    def forward(ctx, t, group, index, size):
+        ctx.group, ctx.size = group, size
+        n = t.shape[0] // size
+        return t[index * n:(index + 1) * n]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = g.new_empty((ctx.size * g.shape[0],) + tuple(g.shape[1:]))
+        dist.all_gather_into_tensor(out, g, group=ctx.group)
+        return out, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward: block ``j`` of the leading axis goes to rank ``j``.
+    Backward: the same exchange of the gradient, which undoes it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+def sum_terms(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, each rank's result feeding its own
+    loss term (backward: the gradients summed)."""
+    return _SumTerms.apply(t, group)
+
+
+def sum_replicated(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, used alike by every rank
+    (backward: the identity)."""
+    return _SumReplicated.apply(t, group)
+
+
+def to_replicated(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` (alike on every rank) into per-rank partial computations
+    (backward: their gradients summed)."""
+    return _ToReplicated.apply(t, group)
+
+
+def gather_rows(t: torch.Tensor, group, index: int, size: int
+                ) -> torch.Tensor:
+    """The ranks' rows concatenated in rank order (``index`` this rank's
+    place among ``size``); backward: this rank's rows."""
+    return _GatherRows.apply(t, group, index, size)
+
+
+def split_rows(t: torch.Tensor, group, index: int, size: int
+               ) -> torch.Tensor:
+    """Block ``index`` of ``size`` of the rows; backward: the blocks'
+    gradients gathered."""
+    return _SplitRows.apply(t, group, index, size)
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of the leading axis to rank ``j`` of ``group``, with
+    its gradient's inverse exchange."""
+    return _AllToAll.apply(t, group)

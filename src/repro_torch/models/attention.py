@@ -54,9 +54,16 @@ keys) a 128-row query tile would be mostly waste.  Products with a weight
 take JAX's type promotion (``layers.mm``): the encoder's K/V of float32
 frames stay float32 against bf16 weights.
 
-Not ported here: ``flash=True`` decode, which is the reference's
-``shard_map`` flash-decoding; it raises ``NotImplementedError`` naming
-its ROADMAP slice (queue 1, 9h, with ``launch/sharding.py``).
+``gqa_decode(flash=True)`` is the reference's flash decoding over a
+sequence-sharded cache: under an ambient mesh with a ``"model"`` axis
+(``launch/mesh.set_mesh``), each rank holds its block of the cache's
+slots (and its data rows of the batch; ``launch/sharding.shard_cache``),
+writes the new token where it owns the slot (decided on the device, no
+host sync), and computes its partial (m, l, acc) over its slots; m is
+all-reduced by max, then l·corr and acc·corr by sum (one all-reduce) over
+the model axis.  Without an ambient mesh, or one without a
+``"model"`` axis, it is the full decode, bit for bit, as the reference's
+falls back.
 """
 from __future__ import annotations
 
@@ -260,24 +267,49 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device=None
     }
 
 
+def _flash_mesh():
+    """The ambient mesh where it has a ``"model"`` axis, else None."""
+    from repro_torch.launch.mesh import axis_names, get_mesh
+    mesh = get_mesh()
+    if mesh is None or "model" not in axis_names(mesh):
+        return None
+    return mesh
+
+
 def gqa_decode(cfg, params: GQA, x: torch.Tensor, cache: dict,
                pos: torch.Tensor, flash: bool = False
                ) -> tuple[torch.Tensor, dict]:
     """x [B, 1, D]; pos int32[] — global index of the new token.  Writes
-    the token's k/v and position into ``cache`` in place."""
-    if flash:
-        raise _not_ported("flash decoding over a sequence-sharded cache",
-                          "slice 9h (sharding.py)")
+    the token's k/v and position into ``cache`` in place.  ``flash``:
+    flash decoding over the model axis's blocks of the cache's slots
+    under an ambient mesh (module docstring)."""
     b = x.shape[0]
     posb = pos.reshape(1, 1).expand(b, 1)
     q, k_new, v_new = gqa_qkv(cfg, params, x, posb)
+    mesh = _flash_mesh() if flash else None
     slots = cache["k"].shape[2]
-    slot = (pos % slots).reshape(1).long()
-    cache["k"].index_copy_(2, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, slot, v_new.to(cache["v"].dtype))
-    cache["pos"].index_copy_(1, slot, posb.to(torch.int32))
-    out = _full_decode_attention(cfg, q, cache["k"], cache["v"],
-                                 cache["pos"], pos)
+    new = {"k": k_new.to(cache["k"].dtype), "v": v_new.to(cache["v"].dtype),
+           "pos": posb.to(torch.int32)}
+    if mesh is None:
+        slot = (pos % slots).reshape(1).long()
+    else:   # this rank's block of the slots; another rank's slot: unchanged
+        from repro_torch.launch.mesh import axis_group, model_axis_size
+        group, m = axis_group(mesh, "model")
+        slot = pos % (slots * model_axis_size(mesh))
+        owned = slot // slots == m          # on the device: no host sync
+        slot = torch.clamp(slot - m * slots, 0, slots - 1).reshape(1).long()
+        for key, dim in (("k", 2), ("v", 2), ("pos", 1)):
+            new[key] = torch.where(owned, new[key],
+                                   cache[key].index_select(dim, slot))
+    cache["k"].index_copy_(2, slot, new["k"])
+    cache["v"].index_copy_(2, slot, new["v"])
+    cache["pos"].index_copy_(1, slot, new["pos"])
+    if mesh is None:
+        out = _full_decode_attention(cfg, q, cache["k"], cache["v"],
+                                     cache["pos"], pos)
+    else:
+        out = _flash_decode_attention(cfg, q, cache["k"], cache["v"],
+                                      cache["pos"], pos, group)
     return _merge_heads(out) @ params.wo, cache
 
 
@@ -295,6 +327,34 @@ def _full_decode_attention(cfg, q, k, v, slot_pos, pos):
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqs,bhsd->bhqd", probs, vx.float()).to(q.dtype)
+
+
+def _flash_decode_attention(cfg, q, k, v, slot_pos, pos, group):
+    """Attention of q over this rank's block of the slots, combined over
+    ``group``: the partial (m, l, acc), m's max over the group, then
+    l·corr and acc·corr summed (the reference's shard_map body)."""
+    import torch.distributed as dist
+    hd = cfg.hd
+    group_size = cfg.n_heads // cfg.n_kv_heads
+    kx = torch.repeat_interleave(k, group_size, dim=1)
+    vx = torch.repeat_interleave(v, group_size, dim=1)
+    s = torch.einsum("bhqd,bhsd->bhqs", q.float(), kx.float()) / (hd ** 0.5)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if cfg.window:
+        valid = valid & (slot_pos > pos - cfg.window)
+    s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    m = torch.amax(s, dim=-1)                       # [B, H, 1] local
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhqs,bhsd->bhqd", p, vx.float())
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_g)
+    # l·corr and acc·corr summed in one all-reduce.
+    both = torch.cat([(l * corr)[..., None], acc * corr[..., None]], -1)
+    dist.all_reduce(both, group=group)
+    l_g, acc_g = both[..., 0], both[..., 1:]
+    return (acc_g / torch.clamp(l_g, min=1e-30)[..., None]).to(q.dtype)
 
 
 def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,

@@ -13,9 +13,32 @@ Dispatch strategies, selected by ``strategy``:
     into per-expert capacity buffers, the expert products, combine.
   * "onehot" — dispatch and combine as one-hot einsums (dense [T, E, C]
     masks, capacity by token order).
-  * "a2a"    — the reference's ``shard_map`` dispatch over a 'model' mesh
-    axis; raises ``NotImplementedError`` naming ROADMAP slice 9h
-    (``launch/sharding.py``).
+  * "a2a"    — the REX rehash made explicit over the ambient mesh's
+    'model' axis (``launch/mesh.set_mesh``), the reference's ``shard_map``
+    body.  EP mode (E % M == 0 and the rank's tokens divisible by M): each
+    model rank takes its slice of its data row's tokens, routes the
+    copies into fixed-capacity per-owner segments (``cap_seg``, the
+    reference's, so the same copies are kept and dropped), ONE
+    ``all_to_all`` each way over 'model' with the payloads in the model's
+    dtype, the expert products in float32 on the rank's E / M experts (at
+    most ``cap_loc`` rows an expert), and an ``all_gather`` of the data
+    row.  TP mode (otherwise): the sort dispatch on the rank's slice of
+    d_ff, then one sum over 'model'.  The expert weights come whole (each
+    rank takes its block) or as DTensors in the gathered layout
+    (``launch/sharding.make_gather_fn``).  Without an ambient mesh with a
+    'model' axis it raises ``ValueError``, as the reference's does.
+    Gradients flow through both modes (``launch/mesh.py``'s collectives).
+
+Under a sharded train step each rank holds its share of a batch split
+over the data axis (``launch/mesh.batch_group``).  The sort and one-hot
+dispatches then decide capacity over the whole batch, as the reference's
+do on its global arrays: the capacity is the whole batch's, and the kept
+copies are those of a dispatch over every rank's routes (gathered; each
+rank then computes its own kept copies).  The load-balancing loss is the
+whole batch's (expert counts and probabilities summed over the data
+axis), divided by the data axis's size, so that the ranks' terms sum to
+it.  The a2a dispatch decides capacity per data row, as the reference's
+``shard_map`` body does.
 
 Order of ties: the reference's ``jax.lax.top_k`` takes the lower index
 among equal probabilities and its ``jnp.lexsort`` is stable; ``torch.topk``
@@ -37,11 +60,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.attention import _not_ported
+from repro_torch.launch import mesh as meshes
 from repro_torch.models.layers import (MLP, _param, apply_mlp, dtype_of,
                                        init_mlp, normal_)
-
-A2A_SLICE = "slice 9h (sharding.py)"
 
 
 class MoE(nn.Module):
@@ -97,15 +118,25 @@ def _route(cfg, params: MoE, xf: torch.Tensor):
 
 
 def _load_balance_loss(probs, top_e, n_experts):
-    """Switch-style auxiliary loss (fraction routed × mean prob)."""
+    """Switch-style auxiliary loss (fraction routed × mean prob); over a
+    batch split over the data axis, the whole batch's, divided by that
+    axis's size (the module docstring)."""
     t = probs.shape[0]
     counts = torch.zeros(n_experts, dtype=torch.float32,
                          device=probs.device).index_add_(
         0, top_e.reshape(-1).long(),
         torch.ones(top_e.numel(), dtype=torch.float32, device=probs.device))
-    frac = counts / (t * top_e.shape[-1])
-    mean_p = torch.mean(probs, dim=0)
-    return n_experts * torch.sum(frac * mean_p)
+    group = meshes.batch_group()
+    if group is None:
+        frac = counts / (t * top_e.shape[-1])
+        mean_p = torch.mean(probs, dim=0)
+        return n_experts * torch.sum(frac * mean_p)
+    import torch.distributed as dist
+    ranks = dist.get_world_size(group)
+    dist.all_reduce(counts, group=group)
+    frac = counts / (ranks * t * top_e.shape[-1])
+    mean_p = meshes.sum_terms(torch.sum(probs, dim=0), group) / (ranks * t)
+    return n_experts * torch.sum(frac * mean_p) / ranks
 
 
 def _expert_ffn(params: MoE, buf: torch.Tensor, rows) -> torch.Tensor:
@@ -130,16 +161,18 @@ def moe_ffn(cfg, params: MoE, x: torch.Tensor, strategy: str = "sort"
     """x [B, T, D] -> (y [B, T, D] in x's dtype, aux_loss f32 scalar)."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
-    cap = _capacity(cfg, b * t)
+    group = meshes.batch_group()
+    ranks = 1 if group is None else _group_size(group)
+    cap = _capacity(cfg, b * t * ranks)
     top_e, top_p, aux = _route(cfg, params, xf)
 
     if strategy == "sort":
-        y = _dispatch_sort(cfg, params, xf, top_e, top_p, cap)
+        y = _dispatch_sort(cfg, params, xf, top_e, top_p, cap, over=group)
     elif strategy == "onehot":
-        y = _dispatch_onehot(cfg, params, xf, top_e, top_p, cap)
+        y = _dispatch_onehot(cfg, params, xf, top_e, top_p, cap,
+                             over=group)
     elif strategy == "a2a":
-        raise _not_ported("MoE strategy 'a2a' (all_to_all over a 'model' "
-                          "mesh axis)", A2A_SLICE)
+        y = _dispatch_a2a(cfg, params, xf, top_e, top_p)
     else:
         raise ValueError(strategy)
 
@@ -184,17 +217,41 @@ def _sorted_kept(flat_e, flat_p, n_experts: int, cap: int):
     return order[rank < cap], torch.clamp(counts, max=cap).tolist()
 
 
-def _dispatch_sort(cfg, params: MoE, xf, top_e, top_p, cap):
+def _group_size(group) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def _gathered_routes(t: torch.Tensor, group) -> tuple:
+    """(every rank's ``t`` concatenated in rank order, this rank's offset
+    into it); no gradient."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(_group_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
+    return torch.cat(parts), dist.get_rank(group) * t.shape[0]
+
+
+def _dispatch_sort(cfg, params: MoE, xf, top_e, top_p, cap, over=None):
     """Sort-based delta dispatch (route_by_owner over expert keys).  The
     reference scatters the kept copies into [E·C, D] capacity buffers;
     here each expert's buffer is packed, its kept copies in rank order and
-    no empty rows, so the memory follows the copies and not E·C."""
+    no empty rows, so the memory follows the copies and not E·C.  ``over``
+    a group whose ranks' rows make the batch: the kept copies are a
+    dispatch's over all of them (module docstring)."""
     n, d = xf.shape
     flat_e = top_e.reshape(-1).long()                     # [N*K]
     flat_p = top_p.reshape(-1)
     token_of = torch.arange(n, device=xf.device).repeat_interleave(
         cfg.top_k)
-    kept, rows = _sorted_kept(flat_e, flat_p, cfg.n_experts, cap)
+    if over is None:
+        kept, rows = _sorted_kept(flat_e, flat_p, cfg.n_experts, cap)
+    else:
+        all_e, lo = _gathered_routes(flat_e, over)
+        all_p, _ = _gathered_routes(flat_p, over)
+        kept = _sorted_kept(all_e, all_p, cfg.n_experts, cap)[0]
+        kept = kept[(kept >= lo) & (kept < lo + flat_e.numel())] - lo
+        rows = torch.bincount(flat_e[kept],
+                              minlength=cfg.n_experts).tolist()
     out = _expert_ffn(params, xf[token_of[kept]].float(), rows)
     contrib = out * flat_p[kept][:, None]
     return torch.zeros((n, d), dtype=torch.float32,
@@ -202,14 +259,20 @@ def _dispatch_sort(cfg, params: MoE, xf, top_e, top_p, cap):
                                                    contrib)
 
 
-def _dispatch_onehot(cfg, params: MoE, xf, top_e, top_p, cap):
-    """One-hot einsum dispatch (dense masks; Switch/GShard style)."""
+def _dispatch_onehot(cfg, params: MoE, xf, top_e, top_p, cap, over=None):
+    """One-hot einsum dispatch (dense masks; Switch/GShard style).
+    ``over``: positions counted over the group's whole batch, in rank
+    order."""
     n, _ = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     # Position of each (token, k) copy within its expert, by cumsum.
     onehot = F.one_hot(top_e.long(), e).float()           # [N, K, E]
     pos_in_e = (torch.cumsum(onehot.reshape(n * k, e), dim=0) - 1
                 ).reshape(n, k, e)
+    if over is not None:     # the copies of the ranks before this one
+        all_e, lo = _gathered_routes(top_e.reshape(-1).long(), over)
+        before = torch.bincount(all_e[:lo], minlength=e).float()
+        pos_in_e = pos_in_e + before
     pos = torch.sum(pos_in_e * onehot, dim=-1).to(torch.int32)   # [N, K]
     keep = pos < cap
     disp = ((onehot * keep[..., None])[..., None]
@@ -221,3 +284,94 @@ def _dispatch_onehot(cfg, params: MoE, xf, top_e, top_p, cap):
                           [cap] * e).reshape(buf.shape)
     comb = disp * torch.sum(onehot * top_p[..., None], dim=1)[:, :, None]
     return torch.einsum("nec,ecd->nd", comb, out_buf)
+
+
+class _Experts:
+    """Expert weights as ``_expert_ffn`` reads them (a rank's block)."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
+
+
+def _ceil8(n: int) -> int:
+    return max(8, -(-n // 8) * 8)
+
+
+def _dispatch_a2a(cfg, params: MoE, xf, top_e, top_p):
+    """The rehash dispatch over the ambient mesh's 'model' axis (module
+    docstring); xf [n, D] is this rank's data row of the tokens, and so
+    is the float32 output."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = meshes.get_mesh()
+    if mesh is None or "model" not in meshes.axis_names(mesh):
+        raise ValueError(
+            "a2a MoE dispatch needs an ambient mesh with a 'model' axis "
+            "(launch.mesh.set_mesh) — use strategy='sort' otherwise")
+    from repro_torch.launch.sharding import local_block
+    msize = meshes.model_axis_size(mesh)
+    group, m = meshes.axis_group(mesh, "model")
+    e, k = cfg.n_experts, cfg.top_k
+    n, d = xf.shape
+    ep_mode = (e % msize == 0) and (n % msize == 0)
+    model_dim = meshes.axis_names(mesh).index("model")
+
+    def block(w, dim):
+        place = [Replicate()] * mesh.ndim
+        place[model_dim] = Shard(dim)
+        return local_block(w, mesh, place)
+
+    if not ep_mode:
+        # TP experts: local dispatch on the rank's slice of d_ff, one sum.
+        experts = _Experts(block(params.w_gate, 2), block(params.w_up, 2),
+                           block(params.w_down, 1))
+        y = _dispatch_sort(cfg, experts, meshes.to_replicated(xf, group),
+                           top_e, meshes.to_replicated(top_p, group),
+                           _capacity(cfg, n))
+        return meshes.sum_replicated(y, group)
+
+    experts = _Experts(block(params.w_gate, 0), block(params.w_up, 0),
+                       block(params.w_down, 0))
+    e_per = e // msize
+    n_sub = n // msize
+    # Each model rank dispatches its slice of the data row's tokens.
+    xs = meshes.split_rows(xf, group, m, msize)
+    ps = meshes.split_rows(top_p, group, m, msize)
+    es = top_e[m * n_sub:(m + 1) * n_sub]
+    copies = n_sub * k
+    flat_e = es.reshape(copies).long()
+    flat_p = ps.reshape(copies)
+    token_of = torch.arange(n_sub, device=xf.device).repeat_interleave(k)
+    owner = flat_e // e_per
+    cap_seg = _ceil8(int(cfg.capacity_factor * copies / msize))
+    rank = _rank_in_group(owner, msize).long()
+    keep = rank < cap_seg
+    slot = owner * cap_seg + rank
+    kept = torch.nonzero(keep).reshape(-1)
+    # Payloads travel in the model's dtype; the experts compute in float32.
+    wire_dt = xs.dtype
+    send_tok = xs.new_zeros((msize * cap_seg, d)).index_copy(
+        0, slot[kept], xs[token_of[kept]])
+    send_e = torch.full((msize * cap_seg,), -1, dtype=torch.long,
+                        device=xf.device).index_copy(0, slot[kept],
+                                                     flat_e[kept])
+    # THE rehash: one all_to_all each way over 'model'.
+    recv_tok = meshes.all_to_all(send_tok, group)
+    recv_e = meshes.all_to_all(send_e, group)
+    # Group the received rows by local expert (at most cap_loc each).
+    le = torch.where(recv_e >= 0, recv_e - m * e_per, e_per)
+    cap_loc = max(8, (msize * cap_seg // e_per) * 2)
+    rank2 = _rank_in_group(le, e_per + 1).long()
+    keep2 = (le < e_per) & (rank2 < cap_loc)
+    order = _lexsort(rank2, le)
+    rows_in = order[keep2[order]]          # kept rows, by expert then rank
+    counts = torch.bincount(le[rows_in], minlength=e_per).tolist()
+    out = _expert_ffn(experts, recv_tok[rows_in].float(), counts)
+    out_rows = recv_tok.new_zeros((msize * cap_seg, d)).index_copy(
+        0, rows_in, out.to(wire_dt))
+    back = meshes.all_to_all(out_rows, group)
+    got = back[slot[kept]]
+    y_sub = torch.zeros((n_sub, d), dtype=torch.float32,
+                        device=xf.device).index_add(
+        0, token_of[kept], got.float() * flat_p[kept][:, None])
+    # Reassemble the data row in the wire dtype.
+    return meshes.gather_rows(y_sub.to(wire_dt), group, m, msize).float()

@@ -53,6 +53,21 @@ encoder in float32.  Departure: it takes ``use_kernel`` (default True), so
 on the card the encoder's attention runs the flash kernels; the
 reference's ``encode`` always runs ``attention_ref`` (``use_kernel=False``
 here).
+
+``gather_fn(module or parameter, hint)`` is the ZeRO-3 hook
+(``launch/sharding.make_gather_fn``): parameters stored sharded
+(DTensors, FSDP x TP) are gathered at the point of use, one layer at a
+time (inside the layer's recomputation under remat), so only one layer's
+weights are ever resident gathered.  ``forward`` and ``prefill_forward``
+apply it to the embedding, each decoder layer, the final norm and the
+head, ``encode`` to each encoder layer and its norm; the gathered tensors
+replace the module's for that call (``torch.func.functional_call``).  A
+gathered parameter is replicated for the layer code
+(``sharding.compute_tensor``), but an MoE block's expert weights under
+``moe_strategy="a2a"``, which its dispatch takes in the gathered layout.
+``decode_step(flash_decode=True)`` runs GQA's flash decoding
+(``attention.gqa_decode``) for the ``"dense"`` and ``"attn_local"``
+kinds, as the reference's does.
 """
 from __future__ import annotations
 
@@ -292,6 +307,72 @@ def is_stacked(leaf: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# The ZeRO-3 hook: parameters gathered at the point of use.
+# ---------------------------------------------------------------------------
+
+EXPERT_WEIGHTS = ("ffn.w_gate", "ffn.w_up", "ffn.w_down")
+
+
+class _Apply(nn.Module):
+    """``fn(module, *args)`` as a module's forward, for
+    ``torch.func.functional_call``."""
+
+    def __init__(self, module: nn.Module, fn: Callable):
+        super().__init__()
+        self.m = module
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.m, *args)
+
+
+def keep_gathered(moe_strategy: str) -> tuple:
+    """Parameters that keep the gathered layout (the a2a dispatch's)."""
+    return EXPERT_WEIGHTS if moe_strategy == "a2a" else ()
+
+
+def gathered(gather_fn, module: nn.Module, hint: str, fn: Callable, *args,
+             keep: tuple = ()):
+    """``fn(module, *args)``, the module's parameters replaced for the call
+    by those ``gather_fn`` gives at the point of use (each replicated for
+    the layer code, but those whose names end with one of ``keep``);
+    without a hook, as they are."""
+    if gather_fn is None:
+        return fn(module, *args)
+    from repro_torch.launch.sharding import compute_tensor
+    got = gather_fn(module, hint)
+    return torch.func.functional_call(
+        _Apply(module, fn), {f"m.{n}": t if n.endswith(keep) else
+                             compute_tensor(t) for n, t in got.items()},
+        args)
+
+
+def gathered_param(gather_fn, p: torch.Tensor, hint: str) -> torch.Tensor:
+    """One parameter as the hook gives it, replicated for use."""
+    if gather_fn is None:
+        return p
+    from repro_torch.launch.sharding import compute_tensor
+    return compute_tensor(gather_fn(p, hint))
+
+
+def _block_with(p, kind, cfg, x, positions, use_kernel, moe_strategy,
+                enc_out):
+    return apply_block(kind, cfg, p, x, positions, use_kernel=use_kernel,
+                       moe_strategy=moe_strategy, enc_out=enc_out)
+
+
+def _run_block(gather_fn, block, kind, cfg, x, positions, use_kernel,
+               moe_strategy, enc_out):
+    return gathered(gather_fn, block, "unit", _block_with, kind, cfg, x,
+                    positions, use_kernel, moe_strategy, enc_out,
+                    keep=keep_gathered(moe_strategy))
+
+
+def _norm_with(norm, kind, x):
+    return apply_norm(kind, norm, x)
+
+
+# ---------------------------------------------------------------------------
 # Blocks.
 # ---------------------------------------------------------------------------
 
@@ -481,7 +562,7 @@ def _add_positions(cfg, x: torch.Tensor, positions: torch.Tensor
 
 
 def encode(cfg, params: LM, frames: torch.Tensor, use_kernel: bool = True,
-           unroll: bool = False) -> torch.Tensor:
+           unroll: bool = False, gather_fn=None) -> torch.Tensor:
     """The Whisper encoder over precomputed frame embeddings [B, S, D]
     (sinusoid positions 0..S-1, the ``"enc"`` blocks, ``enc_norm``), in
     the frames' dtype.  ``use_kernel=False`` is the reference's path."""
@@ -490,20 +571,25 @@ def encode(cfg, params: LM, frames: torch.Tensor, use_kernel: bool = True,
     pos = _default_positions(b, s, frames.device)
     x = frames + _sinusoid(pos, frames.shape[-1]).to(frames.dtype)
     for block in params.encoder:
-        x, _ = apply_block("enc", cfg, block, x, pos, use_kernel=use_kernel)
-    return apply_norm(cfg.norm_kind, params.enc_norm, x)
+        x, _ = gathered(gather_fn, block, "unit", _block_with, "enc", cfg,
+                        x, pos, use_kernel, "sort", None)
+    return gathered(gather_fn, params.enc_norm, "enc_norm", _norm_with,
+                    cfg.norm_kind, x)
 
 
-def _head(cfg, params: LM) -> torch.Tensor:
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+def _head(cfg, params: LM, embed_w: Optional[torch.Tensor] = None,
+          gather_fn=None) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return (params.embed if embed_w is None else embed_w).T
+    return gathered_param(gather_fn, params.lm_head, "lm_head")
 
 
-def _embed(params: LM, tokens, embeds) -> torch.Tensor:
+def _embed(embed_w: torch.Tensor, tokens, embeds) -> torch.Tensor:
     """The input rows: ``embeds`` [B, T, D] in the embedding's dtype where
     given (the tokens are then not read), else the tokens' rows."""
     if embeds is None:
-        return params.embed[tokens.long()]
-    return embeds.to(params.embed.dtype)
+        return embed_w[tokens.long()]
+    return embeds.to(embed_w.dtype)
 
 
 def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
@@ -511,16 +597,17 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             embeds: Optional[torch.Tensor] = None,
             use_kernel: bool = True, unroll: bool = False,
             moe_strategy: str = "sort",
-            enc_out: Optional[torch.Tensor] = None
+            enc_out: Optional[torch.Tensor] = None, gather_fn=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens int32[B, T] (or ``embeds`` [B, T, D] for the stub frontends);
     positions [B, T] or, for M-RoPE, [3, B, T] (default 0..T-1);
-    ``enc_out`` the encoder output an encoder-decoder's blocks attend to
-    -> (logits f32[B, T, V], aux_loss scalar, the sum of the blocks'
-    load-balancing losses)."""
+    ``enc_out`` the encoder output an encoder-decoder's blocks attend to;
+    ``gather_fn`` the ZeRO-3 hook -> (logits f32[B, T, V], aux_loss
+    scalar, the sum of the blocks' load-balancing losses)."""
     _check_model(cfg)
     _check_enc_out(cfg, enc_out)
-    x = _embed(params, tokens, embeds)
+    embed_w = gathered_param(gather_fn, params.embed, "embed")
+    x = _embed(embed_w, tokens, embeds)
     b, t, _ = x.shape
     if positions is None:
         positions = _default_positions(b, t, x.device)
@@ -529,45 +616,55 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
     for kind, block in zip(params.kinds, params.layers):
+        args = (gather_fn, block, kind, cfg, x, positions, use_kernel,
+                moe_strategy, enc_out)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                apply_block, kind, cfg, block, x, positions,
-                use_kernel, moe_strategy, enc_out, use_reentrant=False)
+                _run_block, *args, use_reentrant=False)
         else:
-            x, a = apply_block(kind, cfg, block, x, positions,
-                               use_kernel=use_kernel,
-                               moe_strategy=moe_strategy, enc_out=enc_out)
+            x, a = _run_block(*args)
         aux = aux + a
-    x = apply_norm(cfg.norm_kind, params.final_norm, x)
-    return (x @ _head(cfg, params)).float(), aux
+    x = gathered(gather_fn, params.final_norm, "final_norm", _norm_with,
+                 cfg.norm_kind, x)
+    return (x @ _head(cfg, params, embed_w, gather_fn)).float(), aux
 
 
 def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
                     max_len: int, embeds: Optional[torch.Tensor] = None,
                     unroll: bool = False, use_kernel: bool = True,
                     moe_strategy: str = "sort",
-                    enc_out: Optional[torch.Tensor] = None
+                    enc_out: Optional[torch.Tensor] = None, gather_fn=None
                     ) -> tuple[torch.Tensor, dict]:
     """Returns (last-position logits f32[B, 1, V], cache): the full-sequence
     compute over tokens int32[B, T] (or ``embeds`` [B, T, D]) at positions
     0..T-1, the cache of every layer (with each ``"dec_cross"`` layer's
     ``cross_kv`` from ``enc_out``), and only the next-token logits.
     ``use_kernel=False`` takes the plain attention path, against which the
-    kernel path is checked."""
+    kernel path is checked; ``gather_fn`` the ZeRO-3 hook."""
     _check_model(cfg)
     _check_enc_out(cfg, enc_out)
-    x = _embed(params, tokens, embeds)
+    embed_w = gathered_param(gather_fn, params.embed, "embed")
+    x = _embed(embed_w, tokens, embeds)
     b, t, _ = x.shape
     positions = _default_positions(b, t, x.device)
     x = _add_positions(cfg, x, positions)
     caches = []
     for kind, block in zip(params.kinds, params.layers):
-        x, c = prefill_block(kind, cfg, block, x, positions,
-                             max_len, use_kernel=use_kernel,
-                             moe_strategy=moe_strategy, enc_out=enc_out)
+        x, c = gathered(gather_fn, block, "unit", _prefill_with, kind, cfg,
+                        x, positions, max_len, use_kernel, moe_strategy,
+                        enc_out, keep=keep_gathered(moe_strategy))
         caches.append(c)
-    x = apply_norm(cfg.norm_kind, params.final_norm, x[:, -1:])
-    return (x @ _head(cfg, params)).float(), {"layers": caches}
+    x = gathered(gather_fn, params.final_norm, "final_norm", _norm_with,
+                 cfg.norm_kind, x[:, -1:])
+    return (x @ _head(cfg, params, embed_w, gather_fn)).float(), \
+        {"layers": caches}
+
+
+def _prefill_with(p, kind, cfg, x, positions, max_len, use_kernel,
+                  moe_strategy, enc_out):
+    return prefill_block(kind, cfg, p, x, positions, max_len,
+                         use_kernel=use_kernel, moe_strategy=moe_strategy,
+                         enc_out=enc_out)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ the dense keyed mutable set from an S₁-shard layout to an S₂-shard layout
 exactly, and ``migrate_route_buffers`` re-routes in-flight delta buffers
 through the engine's own ``combine_route`` under the new snapshot.
 
-``reshard_tree`` (re-committing a parameter tree onto a new device mesh)
-needs ``launch/sharding.py``'s partition specs (ROADMAP slice 9h) and
-raises.
+``reshard_tree`` re-commits a tree of tensors or DTensors onto a new
+``DeviceMesh`` with the placements of a spec function's specs (the
+training-side elastic move): every leaf's whole value is gathered from its
+old mesh and each rank keeps its block on the new one.
 """
 from __future__ import annotations
 
@@ -95,8 +96,16 @@ def apply_route_buffer(routed: DeltaBuffer, new: PartitionSnapshot,
 
 
 def reshard_tree(tree, mesh, spec_fn):
-    """Re-commit a parameter tree onto a new device mesh: the training-side
-    elastic move."""
-    raise NotImplementedError(
-        "reshard_tree needs launch/sharding.py's partition specs: ROADMAP "
-        "queue 1, slice 9h (sharding.py)")
+    """Re-commit a tree (dicts, lists, tuples) of tensors or DTensors onto
+    ``mesh`` with the placements of ``spec_fn(tree, mesh)`` (a tree of
+    ``launch.sharding.P`` of the same structure): the training-side
+    elastic move (new device set => new mesh => the same values in a new
+    layout).  Returns a tree of DTensors whose whole values are the old
+    ones, bit for bit."""
+    from repro_torch.launch import sharding
+    specs = spec_fn(tree, mesh)
+
+    def move(_, t, spec):
+        return sharding.distribute(sharding.full(t), mesh,
+                                   sharding.placements(spec, mesh))
+    return sharding.walk(tree, move, specs)

@@ -957,8 +957,10 @@ class ResilientDriver:
         else:
             # Measured feed: the per-shard wall clocks this driver just
             # recorded for the completed stratum (every shard gets the
-            # stratum's wall: the shards share one device).
-            latencies = self.measured(self.stratum - 1)
+            # stratum's wall: the shards share one device).  The newest
+            # entry: after a restart the stratum index no longer counts
+            # the entries, and an older one may be of another shard count.
+            latencies = list(self.measured.latencies[-1])
         # Rank 0's clock decides for every rank: its latencies, and its
         # timeout flags (a slow replica read), so speculation runs alike
         # on every rank of a shard_map group.

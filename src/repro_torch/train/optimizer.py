@@ -26,7 +26,11 @@ layers.
 Departure: :func:`adamw_update` updates the parameters, μ and ν in place
 (the reference returns new arrays); the state it returns shares them.
 The arithmetic is the reference's, op for op, in float32, with the
-parameters rounded back to their dtype (no float32 master copy).
+parameters rounded back to their dtype (no float32 master copy).  Stored
+sharded (DTensors, ``launch/sharding.py``), the parameters, μ and ν are
+updated block by block on each rank's own blocks, with the gradients'
+blocks and a global norm the caller computed over the mesh
+(``train_step.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch.sharding import local
 from repro_torch.models.transformer import is_stacked, stacked_leaves
 
 
@@ -113,15 +118,18 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 def _rows(t: torch.Tensor, stacked: bool) -> list:
+    t = local(t)
     return list(t.unbind(0)) if stacked else [t]
 
 
-def adamw_update(cfg: AdamWConfig, state: AdamWState, params, grads: dict
-                 ) -> tuple:
+def adamw_update(cfg: AdamWConfig, state: AdamWState, params, grads: dict,
+                 gnorm: torch.Tensor = None) -> tuple:
     """One AdamW step with global-norm clipping: ``params`` an LM,
-    ``grads`` {leaf name: stacked gradient}.  Returns (params, state,
-    metrics {grad_norm, lr}), params, μ and ν updated in place."""
-    gnorm = global_norm(grads)
+    ``grads`` {leaf name: stacked gradient} (this rank's blocks where the
+    state is sharded, with ``gnorm`` the global norm).  Returns (params,
+    state, metrics {grad_norm, lr}), params, μ and ν updated in place."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     one = _f32(1.0, gnorm)
     scale = torch.minimum(one, _f32(cfg.clip_norm, gnorm) /
                           torch.maximum(gnorm, _f32(1e-9, gnorm)))
@@ -136,6 +144,7 @@ def adamw_update(cfg: AdamWConfig, state: AdamWState, params, grads: dict
             for p, g, m, v in zip(ps, _rows(grads[name], stacked),
                                   _rows(state.mu[name], stacked),
                                   _rows(state.nu[name], stacked)):
+                p = local(p)
                 g = g.float() * scale
                 m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
                 v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)

@@ -20,8 +20,24 @@ Departures, as in serving: ``TrainConfig.use_flash_kernel`` defaults to
 True (the reference's to False, which trains through its plain
 ``attention_ref``), so on the card the forward runs the flash kernels and
 the backward ``flash_attention_bwd``; the bf16 forward kernel rounds P to
-bf16, which the reference's float32 path does not.  ``gather_fn`` (the
-ZeRO-3 hook) and multi-device meshes wait for ``launch/sharding.py``.
+bf16, which the reference's float32 path does not.
+
+Sharded (the reference's ``--mesh DxM`` under GSPMD): a state whose
+parameters are DTensors (:func:`shard_train_state`: parameters, μ, ν
+and residuals stored by ``launch/sharding.py``'s specs on a ("data",
+"model") ``DeviceMesh``) takes the sharded step.  Each microbatch (the
+global batch cut as above) is split over the data axis by ``batch_spec``;
+each rank computes its rows' loss term (the rows' summed log-likelihoods
+over the microbatch's whole label count, so the ranks' terms sum to the
+loss) with the parameters gathered at the point of use, one layer at a
+time: by ``TrainConfig.gather_fn``, else by ``sharding.make_gather_fn``.
+Autograd reduce-scatters the gradients to the storage layout;
+the step accumulates each rank's blocks, takes the global norm over the
+mesh and updates the blocks in place.  Compression runs on the whole
+leaf, gathered for it (``int8``'s blocks of 256 and ``delta``'s top-k run
+across the layers, as on one device): a gather of every gradient and
+residual leaf a step.  Within a mesh the ranks' answers are the same
+values summed in other orders; on a 1x1 mesh they are the plain path's.
 
 A TrainState is written to a checkpoint as the reference's tree
 (:func:`checkpoint_tree`: the stacked parameter tree, ``opt.step``, μ, ν
@@ -36,14 +52,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshes
+from repro_torch.launch import sharding
 from repro_torch.models import transformer
-from repro_torch.models.attention import _not_ported
 from repro_torch.models.transformer import is_stacked, stacked_leaves
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_init,
                                          adamw_update, compress_tree,
                                          leaf_shape, zero_residuals)
-
-SHARDING_SLICE = "slice 9h (sharding.py)"
 
 
 class TrainState(NamedTuple):
@@ -59,14 +74,16 @@ class TrainConfig:
     compression: str = "none"      # none | int8 | delta
     topk_frac: float = 0.01
     moe_aux_weight: float = 0.01
+    moe_strategy: str = "sort"
     use_flash_kernel: bool = True
     label_smoothing: float = 0.0
     gather_fn: object = None       # ZeRO-3 per-layer weight gather hook
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  smoothing: float = 0.0) -> torch.Tensor:
-    """logits f32[B, T, V]; labels int32[B, T] (−1 = masked)."""
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+             smoothing: float = 0.0) -> tuple:
+    """(the summed negative log-likelihood of the unmasked labels, their
+    count)."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -75,31 +92,63 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if smoothing:
         mean_logit = torch.mean(logits, dim=-1)
         nll = (1 - smoothing) * nll + smoothing * (logz - mean_logit)
-    return torch.sum(torch.where(mask, nll, 0.0)) / torch.clamp(
-        torch.sum(mask), min=1)
+    return torch.sum(torch.where(mask, nll, 0.0)), torch.sum(mask)
 
 
-def _check_tcfg(tcfg: TrainConfig) -> None:
-    if tcfg.gather_fn is not None:
-        raise _not_ported("gather_fn (ZeRO-3 per-layer weight gathers)",
-                          SHARDING_SLICE)
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  smoothing: float = 0.0) -> torch.Tensor:
+    """logits f32[B, T, V]; labels int32[B, T] (−1 = masked)."""
+    nll, count = _nll_sum(logits, labels, smoothing)
+    return nll / torch.clamp(count, min=1)
+
+
+def _logits(cfg, tcfg: TrainConfig, params, batch, gather_fn=None):
+    gather_fn = gather_fn or tcfg.gather_fn
+    enc_out = None
+    if "frames" in batch:
+        enc_out = transformer.encode(cfg, params, batch["frames"],
+                                     use_kernel=tcfg.use_flash_kernel,
+                                     gather_fn=gather_fn)
+    return transformer.forward(
+        cfg, params, batch["tokens"], positions=batch.get("positions"),
+        embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel,
+        moe_strategy=tcfg.moe_strategy, enc_out=enc_out,
+        gather_fn=gather_fn)
 
 
 def make_loss_fn(cfg, tcfg: TrainConfig):
     """loss_fn(params, batch) -> (loss + aux weight * aux, (loss, aux))."""
-    _check_tcfg(tcfg)
 
     def loss_fn(params, batch):
-        enc_out = None
-        if "frames" in batch:
-            enc_out = transformer.encode(cfg, params, batch["frames"],
-                                         use_kernel=tcfg.use_flash_kernel)
-        logits, aux = transformer.forward(
-            cfg, params, batch["tokens"], positions=batch.get("positions"),
-            embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel,
-            enc_out=enc_out)
+        logits, aux = _logits(cfg, tcfg, params, batch)
         loss = cross_entropy(logits, batch["labels"], tcfg.label_smoothing)
         return loss + tcfg.moe_aux_weight * aux, (loss, aux)
+    return loss_fn
+
+
+def make_rank_loss_fn(cfg, tcfg: TrainConfig, mesh):
+    """loss_fn(params, rows, split) -> (this rank's term of loss + aux
+    weight * aux, (its term of the loss, aux)) for a state stored on
+    ``mesh``: ``rows`` the rank's rows of a microbatch (its whole batch
+    where ``split`` is False), the terms of the data axis's ranks summing
+    to the microbatch's loss.  The parameters are gathered a layer at a
+    time, by ``tcfg.gather_fn`` or else ``sharding.make_gather_fn``."""
+    hook = tcfg.gather_fn or sharding.make_gather_fn(mesh)
+
+    def loss_fn(params, batch, split: bool):
+        with meshes.set_mesh(mesh, batch_split=split):
+            logits, aux = _logits(cfg, tcfg, params, batch, hook)
+        nll, count = _nll_sum(logits, batch["labels"], tcfg.label_smoothing)
+        dp = meshes.axis_size(mesh, "data")
+        if split:
+            import torch.distributed as dist
+            dist.all_reduce(count, group=mesh.get_group("data"))
+            loss = nll / torch.clamp(count, min=1)
+            total = loss + tcfg.moe_aux_weight * aux
+        else:           # every data rank computes the whole batch's loss
+            loss = nll / torch.clamp(count, min=1) / dp
+            total = loss + tcfg.moe_aux_weight * aux / dp
+        return total, (loss, aux)
     return loss_fn
 
 
@@ -109,7 +158,6 @@ def init_train_state(cfg, tcfg: TrainConfig,
     """Parameters from ``transformer.init_params`` (``gen``, seed 0 when
     None, on ``device``, None = CUDA), now asking for gradients; AdamW's
     zero state; zero residuals when compressing."""
-    _check_tcfg(tcfg)
     params = transformer.init_params(cfg, gen, resolve_device(device))
     params.requires_grad_(True)
     residuals = (zero_residuals(params) if tcfg.compression != "none"
@@ -134,17 +182,106 @@ def _microbatches(batch: dict, n: int) -> list:
             for i in range(n)]
 
 
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """``state`` (the same values on every rank) stored on ``mesh``:
+    parameters by ``sharding.tree_specs`` (in place), μ, ν and residuals
+    by their leaves' specs; each rank keeps its blocks."""
+    specs = sharding.leaf_specs(state.params, mesh)
+    sharding.shard_params(state.params, mesh)
+
+    def put(tree):
+        if tree is None:
+            return None
+        return {name: sharding.distribute(
+            x, mesh, sharding.placements(specs[name], mesh))
+            for name, x in tree.items()}
+    return TrainState(params=state.params,
+                      opt=AdamWState(step=state.opt.step,
+                                     mu=put(state.opt.mu),
+                                     nu=put(state.opt.nu)),
+                      residuals=put(state.residuals))
+
+
+def _rank_rows(batch: dict, mesh) -> tuple[dict, bool]:
+    """(this rank's rows of a microbatch by ``batch_spec``, whether the
+    batch was split); every array's leading axis is the batch's."""
+    b = next(iter(batch.values())).shape[0]
+    dp = meshes.axis_size(mesh, "data")
+    if sharding.batch_spec((b,), mesh)[0] is None:
+        return batch, False
+    if any(v.shape[0] != b for v in batch.values()):
+        raise ValueError(f"a batch split over the data axis needs every "
+                         f"array's leading axis to be the batch's {b}; got "
+                         f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+    n, d = b // dp, mesh.get_local_rank("data")
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}, True
+
+
+def global_norm_sharded(grads: dict, specs: dict, mesh) -> torch.Tensor:
+    """The global norm of gradients held as this rank's blocks (``specs``
+    each leaf's spec): each leaf's local sum of squares, summed over the
+    mesh axes that shard it, then over the leaves in order."""
+    import torch.distributed as dist
+    names = list(grads)
+    sums = torch.stack([torch.sum(torch.square(grads[n].float()))
+                        for n in names])
+    for dim, axis in enumerate(meshes.axis_names(mesh)):
+        if mesh.size(dim) == 1:
+            continue
+        sharded = torch.tensor(
+            [sharding.placements(specs[n], mesh)[dim].is_shard()
+             for n in names], device=sums.device)
+        if not bool(sharded.any()):
+            continue
+        part = torch.where(sharded, sums, 0.0)
+        dist.all_reduce(part, group=mesh.get_group(axis))
+        sums = torch.where(sharded, part, sums)
+    total = sums[0]
+    for x in sums[1:]:
+        total = total + x
+    return torch.sqrt(total.double()).float()
+
+
+def _compress_sharded(grads: dict, residuals: dict, tcfg: TrainConfig,
+                      specs: dict, mesh) -> tuple:
+    """``compress_tree`` on whole leaves: each gradient block gathered
+    with its residual, compressed as on one device, and cut back to this
+    rank's blocks (the new residuals stored as before)."""
+    from torch.distributed.tensor import DTensor
+    whole = {n: DTensor.from_local(g, mesh, sharding.placements(
+        specs[n], mesh)).full_tensor() for n, g in grads.items()}
+    res = {n: sharding.full(r) for n, r in residuals.items()}
+    out, new_res, wire = compress_tree(whole, res, tcfg.compression,
+                                       tcfg.topk_frac)
+    place = {n: sharding.placements(specs[n], mesh) for n in grads}
+    return ({n: sharding.distribute(g, mesh, place[n]).to_local()
+             for n, g in out.items()},
+            {n: sharding.distribute(r, mesh, place[n])
+             for n, r in new_res.items()}, wire)
+
+
 def make_train_step(cfg, tcfg: TrainConfig):
-    loss_fn = make_loss_fn(cfg, tcfg)
+    """``train_step(state, batch) -> (state, metrics)``; a state stored on
+    a mesh (:func:`shard_train_state`) takes the sharded step (module
+    docstring)."""
+    plain_loss = make_loss_fn(cfg, tcfg)
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
+        mesh = sharding.param_mesh(params)
+        if mesh is None:
+            loss_fn = plain_loss
+        else:
+            rank_loss = make_rank_loss_fn(cfg, tcfg, mesh)
+
+            def loss_fn(params, mbatch):
+                return rank_loss(params, *_rank_rows(mbatch, mesh))
         leaves = stacked_leaves(params)
         flat = [p for ps in leaves.values() for p in ps]
-        dev = flat[0].device
-        grads = {name: torch.zeros(leaf_shape(name, ps), dtype=torch.float32,
-                                   device=dev)
-                 for name, ps in leaves.items()}
+        dev = sharding.local(flat[0]).device
+        grads = {name: torch.zeros(
+            leaf_shape(name, [sharding.local(p) for p in ps]),
+            dtype=torch.float32, device=dev) for name, ps in leaves.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for mbatch in _microbatches(batch, tcfg.microbatches):
             total, (loss, _) = loss_fn(params, mbatch)
@@ -158,20 +295,31 @@ def make_train_step(cfg, tcfg: TrainConfig):
                                 else [acc]):
                         g = next(got)
                         if g is not None:
-                            row.add_(g)
+                            row.add_(sharding.local(g))
             loss_sum = loss_sum + loss.detach()
             del total, loss
         for g in grads.values():
             g.div_(tcfg.microbatches)
+        if mesh is not None and meshes.axis_size(mesh, "data") > 1:
+            import torch.distributed as dist
+            dist.all_reduce(loss_sum, group=mesh.get_group("data"))
         loss = loss_sum / tcfg.microbatches
 
         wire_bytes = torch.zeros((), dtype=torch.float32, device=dev)
         residuals = state.residuals
-        if tcfg.compression != "none":
-            grads, residuals, wire_bytes = compress_tree(
-                grads, residuals, tcfg.compression, tcfg.topk_frac)
+        gnorm = None
+        if mesh is None:
+            if tcfg.compression != "none":
+                grads, residuals, wire_bytes = compress_tree(
+                    grads, residuals, tcfg.compression, tcfg.topk_frac)
+        else:
+            specs = sharding.leaf_specs(params, mesh)
+            if tcfg.compression != "none":
+                grads, residuals, wire_bytes = _compress_sharded(
+                    grads, residuals, tcfg, specs, mesh)
+            gnorm = global_norm_sharded(grads, specs, mesh)
         params, opt, metrics = adamw_update(tcfg.adamw, state.opt, params,
-                                            grads)
+                                            grads, gnorm)
         metrics.update({"loss": loss, "wire_bytes": wire_bytes})
         return TrainState(params, opt, residuals), metrics
 
@@ -210,39 +358,53 @@ def unnest(tree: dict, prefix: str = "") -> dict:
 
 def stacked_params(params) -> dict:
     """{leaf name: the reference's array}: per-layer parameters stacked on
-    a leading layer axis (a copy), the rest detached as they are."""
-    return {name: (torch.stack([p.detach() for p in ps]) if is_stacked(name)
-                   else ps[0].detach())
+    a leading layer axis (a copy), the rest detached as they are; whole
+    values where the parameters are stored sharded."""
+    return {name: (torch.stack([sharding.full(p.detach()) for p in ps])
+                   if is_stacked(name) else sharding.full(ps[0].detach()))
             for name, ps in stacked_leaves(params).items()}
 
 
 def checkpoint_tree(state: TrainState) -> TrainState:
     """``state`` as the reference's TrainState tree: nested dicts of the
     stacked leaves (the port's NamedTuples carry the reference's field
-    names, so the tree paths are the reference's)."""
+    names, so the tree paths are the reference's), of whole tensors (a
+    sharded state is gathered: every rank must call it)."""
     res = state.residuals
+
+    def whole(tree):
+        return nest({k: sharding.full(v) for k, v in tree.items()})
     return TrainState(
         params=nest(stacked_params(state.params)),
-        opt=AdamWState(step=state.opt.step, mu=nest(state.opt.mu),
-                       nu=nest(state.opt.nu)),
-        residuals=None if res is None else nest(res))
+        opt=AdamWState(step=state.opt.step, mu=whole(state.opt.mu),
+                       nu=whole(state.opt.nu)),
+        residuals=None if res is None else whole(res))
 
 
 def restore_tree(state: TrainState, tree: TrainState) -> TrainState:
     """``state`` with every value taken from ``tree`` (a
     :func:`checkpoint_tree` of the same shapes, e.g. one read back from a
-    checkpoint): parameters copied in place, row by row."""
+    checkpoint): parameters copied in place, row by row; a sharded
+    state's values cut to this rank's blocks."""
     new = unnest(tree.params)
     with torch.no_grad():
         for name, ps in stacked_leaves(state.params).items():
             src = new[name]
             rows = src.unbind(0) if is_stacked(name) else [src]
             for p, row in zip(ps, rows):
-                p.copy_(row)
-    res = None if tree.residuals is None else unnest(tree.residuals)
+                sharding.assign(p, row)
     dev = state.opt.step.device
+
+    def like(old: dict, new: dict) -> dict:
+        return {k: (sharding.distribute(v.to(dev), old[k].device_mesh,
+                                        old[k].placements)
+                    if sharding.is_dtensor(old[k]) else v)
+                for k, v in new.items()}
+    res = None if tree.residuals is None else like(state.residuals,
+                                                   unnest(tree.residuals))
     return TrainState(
         params=state.params,
         opt=AdamWState(step=tree.opt.step.to(dev),
-                       mu=unnest(tree.opt.mu), nu=unnest(tree.opt.nu)),
+                       mu=like(state.opt.mu, unnest(tree.opt.mu)),
+                       nu=like(state.opt.nu, unnest(tree.opt.nu))),
         residuals=res)

@@ -50,7 +50,13 @@ before their products and the gradients at the end, adds 2^-8 |g| and
 the terms of ``bf16_rounding_terms`` (the reason is stated at BWD_TOL).
 The bf16 forward's log-sum-exp, which the bf16 backward reads, is within
 S 2^-23 of torch.logsumexp; serving writes none.  A reduced train step on
-the card matches the CPU's.  The multi-process
+the card matches the CPU's.  On a (1, 1) mesh over a one-rank NCCL group
+(``launch/sharding.py``'s DTensor path), the sharded train step, with and
+without the ZeRO-3 hook, gives the plain step's loss within 1e-6 relative
+through the float32 flash kernels; flash decoding on that ambient mesh is
+within 1e-5 of the full decode; MoE's a2a dispatch within 1e-5 of max
+|y| of the sort dispatch at a capacity that drops nothing.  The
+multi-process
 launch: a ``local``-mode worker
 process brings CUDA up and acks with sums computed on the card, and the
 bring-up selftest forms a world of one NCCL rank on ``cuda:0``.
@@ -1437,3 +1443,105 @@ def test_selftest_forms_an_nccl_world_of_one(cuda):
     assert rep["backend"] == "nccl" and rep["collective_ok"]
     assert rep["devices"] == {"0": "cuda:0"}
     assert rep["ownership"] == {"0": [0, 1, 2, 3]}
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group, make_mesh
+    init_shard_group("nccl", f"file://{tmp_path / 'pg'}", world_size=1,
+                     rank=0)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("hooked", [False, True])
+def test_sharded_train_step_on_a_one_rank_nccl_mesh(one_rank_mesh, hooked):
+    """The DTensor train step on a (1, 1) mesh against the plain step from
+    the same weights and batch (reduced llama3-8b, float32, 2
+    microbatches): the loss and grad_norm within 1e-6 relative, through
+    the float32 flash kernels forward and backward."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.sharding import make_gather_fn
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.optimizer import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(), n_kv_heads=2)
+    mets = {}
+    for sharded in (False, True):
+        tcfg = tts.TrainConfig(
+            adamw=AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=3),
+            microbatches=2,
+            gather_fn=make_gather_fn(one_rank_mesh) if hooked else None)
+        state = tts.init_train_state(
+            cfg, tcfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        if sharded:
+            state = tts.shard_train_state(state, one_rank_mesh)
+        batch = TokenPipeline(cfg.vocab, 64, 4, device=cuda).batch_at(0)
+        before = (fa_ops.launches, fa_ops.launches_bwd)
+        _, met = tts.make_train_step(cfg, tcfg)(state, batch)
+        assert (fa_ops.launches - before[0], fa_ops.launches_bwd -
+                before[1]) == (2 * cfg.n_layers, 3 * 2 * cfg.n_layers)
+        mets[sharded] = met
+    for key in ("loss", "grad_norm"):
+        want = float(mets[False][key])
+        assert abs(float(mets[True][key]) - want) <= 1e-6 * abs(want), key
+
+
+def test_flash_decode_on_a_one_rank_nccl_mesh(one_rank_mesh):
+    """Reduced llama3-8b on the card: 4 teacher-forced steps of flash
+    decoding under the ambient (1, 1) mesh within 1e-5 of the full decode
+    (float32)."""
+    import copy
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.sharding import shard_cache
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("llama3-8b").reduced()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = TokenPipeline(cfg.vocab, 24, 2, device=cuda).batch_at(0)[
+        "tokens"]
+    with torch.no_grad():
+        _, cache = transformer.prefill_forward(cfg, params, tokens[:, :20],
+                                               24)
+        shard = shard_cache(copy.deepcopy(cache), one_rank_mesh, cfg)
+        full, flash = [], []
+        with set_mesh(one_rank_mesh):
+            for i in range(20, 24):
+                pos = torch.tensor(i, device=cuda)
+                full.append(transformer.decode_step(
+                    cfg, params, tokens[:, i:i + 1], cache, pos)[0])
+                flash.append(transformer.decode_step(
+                    cfg, params, tokens[:, i:i + 1], shard, pos,
+                    flash_decode=True)[0])
+    full, flash = torch.cat(full, 1), torch.cat(flash, 1)
+    assert float((full - flash).abs().max() / full.abs().max()) <= 1e-5
+
+
+def test_a2a_dispatch_on_a_one_rank_nccl_mesh(one_rank_mesh):
+    """Reduced mixtral-8x22b's experts on the card at a capacity factor of
+    E / k (nothing dropped): the a2a dispatch under the (1, 1) mesh within
+    1e-5 of max |y| of the sort dispatch on the same routes."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("mixtral-8x22b").reduced()
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda).layers[0].ffn
+    x = torch.randn(256, cfg.d_model, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        top_e, top_p, _ = moe._route(cfg, params, x)
+        want = moe._dispatch_sort(cfg, params, x, top_e, top_p,
+                                  moe._capacity(cfg, x.shape[0]))
+        with set_mesh(one_rank_mesh):
+            got = moe._dispatch_a2a(cfg, params, x, top_e, top_p)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

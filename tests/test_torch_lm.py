@@ -358,27 +358,32 @@ def test_bf16_head_dim_128_takes_the_bf16_op(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What the slice leaves out raises.
+# Flash decoding and the a2a dispatch without a mesh.
 # ---------------------------------------------------------------------------
 
 def test_unported_paths_name_their_slice():
-    """What is left is slice 9h's: MoE's a2a dispatch and flash decoding
-    over a sharded cache (dense, and recurrentgemma's local attention)."""
+    """Without an ambient mesh, flash decoding is the full decode bit for
+    bit (dense, and recurrentgemma's local attention), as the reference's
+    falls back; MoE's a2a dispatch raises ``ValueError``, as the
+    reference's does (``tests/test_torch_sharded_lm.py`` runs both on
+    meshes)."""
     moe_cfg = get_arch("mixtral-8x22b").reduced()
     moe_params = tt.init_params(moe_cfg, torch.Generator().manual_seed(0),
                                 "cpu")
-    with pytest.raises(NotImplementedError, match="slice 9h"):
+    with pytest.raises(ValueError, match="ambient mesh"):
         tt.forward(moe_cfg, moe_params, torch.zeros((1, 4), dtype=torch.int32),
                    moe_strategy="a2a")
     m = model("llama3-8b")
-    cache = tt.init_cache(m.cfg, B, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9h"):
-        tt.decode_step(m.cfg, m.params, m.tokens[:, :1], cache,
-                       torch.tensor(0), flash_decode=True)
     rg_cfg = get_arch("recurrentgemma-2b").reduced()
     rg_params = tt.init_params(rg_cfg, torch.Generator().manual_seed(0),
                                "cpu")
-    with pytest.raises(NotImplementedError, match="slice 9h"):
-        tt.decode_step(rg_cfg, rg_params, m.tokens[:, :1],
-                       tt.init_cache(rg_cfg, B, 8, device="cpu"),
-                       torch.tensor(0), flash_decode=True)
+    for cfg, params in ((m.cfg, m.params), (rg_cfg, rg_params)):
+        tokens = m.tokens[:, :24]
+        outs = []
+        for flash in (False, True):
+            _, cache = tt.prefill_forward(cfg, params, tokens[:, :20], 24)
+            steps = [tt.decode_step(cfg, params, tokens[:, i:i + 1], cache,
+                                    torch.tensor(i), flash_decode=flash)[0]
+                     for i in range(20, 24)]
+            outs.append(torch.cat(steps, 1))
+        assert torch.equal(outs[0], outs[1]), cfg.name

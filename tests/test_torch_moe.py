@@ -197,8 +197,11 @@ def test_equal_probabilities_keep_the_reference_copies(strategy):
 
 
 def test_a2a_and_unknown_strategies_raise():
+    """a2a needs an ambient mesh with a 'model' axis (as the
+    reference's; ``tests/test_torch_sharded_lm.py`` runs it on meshes);
+    an unknown strategy raises."""
     _, cfg, _, params, x = _moe_case("mixtral-8x22b", 1.25)
-    with pytest.raises(NotImplementedError, match="slice 9h"):
+    with pytest.raises(ValueError, match="ambient mesh with a 'model'"):
         moe.moe_ffn(cfg, params, torch.from_numpy(x), "a2a")
     with pytest.raises(ValueError):
         moe.moe_ffn(cfg, params, torch.from_numpy(x), "gather")

@@ -295,6 +295,31 @@ def test_straggler_speculation_and_restart_without_replicas(graph,
             assert got.metrics["speculations"] == []
 
 
+def test_measured_speculation_after_a_restart_and_a_rescale(graph,
+                                                            tmp_path):
+    """Speculation on measured latencies reads the stratum just run: a
+    correlated loss beyond replication restarts from zero (the strata it
+    ran stay measured), then a rescale to 2 shards; the run converges to
+    the failure-free state.  Port only: the reference's driver reads an
+    older measurement there, one of 4 shards beside a mitigator of 2."""
+    snap = graph["snap"].__class__(n_keys=N, num_shards=S, replication=2)
+    t_remake, _ = remakes(dict(graph, snap=snap))
+    ex, algo, st0, live0 = port(snap, "sssp")
+    free = ex.run(algo, st0, live0, graph["tg"], 80)
+    plan = FaultSchedule(events=(
+        FaultEvent(kind="fail", at=2, shard=1, correlated=True),
+        FaultEvent(kind="rescale", at=3, new_num_shards=2)))
+    got = ex.run_resilient(algo, st0, live0, graph["tg"], 80,
+                           ckpt_root=str(tmp_path / "measured"),
+                           fault_plan=plan, policy=SpeculationPolicy(),
+                           remake=t_remake)
+    assert got.metrics["restarts"] >= 1
+    assert got.metrics["final_num_shards"] == 2
+    assert got.metrics["converged"]
+    np.testing.assert_array_equal(flat(snap, free.state, S),
+                                  flat(snap, got.result.state, 2))
+
+
 # ---------------------------------------------------------------------------
 # Chaos schedules.
 # ---------------------------------------------------------------------------

@@ -190,11 +190,14 @@ class TestScheduleValidation:
 
 
 class TestLeftForSlice8:
-    def test_real_chaos_and_reshard_raise_naming_their_slice(self):
+    def test_real_chaos_and_reshard_raise_naming_their_slice(self,
+                                                             tmp_path):
         """Slice 8 is ported: the real chaos executor fires nothing on an
         empty schedule and ``--real`` refuses the CPU unless asked
-        (``tests/test_torch_launch.py`` runs it); ``reshard_tree`` still
-        raises, naming slice 9h."""
+        (``tests/test_torch_launch.py`` runs it); ``reshard_tree`` (slice
+        9h) re-commits a tree onto a one-rank gloo mesh, every whole value
+        unchanged bit for bit (``tests/test_torch_sharded_lm.py`` moves
+        one across meshes of 4 ranks)."""
         inj = chaos.RealChaosInjector(FaultSchedule(), cluster=None)
 
         class _Driver:
@@ -204,8 +207,30 @@ class TestLeftForSlice8:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 chaos.main(["--real", "--quick", "--nodes", "64"])
-        with pytest.raises(NotImplementedError, match="slice 9h"):
-            elastic.reshard_tree({}, None, None)
+        import torch.distributed as dist
+
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import init_shard_group, make_mesh
+        g = torch.Generator().manual_seed(0)
+        tree = {"embed": torch.randn(32, 16, generator=g),
+                "units": {"wq": torch.randn(2, 16, 8, generator=g)},
+                "tail": [torch.randn(16, generator=g).to(torch.bfloat16)]}
+        init_shard_group("gloo", f"file://{tmp_path / 'pg'}", world_size=1,
+                         rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+            out = elastic.reshard_tree(tree, mesh, sharding.tree_specs)
+            assert sharding.is_dtensor(out["units"]["wq"])
+            pairs = [(tree["embed"], out["embed"]),
+                     (tree["units"]["wq"], out["units"]["wq"]),
+                     (tree["tail"][0], out["tail"][0])]
+            again = elastic.reshard_tree(out, mesh, sharding.tree_specs)
+            pairs.append((tree["embed"], again["embed"]))
+            for want, got in pairs:
+                whole = sharding.full(got)
+                assert whole.dtype == want.dtype and torch.equal(whole, want)
+        finally:
+            dist.destroy_process_group()
 
     def test_chaos_cli_on_the_cpu(self, capsys):
         rc = chaos.main(["--seed", "3", "--events", "2", "--quick",

@@ -294,8 +294,24 @@ def test_serving_records_no_graph():
 
 
 def test_sharded_training_raises_naming_its_slice():
+    """``--mesh 2x1`` without a process group of 2 ranks raises, naming
+    the group it needs (as ``flat_mesh`` does); ``--mesh 1x1`` without
+    one is the one-device loop; a gather hook on unsharded parameters
+    gives the same loss (``tests/test_torch_sharded_lm.py`` trains on
+    meshes)."""
     cfg = get_arch("olmo-1b").reduced()
-    with pytest.raises(NotImplementedError, match="slice 9h"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         ttrain.train(cfg, 1, mesh="2x1", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9h"):
-        tts.make_loss_fn(cfg, tts.TrainConfig(gather_fn=lambda s, h: s))
+    kw = dict(seq_len=16, global_batch=2, ckpt_every=0, device="cpu",
+              log=lambda *_: None)
+    one = ttrain.train(cfg, 2, mesh="1x1", **kw)
+    plain = ttrain.train(cfg, 2, **kw)
+    assert one.losses == plain.losses
+    from repro_torch.launch.sharding import make_gather_fn
+    batch = TokenPipeline(cfg.vocab, 16, 2, device="cpu").batch_at(0)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        plain_loss = tts.make_loss_fn(cfg, tts.TrainConfig())(params, batch)
+        hooked = tts.make_loss_fn(cfg, tts.TrainConfig(
+            gather_fn=make_gather_fn(None)))(params, batch)
+    assert torch.equal(plain_loss[0], hooked[0])
