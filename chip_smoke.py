@@ -297,6 +297,19 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
   - ``mlstm_chunks``: layer 0 on 2 x 1024 tokens, the chunked forward in
     float32 against 1024 float64 steps of ``mlstm_decode``
     (MLSTM_CHUNK_BOUND).
+* the dry run (``launch/dryrun.py``):
+  - ``dryrun_check``: one ``make_train_step`` step of olmo-1b at
+    lm_train's shapes on a (1, 1) mesh, traced on fake CUDA tensors in a
+    fake world of one rank (the flash kernels' custom ops traced, none
+    launched), then run on the card over a one-rank NCCL group under the
+    same counting mode: FLOPs, bytes accessed, collective bytes (0) and
+    argument bytes equal exactly, the flash kernels launched by the real
+    step only; the predicted peak beside ``max_memory_allocated`` and the
+    model-FLOP share printed;
+  - ``dryrun_cells``: the CLI on DRYRUN_CELLS at 16 x 16 (256 fake ranks),
+    a process each, all started together: each record and its roofline
+    row on this card's constants (``roofline.chip_constants``) printed,
+    each exiting 0 with 256 devices and FLOPs above 0.
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -5328,6 +5341,187 @@ def recurrent_section(args, dev, phases, rows, cfgs=None,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The dry run (launch/dryrun.py).
+# ---------------------------------------------------------------------------
+
+# dryrun_cells: production cells traced at 16 x 16 on fake CUDA tensors, each
+# by the CLI in a process of its own (all started together).
+DRYRUN_CELLS = (("olmo-1b", "train_4k", 0), ("llama3-8b", "decode_32k", 2),
+                ("mixtral-8x22b", "prefill_32k", 3),
+                ("whisper-large-v3", "train_4k", 0),
+                ("xlstm-350m", "decode_32k", 0))
+DRYRUN_TIMEOUT = 300        # seconds a cell's process may take
+
+
+def dryrun_check(args, dev, phases, cfg=None, sh=TRAIN_SHAPES):
+    """dryrun_check: one ``make_train_step`` step of olmo-1b at lm_train's
+    shapes on a (1, 1) mesh, traced by the dry run on fake tensors in a
+    fake world of one rank, then run for real on the card over a one-rank
+    group (``one_rank_mesh``), both under the dry run's counting mode
+    (``dryrun.trace``) on the same program (state stored by
+    ``shard_train_state``, batch by ``batch_spec``).  Held exactly: FLOPs,
+    bytes accessed, collective bytes and argument bytes equal; the flash
+    kernels launched by the real step only.  Printed: the predicted peak
+    (arguments + temp) beside ``max_memory_allocated``, and the model-FLOP
+    share of an uncounted step."""
+    import torch
+    from repro_torch.configs import Shape, get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+    cfg = cfg or get_arch(TRAIN_ARCH)
+    T, B, mb = sh["seq"], sh["batch"], sh["microbatches"]
+    flash = ("flash_attention", "flash_attention_bf16", "flash_attention_bwd")
+
+    def launched(before):
+        now = phases.counts()
+        return {k: now[k] - before[k] for k in flash}
+
+    before = phases.counts()
+    t0 = time.perf_counter()
+    with dryrun.fake_world((1, 1), ("data", "model"), dev.type) as (mesh, _):
+        cell = dryrun.build_cell(cfg, Shape("dryrun_check", T, B, "train"),
+                                 mesh, 0, dev.type, microbatches=mb)
+        fake = dryrun.trace(cell.fn, cell.args)
+        del cell, fake["out"]
+    fake_wall = time.perf_counter() - t0
+    fake_launches = launched(before)
+
+    tcfg = TrainConfig(microbatches=mb)
+    with one_rank_mesh(dev) as mesh:
+        state = shard_train_state(init_train_state(
+            cfg, tcfg, torch.Generator(device=dev).manual_seed(args.seed),
+            dev), mesh)
+        data = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
+                             device=dev).batch_at(0)
+        batch = dryrun.store_batch({k: data[k] for k in ("tokens",
+                                                         "labels")}, mesh)
+        step = make_train_step(cfg, tcfg)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        before = phases.counts()
+        t0 = time.perf_counter()
+        real = dryrun.trace(step, (state, batch))
+        sync()
+        counted_wall = time.perf_counter() - t0
+        real_launches = launched(before)
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(real.pop("out")[1]["loss"])
+        t0 = time.perf_counter()
+        step(state, batch)
+        sync()
+        wall = time.perf_counter() - t0
+        del state, batch, data, step
+    torch.cuda.empty_cache()
+
+    print(f"phase dryrun_check: {cfg.name} {T}x{B} in {mb} microbatches on "
+          f"(1, 1): trace {fake_wall:.2f} s, counted real step "
+          f"{counted_wall:.2f} s (loss {loss:.4f}), uncounted step "
+          f"{wall:.3f} s; card {card_line()}", flush=True)
+    for key in ("flops", "bytes_accessed"):
+        print(f"  {key}: dry run {fake[key]:.6e} real {real[key]:.6e}")
+    print(f"  collective bytes: dry run {fake['collective_bytes']} real "
+          f"{real['collective_bytes']}")
+    print(f"  memory: dry run {fake['memory']} real {real['memory']}")
+    predicted = (fake["memory"]["argument_size_in_bytes"]
+                 + fake["memory"]["temp_size_in_bytes"])
+    print(f"  peak: predicted (arguments + temp) {predicted / 2 ** 30:.3f} "
+          f"GiB, max_memory_allocated {peak / 2 ** 30:.3f} GiB, ratio "
+          f"{peak / predicted:.4f}")
+    print(f"  flash launches: dry run {fake_launches}, real step "
+          f"{real_launches}")
+    print(f"  model-FLOP share of the uncounted step: "
+          f"{flop_share(cfg, 'train', B, T, wall)}; counted FLOPs over its "
+          f"wall: {real['flops'] / wall / 1e12:.1f} TFLOP/s", flush=True)
+    for key in ("flops", "bytes_accessed", "collective_bytes"):
+        check(fake[key] == real[key], f"dryrun_check: {key} of the dry run "
+                                      f"{fake[key]} is not the real step's "
+                                      f"{real[key]}")
+    check(fake["memory"]["argument_size_in_bytes"] ==
+          real["memory"]["argument_size_in_bytes"],
+          "dryrun_check: argument bytes differ")
+    check(fake["collective_bytes"]["total"] == 0,
+          "dryrun_check: collectives on axes of size 1")
+    check(not any(fake_launches.values()),
+          f"dryrun_check: the trace launched kernels {fake_launches}")
+    check(real_launches["flash_attention_bf16"] > 0 and
+          real_launches["flash_attention_bwd"] > 0,
+          f"dryrun_check: the real step launched {real_launches}")
+    check(math.isfinite(loss), "dryrun_check: the loss is not finite")
+
+
+def dryrun_cells(dev, cells=DRYRUN_CELLS):
+    """dryrun_cells: ``python -m repro_torch.launch.dryrun`` on each cell at
+    16 x 16 (``--device cuda``: fake CUDA tensors, attention through the
+    flash ops' fakes), each in a process of its own, all started together;
+    each record, its roofline row on this card's constants and its trace
+    seconds printed; each must exit 0 with 256 devices and FLOPs > 0.  On
+    the CPU (a rehearsal) the cells trace the CPU's program and read the
+    H100 SXM5's constants."""
+    import os
+    import torch
+    from repro_torch.launch import roofline
+    chip = roofline.chip_constants(torch.cuda.get_device_name(0)
+                                   if dev.type == "cuda" else "h100-sxm5")
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_all = time.perf_counter()
+    procs = []
+    try:
+        for arch, shape, level in cells:
+            out = out_dir / f"{arch}_{shape}_{level}.json"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--opt-level",
+                   str(level), "--device", dev.type, "--out", str(out)]
+            procs.append(((arch, shape, level), subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for (arch, shape, level), p in procs:
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - t_all)
+            try:
+                out, err = p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                check(False, f"dryrun_cells: {arch} {shape} took more than "
+                             f"{DRYRUN_TIMEOUT} s")
+            check(p.returncode == 0, f"dryrun_cells: {arch} {shape} level "
+                                     f"{level} exited {p.returncode}: "
+                                     f"{err[-1500:]}")
+            rec = json.loads(out.splitlines()[-1])
+            check(rec["devices"] == 256 and rec["flops"] > 0,
+                  f"dryrun_cells: {arch} {shape}: {rec}")
+            r = roofline.analyse(rec, chip)
+            print(f"phase dryrun_cells: {arch} {shape} level {level}: trace "
+                  f"{rec['main_compile_s']} s (process {rec['compile_s']} s "
+                  f"in the cell); record {json.dumps(rec)}")
+            print(f"  roofline on {chip.name} ({card_line()}): compute "
+                  f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+                  f"collective {r['collective_s']:.6f} s, dominant "
+                  f"{r['dominant']}, model/counted FLOPs "
+                  f"{r['useful_ratio']:.4f}, roofline MFU "
+                  f"{r['roofline_mfu']:.4f}", flush=True)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    print(f"dryrun_cells: {len(cells)} cells in "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+
+
+def dryrun_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES,
+                   cells=DRYRUN_CELLS):
+    """The dry run against the card (``dryrun_check``) and on production
+    cells (``dryrun_cells``)."""
+    dryrun_check(args, dev, phases, cfg, shapes)
+    dryrun_cells(dev, cells)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=3_300_000,
@@ -5374,7 +5568,8 @@ def main(argv=None) -> int:
     for section in (graph_section, kmeans_section, kmeans_view_section,
                     lm_section, train_section, moe_train_section,
                     moe_section, moe_window_section, mla_section,
-                    vlm_section, whisper_section, recurrent_section):
+                    vlm_section, whisper_section, recurrent_section,
+                    dryrun_section):
         t0 = time.perf_counter()
         section(args, dev, phases, rows)
         torch.cuda.empty_cache()

@@ -34,6 +34,17 @@ card without the statistic raises; nothing falls back.  The gradient is
 that of the float32 attention of the bf16 values: the forward's rounding
 of P to bf16 has no derivative of its own, and enters only through the
 saved output, in ``Delta = rowsum(do * o)``.
+
+On the card each launch is a ``torch.library.custom_op``
+(``repro_torch::flash_fwd``, ``flash_fwd_bf16``, ``flash_fwd_bf16_lse``,
+``flash_bwd``, ``flash_bwd_bf16``) that :class:`_Attention` calls: the
+implementation launches the kernel, checks alignment and counts
+(``launches*``, ``lse_written``); its fake (``register_fake``) gives the
+shapes and dtypes the kernel writes, so FakeTensorMode traces the op on
+fake CUDA tensors (``launch/dryrun.py``) with nothing launched or counted.
+Each op registers its kernel's FLOPs with ``torch.utils.flop_counter``
+(:func:`fwd_flops`, :func:`bwd_flops`: the products over the tiles the
+kernel visits, :func:`visited_pairs`).  :func:`on_card` picks the route.
 """
 from __future__ import annotations
 
@@ -81,20 +92,18 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention needs T == S, got T={t} S={s}")
 
 
-def _forward(q, k, v, causal: bool, want_lse: bool = False
-             ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(output, the statistic when ``want_lse`` and q is bf16 on the
-    card, else None)."""
-    bf16 = q.dtype == torch.bfloat16
-    if not q.is_cuda:
-        if bf16:
-            return attention_ref(q.float(), k.float(), v.float(),
-                                 causal=causal).to(torch.bfloat16), None
-        return attention_ref(q, k, v, causal=causal), None
+def on_card(q: torch.Tensor) -> bool:
+    """Whether attention on ``q`` takes the kernels (the custom ops below)
+    rather than the plain version: a CUDA tensor, real or fake."""
+    return q.is_cuda
+
+
+def _launch_fwd(q, k, v, causal: bool, want_lse: bool
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The forward kernel of q's dtype on the card: (output, the statistic
+    when ``want_lse``, else None)."""
     b, h, t, d = q.shape
     _, h_kv, s, _ = k.shape
-    if b * h >= 2 ** 31 or -(-t // TILE[q.dtype]) >= 2 ** 16:
-        raise ValueError(f"grid too large: B*H={b * h}, T={t}")
     from repro_torch.kernels import _build
     global launches, launches_bf16, lse_written
     lib = _build.library()
@@ -102,7 +111,7 @@ def _forward(q, k, v, causal: bool, want_lse: bool = False
     lse = None
     p = _build.ptr
     args = (p(q, q.dtype, "q"), p(k, q.dtype, "k"), p(v, q.dtype, "v"))
-    if bf16:
+    if q.dtype == torch.bfloat16:
         # TMA reads the tensors through descriptors that need 16-byte
         # aligned bases.
         if any(a % 16 for a in args):
@@ -126,6 +135,200 @@ def _forward(q, k, v, causal: bool, want_lse: bool = False
     return out, lse
 
 
+def _launch_bwd(q, k, v, o, do, causal: bool, lse
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels of q's dtype on the card -> (dq, dk, dv)."""
+    b, h, t, d = q.shape
+    _, h_kv, s, _ = k.shape
+    from repro_torch.kernels import _build
+    global launches_bwd
+    lib = _build.library()
+    p = _build.ptr
+    args = [p(x, q.dtype, name) for x, name in
+            ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
+    # Four float32 elements a load (16 bytes); TMA's 16-byte aligned bases.
+    if any(a % 16 for a in args):
+        raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, "
+                         "v, o, do")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        delta = torch.empty((b, h, stat_rows(t)), dtype=torch.float32,
+                            device=q.device)
+        err = lib.flash_attention_bwd_bf16(
+            *args, p(lse, torch.float32, "lse"), b, h, h_kv, t, s, d,
+            int(causal), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), q.device.index, _build.stream_of(q))
+        _build.check(err, "flash_attention_bwd_bf16")
+        # Delta, dK dV and dQ where T and S > 0 (else memsets).
+        if b * h and t and s:
+            launches_bwd += 3
+        return dq, dk, dv
+    stats = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(stats)
+    err = lib.flash_attention_bwd(*args, b, h, h_kv, t, s, d, int(causal),
+                                  dq.data_ptr(), dk.data_ptr(),
+                                  dv.data_ptr(), stats.data_ptr(),
+                                  delta.data_ptr(), _build.stream_of(q))
+    _build.check(err, "flash_attention_bwd")
+    # The row statistics and dQ launch where T > 0, dK and dV where S > 0.
+    if b * h:
+        launches_bwd += 2 * (t > 0) + (s > 0)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The launches as custom ops.  On the card each op's implementation is the
+# launch above; under FakeTensorMode (the dry run, launch/dryrun.py) its
+# fake gives the shapes and dtypes the kernel writes, launching and
+# counting nothing.  Each op carries the FLOP formula of the products its
+# kernel computes (torch.utils.flop_counter).
+# ---------------------------------------------------------------------------
+
+_Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd(q: _Tensor, k: _Tensor, v: _Tensor, causal: bool
+               ) -> _Tensor:
+    return _launch_fwd(q, k, v, causal, False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_bf16", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_bf16(q: _Tensor, k: _Tensor, v: _Tensor, causal: bool
+                    ) -> _Tensor:
+    return _launch_fwd(q, k, v, causal, False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_bf16_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_bf16_lse(q: _Tensor, k: _Tensor, v: _Tensor, causal: bool
+                        ) -> tuple[_Tensor, _Tensor]:
+    return _launch_fwd(q, k, v, causal, True)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd(q: _Tensor, k: _Tensor, v: _Tensor, o: _Tensor, do: _Tensor,
+               causal: bool) -> tuple[_Tensor, _Tensor, _Tensor]:
+    return _launch_bwd(q, k, v, o, do, causal, None)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd_bf16", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_bf16(q: _Tensor, k: _Tensor, v: _Tensor, o: _Tensor,
+                    do: _Tensor, lse: _Tensor, causal: bool
+                    ) -> tuple[_Tensor, _Tensor, _Tensor]:
+    return _launch_bwd(q, k, v, o, do, causal, lse)
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@_flash_fwd_bf16.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@_flash_fwd_bf16_lse.register_fake
+def _(q, k, v, causal):
+    b, h, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, stat_rows(t)),
+                                            dtype=torch.float32)
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, o, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@_flash_bwd_bf16.register_fake
+def _(q, k, v, o, do, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def visited_pairs(t: int, s: int, causal: bool, tile: int) -> int:
+    """The (query, key) pairs in the tiles that a kernel computes: T·S
+    without the mask; with it (T = S), query tile i of ``tile`` rows takes
+    key tiles 0..i of ``tile`` rows.  Pairs past T or S (a ragged tile's
+    padding) are not counted."""
+    if not causal:
+        return t * s
+    return sum(min(tile, t - i * tile) * min(s, (i + 1) * tile)
+               for i in range(-(-t // tile)))
+
+
+def fwd_flops(q_shape, k_shape, causal: bool, dtype) -> int:
+    """The forward kernel's products: Q·Kᵀ and P·V, 2·D FLOP a pair each,
+    over the pairs of its tiles (TILE[dtype] rows both ways):
+    4·B·H·D·visited_pairs(T, S, causal, TILE[dtype])."""
+    b, h, t, d = q_shape
+    return 4 * b * h * d * visited_pairs(t, k_shape[2], causal, TILE[dtype])
+
+
+def bwd_flops(q_shape, k_shape, causal: bool, dtype) -> int:
+    """The backward kernels' products, 2·D FLOP a pair each.  float32:
+    Q·Kᵀ in the statistics pass, Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and
+    dK += dSᵀ·Q in the dK dV pass, S = Q·Kᵀ, dP = dO·Vᵀ and dQ += dS·K in
+    the dQ pass, all over 64 x 64 tiles: 16·B·H·D·pairs(64).  bf16 (no
+    statistics pass: it reads the forward's): the dK dV pass's four over
+    64-row key blocks and 64-row query tiles, the dQ pass's three over 128
+    x 128 tiles: 2·B·H·D·(4·pairs(64) + 3·pairs(128)).  Q·Kᵀ is
+    recomputed in each pass; Delta's row sums are not products."""
+    b, h, t, d = q_shape
+    s = k_shape[2]
+    p64 = visited_pairs(t, s, causal, 64)
+    if dtype == torch.bfloat16:
+        return 2 * b * h * d * (4 * p64 + 3 * visited_pairs(t, s, causal,
+                                                            128))
+    return 16 * b * h * d * p64
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    ops = torch.ops.repro_torch
+    for op, dtype in ((ops.flash_fwd, torch.float32),
+                      (ops.flash_fwd_bf16, torch.bfloat16),
+                      (ops.flash_fwd_bf16_lse, torch.bfloat16)):
+        register_flop_formula(op)(
+            lambda q, k, v, causal, *_, dtype=dtype, **__:
+            fwd_flops(q, k, causal, dtype))
+    for op, dtype in ((ops.flash_bwd, torch.float32),
+                      (ops.flash_bwd_bf16, torch.bfloat16)):
+        register_flop_formula(op)(
+            lambda q, k, v, o, do, *rest, dtype=dtype, **__:
+            bwd_flops(q, k, rest[-1], dtype))
+
+
+_register_flops()
+
+
+def _forward(q, k, v, causal: bool, want_lse: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(output, the statistic when ``want_lse`` and q is bf16 on the
+    card, else None)."""
+    bf16 = q.dtype == torch.bfloat16
+    if not on_card(q):
+        if bf16:
+            return attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal).to(torch.bfloat16), None
+        return attention_ref(q, k, v, causal=causal), None
+    b, h, t, d = q.shape
+    if b * h >= 2 ** 31 or -(-t // TILE[q.dtype]) >= 2 ** 16:
+        raise ValueError(f"grid too large: B*H={b * h}, T={t}")
+    ops = torch.ops.repro_torch
+    if not bf16:
+        return ops.flash_fwd(q, k, v, causal), None
+    if want_lse:
+        out, lse = ops.flash_fwd_bf16_lse(q, k, v, causal)
+        return out, lse
+    return ops.flash_fwd_bf16(q, k, v, causal), None
+
+
 def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,7 +341,7 @@ def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the statistic is the bf16 kernel's; got "
                          f"{q.dtype}")
-    if q.is_cuda:
+    if on_card(q):
         return _forward(q, k, v, causal, want_lse=True)
     b, h, t, _ = q.shape
     lse = torch.zeros((b, h, stat_rows(t)), dtype=torch.float32)
@@ -163,7 +366,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{o.dtype}{tuple(o.shape)}, "
                          f"{do.dtype}{tuple(do.shape)}")
     bf16 = q.dtype == torch.bfloat16
-    if not q.is_cuda:
+    if not on_card(q):
         if bf16:
             return tuple(g.to(torch.bfloat16) for g in attention_bwd_ref(
                 *(x.float() for x in (q, k, v, o, do)), causal=causal))
@@ -173,48 +376,17 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tile = BWD_TILE[q.dtype]
     if b * h >= 2 ** 31 or max(-(-t // tile), -(-s // tile)) >= 2 ** 16:
         raise ValueError(f"grid too large: B*H={b * h}, T={t}, S={s}")
-    if bf16 and (lse is None or lse.shape != (b, h, stat_rows(t)) or
-                 lse.dtype != torch.float32 or lse.device != q.device):
+    ops = torch.ops.repro_torch
+    if not bf16:
+        return tuple(ops.flash_bwd(q, k, v, o, do, causal))
+    if lse is None or lse.shape != (b, h, stat_rows(t)) or \
+            lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(
             f"a bf16 attention_bwd on the card takes the forward's "
             f"log-sum-exp, float32 {(b, h, stat_rows(t))} on {q.device} "
             f"(attention_with_lse); got "
             f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
-    from repro_torch.kernels import _build
-    global launches_bwd
-    lib = _build.library()
-    p = _build.ptr
-    args = [p(x, q.dtype, name) for x, name in
-            ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
-    # Four float32 elements a load (16 bytes); TMA's 16-byte aligned bases.
-    if any(a % 16 for a in args):
-        raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, "
-                         "v, o, do")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
-    if bf16:
-        delta = torch.empty((b, h, stat_rows(t)), dtype=torch.float32,
-                            device=q.device)
-        err = lib.flash_attention_bwd_bf16(
-            *args, p(lse, torch.float32, "lse"), b, h, h_kv, t, s, d,
-            int(causal), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), q.device.index, _build.stream_of(q))
-        _build.check(err, "flash_attention_bwd_bf16")
-        # Delta, dK dV and dQ where T and S > 0 (else memsets).
-        if b * h and t and s:
-            launches_bwd += 3
-        return dq, dk, dv
-    stats = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(stats)
-    err = lib.flash_attention_bwd(*args, b, h, h_kv, t, s, d, int(causal),
-                                  dq.data_ptr(), dk.data_ptr(),
-                                  dv.data_ptr(), stats.data_ptr(),
-                                  delta.data_ptr(), _build.stream_of(q))
-    _build.check(err, "flash_attention_bwd")
-    # The row statistics and dQ launch where T > 0, dK and dV where S > 0.
-    if b * h:
-        launches_bwd += 2 * (t > 0) + (s > 0)
-    return dq, dk, dv
+    return tuple(ops.flash_bwd_bf16(q, k, v, o, do, lse, causal))
 
 
 class _Attention(torch.autograd.Function):
@@ -240,7 +412,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, v, causal)
     # The bf16 backward on the card reads the forward's statistic; only a
     # forward whose output can reach a backward writes it.
-    want_lse = (q.is_cuda and q.dtype == torch.bfloat16 and
+    want_lse = (on_card(q) and q.dtype == torch.bfloat16 and
                 torch.is_grad_enabled() and
                 any(x.requires_grad for x in (q, k, v)))
     return _Attention.apply(q, k, v, causal, want_lse)

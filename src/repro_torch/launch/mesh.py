@@ -270,6 +270,40 @@ def dp_size(mesh) -> int:
     return math.prod(axis_size(mesh, a) for a in dp_axes(mesh))
 
 
+# (the default group, a mesh) -> the mesh's data-parallel group.  Keyed by
+# value: DTensors may carry an equal mesh object of their own.
+_DP_GROUPS: dict = {}
+
+
+def dp_group(mesh):
+    """The process group over the mesh's data-parallel axes: the data
+    axis's, or the pod and data axes flattened into one (made on the first
+    call for a mesh, then kept)."""
+    axes = dp_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (dist.group.WORLD, mesh)
+    if key not in _DP_GROUPS:
+        # Every rank makes every group (one a model-axis index), as
+        # new_group asks; a group's ranks sorted are the pod-major order.
+        names = axis_names(mesh)
+        ranks = mesh.mesh.permute(
+            [i for i, a in enumerate(names) if a not in axes]
+            + [names.index(a) for a in axes]).reshape(-1, dp_size(mesh))
+        _DP_GROUPS[key] = dist.new_subgroups_by_enumeration(
+            ranks.tolist())[0]
+    return _DP_GROUPS[key]
+
+
+def dp_rank(mesh) -> int:
+    """This rank's index over the data-parallel axes, the first the
+    major (``batch_spec``'s order of the batch's blocks)."""
+    index = 0
+    for axis in dp_axes(mesh):
+        index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
+    return index
+
+
 _AMBIENT = {"mesh": None, "batch_group": None}
 
 
@@ -277,15 +311,12 @@ _AMBIENT = {"mesh": None, "batch_group": None}
 def set_mesh(mesh, *, batch_split: bool = False):
     """Within the block ``mesh`` is ambient (:func:`get_mesh`).  With
     ``batch_split`` the batch each rank holds is its share of a batch
-    split over the mesh's data axis (:func:`batch_group`)."""
+    split over the mesh's data-parallel axes (:func:`batch_group`)."""
     old = dict(_AMBIENT)
     _AMBIENT["mesh"] = mesh
     _AMBIENT["batch_group"] = None
-    if batch_split and axis_size(mesh, "data") > 1:
-        if dp_axes(mesh) != ("data",):
-            raise ValueError(f"a batch split over {dp_axes(mesh)}: the "
-                             f"sharded step takes one data axis")
-        _AMBIENT["batch_group"] = mesh.get_group("data")
+    if batch_split and dp_size(mesh) > 1:
+        _AMBIENT["batch_group"] = dp_group(mesh)
     try:
         yield mesh
     finally:
@@ -298,8 +329,8 @@ def get_mesh():
 
 
 def batch_group():
-    """The data axis's group where the batch is split over it, else
-    None."""
+    """The data-parallel axes' group (:func:`dp_group`) where the batch
+    is split over them, else None."""
     return _AMBIENT["batch_group"]
 
 

@@ -274,12 +274,33 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def local_shape(shape: tuple, mesh, place) -> tuple:
+    """The shape of this rank's block of a tensor of ``shape`` in
+    ``place``: each ``Shard(d)``, mesh dim by mesh dim, keeps this rank's
+    chunk of dim d as ``torch.chunk`` cuts it."""
+    out = list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(place):
+        if p.is_shard():
+            n, c = mesh.size(i), coord[i]
+            chunk = -(-out[p.dim] // n)
+            out[p.dim] = max(0, min(chunk, out[p.dim] - c * chunk))
+    return tuple(out)
+
+
 def distribute(t: torch.Tensor, mesh, place) -> torch.Tensor:
     """``t`` (the same whole value on every rank) as a DTensor of
     placements ``place``: each rank keeps its own block, no
-    communication."""
-    from torch.distributed.tensor import distribute_tensor
+    communication.  A fake tensor (the dry run's) has no values to cut:
+    its block is made at :func:`local_shape`."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.models.layers import is_fake
     with torch.no_grad():
+        if is_fake(t):
+            return DTensor.from_local(
+                t.new_empty(local_shape(tuple(t.shape), mesh, place)),
+                mesh, place, run_check=False, shape=t.shape,
+                stride=t.stride())
         return distribute_tensor(t.detach(), mesh, place, src_data_rank=None)
 
 
@@ -324,10 +345,40 @@ def gathered_layout(t: torch.Tensor) -> torch.Tensor:
     return t.redistribute(mesh, place)
 
 
+class _Replicated(torch.autograd.Function):
+    """Forward: a DTensor replicated over every axis, as this rank's local
+    tensor.  Backward: the local gradient, partial over the data axes, in
+    the input's placements.  An input that a gather made
+    (:func:`gathered_layout`, a tensor with a ``grad_fn``) takes it still
+    partial over the data axes, and the gather's backward reduce-scatters
+    it to the storage layout (a redistribute to replicated would
+    all-reduce it first); a stored tensor takes it summed over them."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh, ctx.place = t.device_mesh, tuple(t.placements)
+        ctx.gathered = t.grad_fn is not None
+        return t.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim
+                              ).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh = ctx.mesh
+        rep = [Replicate()] * mesh.ndim
+        g = DTensor.from_local(g, mesh, grad_placements(mesh, rep),
+                               run_check=False)
+        return g.redistribute(mesh, [
+            Partial() if ctx.gathered and name in ("pod", "data") else p
+            for name, p in zip(axis_names(mesh), ctx.place)])
+
+
 def compute_tensor(t: torch.Tensor) -> torch.Tensor:
     """A parameter as the layer code uses it: a DTensor replicated over
     every axis, as this rank's local tensor (its gradient partial over the
-    data axes, whole on the model axis); a tensor as it is."""
+    data axes, whole on the model axis; :class:`_Replicated`); a tensor as
+    it is."""
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate
@@ -337,8 +388,7 @@ def compute_tensor(t: torch.Tensor) -> torch.Tensor:
         # Nothing to gather, and a gradient partial over axes of size 1
         # is whole: the redistribute (a host dispatch a use) is skipped.
         return t.to_local(grad_placements=rep)
-    return t.redistribute(mesh, rep).to_local(
-        grad_placements=grad_placements(mesh, rep))
+    return _Replicated.apply(t)
 
 
 def local_block(t: torch.Tensor, mesh, place) -> torch.Tensor:

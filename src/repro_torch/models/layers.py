@@ -27,6 +27,13 @@ from torch import nn
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a FakeTensorMode tensor (shapes, no values: the
+    dry run's, ``launch/dryrun.py``)."""
+    from torch._subclasses.fake_tensor import is_fake as fake
+    return fake(t)
+
+
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 

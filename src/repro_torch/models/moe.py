@@ -53,6 +53,15 @@ upcast on its own (a float32 copy of a whole ``[E, D, F]`` tensor is
 17.85 GB at arctic's width).  The sort dispatch packs each expert's
 capacity buffer: its kept copies, without the empty rows (zero, and so
 are their outputs), so an expert with no copy costs nothing.
+
+Under FakeTensorMode (the dry run, ``launch/dryrun.py``) a tensor has no
+values, so every size the routes decide is taken at its bound
+(``layers.is_fake``): the sort dispatch fills each expert's buffer with its C
+rows (the reference's ``[E·C, D]`` buffers; ``ceil(C / ranks)`` rows on
+each rank of a batch split over the data axis), and the a2a dispatch keeps
+every copy and fills every received segment, spread evenly over the
+rank's experts.  The dry run counts that work, an unlucky step's.  Real
+tensors take the packed dispatch above.
 """
 from __future__ import annotations
 
@@ -62,7 +71,7 @@ from torch import nn
 
 from repro_torch.launch import mesh as meshes
 from repro_torch.models.layers import (MLP, _param, apply_mlp, dtype_of,
-                                       init_mlp, normal_)
+                                       init_mlp, is_fake, normal_)
 
 
 class MoE(nn.Module):
@@ -192,7 +201,11 @@ def _lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
 def _group_ranks(sorted_owner: torch.Tensor, n_groups: int):
     """(each element's rank within its group, the groups' sizes) for
     sorted owners (int64, in [0, n_groups))."""
-    counts = torch.bincount(sorted_owner, minlength=n_groups)
+    if is_fake(sorted_owner):    # bincount's length is the values'
+        counts = sorted_owner.new_zeros(n_groups).index_add_(
+            0, sorted_owner, torch.ones_like(sorted_owner))
+    else:
+        counts = torch.bincount(sorted_owner, minlength=n_groups)
     pos = torch.arange(sorted_owner.numel(), device=sorted_owner.device)
     return pos - (torch.cumsum(counts, 0) - counts)[sorted_owner], counts
 
@@ -211,7 +224,10 @@ def _sorted_kept(flat_e, flat_p, n_experts: int, cap: int):
     """The copies that a capacity-``cap`` dispatch keeps, as indices into
     the flat copies ordered by expert, then rank (high probability first,
     so the low-probability copies overflow; ties to the earlier copy), and
-    each expert's number of them (host ints)."""
+    each expert's number of them (host ints); ``cap`` each on fake
+    tensors."""
+    if is_fake(flat_e):
+        return flat_e.new_empty(n_experts * cap), [cap] * n_experts
     order = _lexsort(-flat_p.detach(), flat_e)
     rank, counts = _group_ranks(flat_e[order], n_experts)
     return order[rank < cap], torch.clamp(counts, max=cap).tolist()
@@ -248,10 +264,15 @@ def _dispatch_sort(cfg, params: MoE, xf, top_e, top_p, cap, over=None):
     else:
         all_e, lo = _gathered_routes(flat_e, over)
         all_p, _ = _gathered_routes(flat_p, over)
-        kept = _sorted_kept(all_e, all_p, cfg.n_experts, cap)[0]
-        kept = kept[(kept >= lo) & (kept < lo + flat_e.numel())] - lo
-        rows = torch.bincount(flat_e[kept],
-                              minlength=cfg.n_experts).tolist()
+        if is_fake(flat_e):       # this rank's share of each full buffer
+            share = -(-cap // _group_size(over))
+            kept = flat_e.new_empty(cfg.n_experts * share)
+            rows = [share] * cfg.n_experts
+        else:
+            kept = _sorted_kept(all_e, all_p, cfg.n_experts, cap)[0]
+            kept = kept[(kept >= lo) & (kept < lo + flat_e.numel())] - lo
+            rows = torch.bincount(flat_e[kept],
+                                  minlength=cfg.n_experts).tolist()
     out = _expert_ffn(params, xf[token_of[kept]].float(), rows)
     contrib = out * flat_p[kept][:, None]
     return torch.zeros((n, d), dtype=torch.float32,
@@ -346,7 +367,10 @@ def _dispatch_a2a(cfg, params: MoE, xf, top_e, top_p):
     rank = _rank_in_group(owner, msize).long()
     keep = rank < cap_seg
     slot = owner * cap_seg + rank
-    kept = torch.nonzero(keep).reshape(-1)
+    if is_fake(keep):             # every copy kept
+        kept = torch.arange(copies, device=xf.device)
+    else:
+        kept = torch.nonzero(keep).reshape(-1)
     # Payloads travel in the model's dtype; the experts compute in float32.
     wire_dt = xs.dtype
     send_tok = xs.new_zeros((msize * cap_seg, d)).index_copy(
@@ -363,8 +387,14 @@ def _dispatch_a2a(cfg, params: MoE, xf, top_e, top_p):
     rank2 = _rank_in_group(le, e_per + 1).long()
     keep2 = (le < e_per) & (rank2 < cap_loc)
     order = _lexsort(rank2, le)
-    rows_in = order[keep2[order]]          # kept rows, by expert then rank
-    counts = torch.bincount(le[rows_in], minlength=e_per).tolist()
+    if is_fake(le):       # every received row an expert's, spread evenly
+        n_rows = order.numel()
+        counts = [min(cap_loc, n_rows // e_per + (i < n_rows % e_per))
+                  for i in range(e_per)]
+        rows_in = order[:sum(counts)]
+    else:
+        rows_in = order[keep2[order]]      # kept rows, by expert then rank
+        counts = torch.bincount(le[rows_in], minlength=e_per).tolist()
     out = _expert_ffn(experts, recv_tok[rows_in].float(), counts)
     out_rows = recv_tok.new_zeros((msize * cap_seg, d)).index_copy(
         0, rows_in, out.to(wire_dt))

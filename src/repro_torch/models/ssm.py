@@ -25,6 +25,13 @@ Projections (``wq``, ``wk``, ``wv``, ``out_gate``, ``wo``, ``w_gates``)
 are in the config dtype; ``w_if`` and ``r_gates`` and every state in
 float32.  Each cast of the reference to float32 is :func:`layers.widen`,
 so a float64 copy of a block computes in float64.
+
+Under FakeTensorMode (the dry run, ``launch/dryrun.py``) each time loop,
+the mLSTM's over chunks and the sLSTM's over steps, runs one trip and
+repeats its output for the others: the dry run counts one trip, as XLA's
+cost analysis counts a while body once, and ``launch/roofline.py``'s
+``xlstm_correction`` adds the other trips, as for the reference.  Traced
+in full, the sLSTM loop is T eager steps a layer.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import _param, dtype_of, mm, normal_, widen
+from repro_torch.models.layers import (_param, dtype_of, is_fake, mm,
+                                       normal_, widen)
 
 
 # ---------------------------------------------------------------------------
@@ -131,17 +139,30 @@ def mlstm_forward(cfg, params: MLSTM, x: torch.Tensor,
              torch.zeros((b, h, hd), dtype=dt, device=x.device),
              torch.zeros((b, h), dtype=dt, device=x.device))
     outs = []
-    for c in range(nc):
+    trips = 1 if is_fake(x) else nc     # the dry run's one trip
+    for c in range(trips):
         carry, out = _mlstm_chunk_body(
             carry, (q[:, c], k[:, c], v[:, c], log_i[:, c], log_f[:, c]))
         outs.append(out)
-    outs = torch.stack(outs, dim=1).reshape(b, t, h * hd)
+    outs = _repeat_last(torch.stack(outs, dim=1), 1, nc)
+    outs = outs.reshape(b, t, h * hd)
     gate = torch.sigmoid(widen(mm(x, params.out_gate)))
     y = mm(outs * gate, params.wo).to(x.dtype)[:, :t_orig]
     if return_state:
         C, n, m = carry
         return y, {"C": C, "n": n, "m": m}
     return y
+
+
+def _repeat_last(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with its last entry along ``dim`` repeated up to ``n``
+    entries (the dry run's one trip standing for the others)."""
+    if x.shape[dim] == n:
+        return x
+    last = x.narrow(dim, x.shape[dim] - 1, 1)
+    shape = list(x.shape)
+    shape[dim] = n - x.shape[dim]
+    return torch.cat([x, last.expand(shape)], dim=dim)
 
 
 def init_mlstm_state(cfg, batch: int, device=None) -> dict:
@@ -251,10 +272,12 @@ def slstm_forward(cfg, params: SLSTM, x: torch.Tensor,
     carry = tuple(torch.zeros((h, b, hd), dtype=wx.dtype, device=x.device)
                   for _ in range(4))
     hs = []
-    for i in range(t):
+    steps = 1 if is_fake(x) else t      # the dry run's one trip
+    for i in range(steps):
         carry = _slstm_step(r, carry, wx[i])
         hs.append(carry[2])
-    hs = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(b, t, h * hd)
+    hs = _repeat_last(torch.stack(hs, dim=2), 2, t)
+    hs = hs.permute(1, 2, 0, 3).reshape(b, t, h * hd)
     y = mm(hs, params.wo).to(x.dtype)
     if return_state:
         return y, dict(zip("cnhm", (s.transpose(0, 1) for s in carry)))

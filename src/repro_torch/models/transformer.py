@@ -60,8 +60,9 @@ here).
 time (inside the layer's recomputation under remat), so only one layer's
 weights are ever resident gathered.  ``forward`` and ``prefill_forward``
 apply it to the embedding, each decoder layer, the final norm and the
-head, ``encode`` to each encoder layer and its norm; the gathered tensors
-replace the module's for that call (``torch.func.functional_call``).  A
+head (``decode_step`` likewise), ``encode`` to each encoder layer and its
+norm; the gathered tensors replace the module's for that call
+(``torch.func.functional_call``).  A
 gathered parameter is replicated for the layer code
 (``sharding.compute_tensor``), but an MoE block's expert weights under
 ``moe_strategy="a2a"``, which its dispatch takes in the gathered layout.
@@ -683,16 +684,25 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
                        for kind in layer_kinds(cfg)]}
 
 
+def _decode_with(p, kind, cfg, x, cache, pos, flash):
+    return decode_block(kind, cfg, p, x, cache, pos, flash)
+
+
 def decode_step(cfg, params: LM, token: torch.Tensor, cache: dict,
                 pos: torch.Tensor, unroll: bool = False,
-                flash_decode: bool = False) -> tuple[torch.Tensor, dict]:
-    """token int32[B, 1]; pos int32[] (the token's global position).
-    Returns (logits f32[B, 1, V], cache), the cache updated in place."""
-    x = params.embed[token.long()]
+                flash_decode: bool = False, gather_fn=None
+                ) -> tuple[torch.Tensor, dict]:
+    """token int32[B, 1]; pos int32[] (the token's global position);
+    ``gather_fn`` the ZeRO-3 hook (parameters stored sharded).  Returns
+    (logits f32[B, 1, V], cache), the cache updated in place."""
+    embed_w = gathered_param(gather_fn, params.embed, "embed")
+    x = embed_w[token.long()]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x = _add_positions(cfg, x, pos.reshape(1, 1).expand(token.shape))
     for kind, block, c in zip(params.kinds, params.layers,
                               cache["layers"]):
-        x, _ = decode_block(kind, cfg, block, x, c, pos, flash_decode)
-    x = apply_norm(cfg.norm_kind, params.final_norm, x)
-    return (x @ _head(cfg, params)).float(), cache
+        x, _ = gathered(gather_fn, block, "unit", _decode_with, kind, cfg,
+                        x, c, pos, flash_decode)
+    x = gathered(gather_fn, params.final_norm, "final_norm", _norm_with,
+                 cfg.norm_kind, x)
+    return (x @ _head(cfg, params, embed_w, gather_fn)).float(), cache

@@ -25,8 +25,10 @@ bf16, which the reference's float32 path does not.
 Sharded (the reference's ``--mesh DxM`` under GSPMD): a state whose
 parameters are DTensors (:func:`shard_train_state`: parameters, μ, ν
 and residuals stored by ``launch/sharding.py``'s specs on a ("data",
-"model") ``DeviceMesh``) takes the sharded step.  Each microbatch (the
-global batch cut as above) is split over the data axis by ``batch_spec``;
+"model") ``DeviceMesh``, or ("pod", "data", "model") with the pod axis a
+second data-parallel one) takes the sharded step.  Each microbatch (the
+global batch cut as above) is split over the data-parallel axes by
+``batch_spec``;
 each rank computes its rows' loss term (the rows' summed log-likelihoods
 over the microbatch's whole label count, so the ranks' terms sum to the
 loss) with the parameters gathered at the point of use, one layer at a
@@ -38,6 +40,10 @@ leaf, gathered for it (``int8``'s blocks of 256 and ``delta``'s top-k run
 across the layers, as on one device): a gather of every gradient and
 residual leaf a step.  Within a mesh the ranks' answers are the same
 values summed in other orders; on a 1x1 mesh they are the plain path's.
+A batch whose arrays are DTensors on the state's mesh, stored by
+``batch_spec`` (:func:`stored_rows`; the dry run's, ``launch/dryrun.py``),
+is each rank's rows already: the rank cuts its own rows into the
+microbatches (with one microbatch, the same rows as a whole batch's).
 
 A TrainState is written to a checkpoint as the reference's tree
 (:func:`checkpoint_tree`: the stacked parameter tree, ``opt.step``, μ, ν
@@ -139,10 +145,10 @@ def make_rank_loss_fn(cfg, tcfg: TrainConfig, mesh):
         with meshes.set_mesh(mesh, batch_split=split):
             logits, aux = _logits(cfg, tcfg, params, batch, hook)
         nll, count = _nll_sum(logits, batch["labels"], tcfg.label_smoothing)
-        dp = meshes.axis_size(mesh, "data")
+        dp = meshes.dp_size(mesh)
         if split:
             import torch.distributed as dist
-            dist.all_reduce(count, group=mesh.get_group("data"))
+            dist.all_reduce(count, group=meshes.dp_group(mesh))
             loss = nll / torch.clamp(count, min=1)
             total = loss + tcfg.moe_aux_weight * aux
         else:           # every data rank computes the whole batch's loss
@@ -206,15 +212,27 @@ def _rank_rows(batch: dict, mesh) -> tuple[dict, bool]:
     """(this rank's rows of a microbatch by ``batch_spec``, whether the
     batch was split); every array's leading axis is the batch's."""
     b = next(iter(batch.values())).shape[0]
-    dp = meshes.axis_size(mesh, "data")
+    dp = meshes.dp_size(mesh)
     if sharding.batch_spec((b,), mesh)[0] is None:
         return batch, False
     if any(v.shape[0] != b for v in batch.values()):
         raise ValueError(f"a batch split over the data axis needs every "
                          f"array's leading axis to be the batch's {b}; got "
                          f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
-    n, d = b // dp, mesh.get_local_rank("data")
+    n, d = b // dp, meshes.dp_rank(mesh)
     return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}, True
+
+
+def stored_rows(batch: dict, mesh) -> tuple[dict, bool]:
+    """(this rank's rows of a batch stored by ``batch_spec`` as DTensors
+    on ``mesh``, whether they are split over the data-parallel axes)."""
+    if any(not sharding.is_dtensor(v) or v.device_mesh != mesh
+           for v in batch.values()):
+        raise ValueError("a stored batch holds DTensors on the state's "
+                         "mesh, every array")
+    b = next(iter(batch.values())).shape[0]
+    split = sharding.batch_spec((b,), mesh)[0] is not None
+    return {k: sharding.local(v) for k, v in batch.items()}, split
 
 
 def global_norm_sharded(grads: dict, specs: dict, mesh) -> torch.Tensor:
@@ -228,11 +246,11 @@ def global_norm_sharded(grads: dict, specs: dict, mesh) -> torch.Tensor:
     for dim, axis in enumerate(meshes.axis_names(mesh)):
         if mesh.size(dim) == 1:
             continue
-        sharded = torch.tensor(
-            [sharding.placements(specs[n], mesh)[dim].is_shard()
-             for n in names], device=sums.device)
-        if not bool(sharded.any()):
+        flags = [sharding.placements(specs[n], mesh)[dim].is_shard()
+                 for n in names]
+        if not any(flags):
             continue
+        sharded = torch.tensor(flags, device=sums.device)
         part = torch.where(sharded, sums, 0.0)
         dist.all_reduce(part, group=mesh.get_group(axis))
         sums = torch.where(sharded, part, sums)
@@ -273,9 +291,14 @@ def make_train_step(cfg, tcfg: TrainConfig):
             loss_fn = plain_loss
         else:
             rank_loss = make_rank_loss_fn(cfg, tcfg, mesh)
+            if any(sharding.is_dtensor(v) for v in batch.values()):
+                batch, split = stored_rows(batch, mesh)
 
-            def loss_fn(params, mbatch):
-                return rank_loss(params, *_rank_rows(mbatch, mesh))
+                def loss_fn(params, mbatch):
+                    return rank_loss(params, mbatch, split)
+            else:
+                def loss_fn(params, mbatch):
+                    return rank_loss(params, *_rank_rows(mbatch, mesh))
         leaves = stacked_leaves(params)
         flat = [p for ps in leaves.values() for p in ps]
         dev = sharding.local(flat[0]).device
@@ -300,9 +323,9 @@ def make_train_step(cfg, tcfg: TrainConfig):
             del total, loss
         for g in grads.values():
             g.div_(tcfg.microbatches)
-        if mesh is not None and meshes.axis_size(mesh, "data") > 1:
+        if mesh is not None and meshes.dp_size(mesh) > 1:
             import torch.distributed as dist
-            dist.all_reduce(loss_sum, group=mesh.get_group("data"))
+            dist.all_reduce(loss_sum, group=meshes.dp_group(mesh))
         loss = loss_sum / tcfg.microbatches
 
         wire_bytes = torch.zeros((), dtype=torch.float32, device=dev)
