@@ -167,9 +167,10 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     its store under ``build/``, destroyed after): ``train(mesh="1x1")``,
     3 steps at lm_train's shapes, then one ``make_train_step`` step with
     the ZeRO-3 hook (``make_gather_fn``) from a fresh state; each loss
-    within SHARD_LOSS_RTOL of lm_train's at the same step (bit-identity
-    printed), the bf16 forward and backward kernels launched as in
-    lm_train; step walls beside lm_train's, peak memory and the
+    within SHARD_LOSS_RTOL of lm_train's at the same step and equal to it
+    bit for bit (and to the plain path's 3 steps run just after), the bf16
+    forward and backward kernels launched as in lm_train; step walls
+    beside lm_train's and the plain 3 steps', peak memory and the
     model-FLOP share of a step (``roofline.step_flops`` over the card's
     datasheet bf16 peak), printed;
 * ``moe_train``: mixtral-8x22b at full width, 1 of its 56 layers,
@@ -307,9 +308,28 @@ algorithms and connected components at the paper's sizes (§6 "Data"):
     step only; the predicted peak beside ``max_memory_allocated`` and the
     model-FLOP share printed;
   - ``dryrun_cells``: the CLI on DRYRUN_CELLS at 16 x 16 (256 fake ranks),
-    a process each, all started together: each record and its roofline
-    row on this card's constants (``roofline.chip_constants``) printed,
-    each exiting 0 with 256 devices and FLOPs above 0.
+    and olmo-1b's train_4k also at 16 x 1, a process each, all started
+    together: each record, its tensor-parallel plan (``"tp"``), its
+    collective bytes by kind and its roofline row on this card's constants
+    (``roofline.chip_constants``) printed, each exiting 0 with its
+    devices and FLOPs above 0; olmo-1b train_4k's useful ratio at 16 x 16
+    within 2 % of its 16 x 1 one and at least TP_USEFUL_MIN.
+* ``tp_layer`` (after the LM section): tensor-parallel compute over
+  "model" (``models/tp.py``), Llama-3-8B's layer 0 at full width (32/8
+  heads of 128, d_ff 14,336, bf16) on ``lm_forward``'s 2 x 4096 tokens,
+  for a model axis of M in TP_SIZES: each rank r's blocks (contiguous
+  copies of its slices) through ``tp.split_layer``, the code the ranks
+  run, in one process, the flash kernels on each rank's local heads (2/1
+  heads at M = 16), the partials summed in rank order; the sum held to the
+  unsplit layer within TP_FWD_BOUND's bf16 rounding of the partials and
+  of the output, one backward (each rank's gradients of its blocks and of
+  the input) within TRAIN_BF16_GRAD_BOUND (relative L2 over all of them,
+  the bf16 training checks' bound) of the whole bf16 layer's, each
+  gradient's distance from a float32 evaluation printed beside the whole
+  bf16 layer's; rank 0's block timed, forward and
+  forward + backward, against the whole layer's ms / M; flash_attention
+  and its backward held and timed at M = 16's local shape (rows
+  ``*/tp16``).
 
 Each kernel is held against its plain torch version on the card at the
 inputs the main path gives it: integer outputs and min results exactly,
@@ -509,6 +529,13 @@ MOE_TRAIN_SHAPES = dict(layers=1, seq=1024, batch=4, microbatches=2,
 # text only, and one prefill from the stub's embeds (512 text tokens, the
 # grid, then text); one microbatch of 4 x 2048 (the same layout) through
 # train_step's loss.
+# tp_layer: Llama-3-8B's layer 0 split over a model axis of each size.
+TP_SIZES = (2, 8, 16)
+TP_SHAPES = dict(batch=2, seq=4096)
+# The split layer's sum against the unsplit one, elementwise: each
+# partial's bf16 rounding (2^-8 of its largest value, summed over the ranks
+# and the two row-parallel parts) and the result's (2^-8 max|y|).
+TP_FWD_BOUND = 2 ** -8
 MLA_ARCH = "minicpm3-4b"
 VLM_ARCH = "qwen2-vl-2b"
 MLA_SHAPES = dict(serve_batch=8, prompt=2048, new=64, decode_steps=8,
@@ -3408,6 +3435,191 @@ def lm_section(args, dev, phases, rows, cfg=None, shapes=LM_SHAPES):
     torch.cuda.empty_cache()
 
 
+def tp_section(args, dev, phases, rows, cfg=None, shapes=TP_SHAPES,
+               sizes=TP_SIZES):
+    """tp_layer: Llama-3-8B's layer 0 at full width split over a model axis
+    of each of ``sizes`` in one process (module docstring); ``cfg``,
+    ``shapes`` and ``sizes`` shrink it for a rehearsal on the CPU."""
+    import dataclasses
+    from types import SimpleNamespace
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.sharding import tp_plan
+    from repro_torch.models import attention as attn
+    from repro_torch.models import tp as tpm
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import apply_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg or get_arch(LM_ARCH), n_layers=1)
+    B, T = shapes["batch"], shapes["seq"]
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = transformer.init_params(cfg, g, dev)
+    block = params.layers[0]
+    tokens = TokenPipeline(cfg.vocab, T, B, seed=args.seed,
+                           device=dev).batch_at(0)["tokens"]
+    x = params.embed[tokens.long()].detach()
+    del params, tokens
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    w = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    print(f"tp_layer: {cfg.name} layer 0, d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"{cfg.dtype}, {B}x{T} tokens, model axes {list(sizes)}",
+          flush=True)
+
+    def layer(p, xx, tp=None):
+        return transformer.apply_block("dense", cfg, p, xx, pos, tp=tp)[0]
+
+    def grads(y, inputs):
+        return torch.autograd.grad(torch.sum(y.float() * w.float()), inputs)
+
+    def whole_grads(dtype):
+        ps = {n: t.detach().to(dtype).requires_grad_()
+              for n, t in block.named_parameters()}
+        xw = x.to(dtype).requires_grad_()
+        y = tpm.call_with(block, ps, layer, xw)
+        return ps, y.detach(), dict(zip(["x"] + list(ps), grads(
+            y, [xw] + list(ps.values()))))
+
+    _, _, g32 = whole_grads(torch.float32)
+    whole, y_whole, g_whole = whole_grads(x.dtype)
+
+    def dist32(g, name):
+        """max |g - g32| over max |g32| of ``name``'s gradient."""
+        return float((g.float() - g32[name]).abs().max()
+                     / g32[name].abs().max())
+
+    def whole_step():
+        xw = x.clone().requires_grad_()
+        return grads(tpm.call_with(block, whole, layer, xw),
+                     [xw] + list(whole.values()))
+    with torch.no_grad():
+        whole_ms = time_ms(lambda: tpm.call_with(block, whole, layer, x))
+    whole_step_ms = time_ms(whole_step)
+
+    plans = {m: tp_plan(cfg, m) for m in sizes}
+    out = {}
+
+    def run(m):
+        ranks = [tpm.rank_params("dense", block, plans[m], r, leaves=True)
+                 for r in range(m)]
+        record = []
+        with torch.no_grad():
+            y = tpm.split_layer("dense", cfg, block, x, pos, plans[m], ranks,
+                                record=record)
+        xs = x.clone().requires_grad_()
+        split = [(r, n, t) for r in range(m) for n, t in ranks[r].items()
+                 if tpm.param_block("dense", n, plans[m], r) is not None]
+        got = grads(tpm.split_layer("dense", cfg, block, xs, pos, plans[m],
+                                    ranks),
+                    [xs] + [t for *_, t in split])
+        out[m] = (y, record, ranks, split, got)
+
+    needs = ("flash_attention_bf16", "flash_attention_bwd")
+    _, wall, counts, peak = phases.run(
+        "tp_layer", "tp_layer", needs, lambda: [run(m) for m in sizes],
+        warm_up=False)
+    fwd = sum(2 * m for m in sizes)
+    check(counts["flash_attention_bf16"] == fwd and
+          counts["flash_attention_bwd"] == BWD_LAUNCHES * sum(sizes) and
+          counts["flash_attention"] == 0,
+          f"tp_layer: launches {counts} (want {fwd} bf16 forward and "
+          f"{BWD_LAUNCHES * sum(sizes)} backward: each rank's local heads "
+          f"once without grad, once with, and its backward)")
+    print(f"phase tp_layer: {len(sizes)} splits, forward and one backward "
+          f"each, wall {wall:.3f} s launches {counts} peak_mem {peak:.2f} "
+          f"GiB; the whole layer: forward {whole_ms:.3f} ms, forward + "
+          f"backward {whole_step_ms:.3f} ms; card {card_line()}", flush=True)
+    for m in sizes:
+        y, record, ranks, split, got = out.pop(m)
+        plan = plans[m]
+        tol = TP_FWD_BOUND * (float(sum(record)) + float(
+            y_whole.float().abs().max()))
+        err = float((y.float() - y_whole.float()).abs().max())
+        check(err <= tol and bool(torch.isfinite(y).all()),
+              f"tp_layer M={m}: the split layer off the whole one by "
+              f"{err:.3e} (bound {tol:.3e})")
+        # The ranks' gradients of their blocks put in place (KV heads that
+        # several ranks compute: summed), each weight's and the input's
+        # against the float32 evaluation beside the whole bf16 layer's.
+        summed = {}
+        for (r, n, _), gr in zip(split, got[1:]):
+            summed.setdefault(n, torch.zeros_like(
+                g32[n], dtype=torch.float32)).narrow(
+                *tpm.param_block("dense", n, plan, r)).add_(gr.float())
+        names = ["x"] + list(summed)
+        pairs = [(dist32(got[0], "x"), dist32(g_whole["x"], "x"))] + [
+            (dist32(acc, n), dist32(g_whole[n], n))
+            for n, acc in summed.items()]
+
+        def rel_l2(gs, ref):
+            """The relative L2 distance of gradients {name: g} from
+            ``ref``'s, over all of them."""
+            num = sum(float((gr.float() - ref[n].float()).square().sum())
+                      for n, gr in gs.items())
+            return math.sqrt(num / sum(float(ref[n].float().square().sum())
+                                       for n in gs))
+        split = {"x": got[0], **summed}
+        split_l2 = rel_l2(split, g_whole)
+        print(f"  M={m} gradients' distance from float32, split / whole: "
+              + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in
+                          zip(names, pairs))
+              + f"; relative L2 over all {rel_l2(split, g32):.3e} / "
+              f"{rel_l2({n: g_whole[n] for n in names}, g32):.3e}; split "
+              f"against whole {split_l2:.3e} (bound "
+              f"{TRAIN_BF16_GRAD_BOUND})", flush=True)
+        check(split_l2 <= TRAIN_BF16_GRAD_BOUND and all(
+            bool(torch.isfinite(gr).all()) for gr in got),
+              f"tp_layer M={m}: the split layer's gradients' relative L2 "
+              f"distance from the whole bf16 layer's {split_l2:.3e} "
+              f"(bound {TRAIN_BF16_GRAD_BOUND})")
+
+        # Rank 0's block alone: its forward, and forward + backward.
+        p0 = ranks[0]
+        tp0 = tpm.TP(plan, 0)
+        leaves0 = [t for n, t in p0.items()
+                   if tpm.param_block("dense", n, plan, 0) is not None]
+
+        def rank0_step():
+            xr = x.clone().requires_grad_()
+            return grads(tpm.call_with(block, p0, layer, xr, tp0),
+                         [xr] + leaves0)
+        with torch.no_grad():
+            r0_ms = time_ms(lambda: tpm.call_with(block, p0, layer, x, tp0))
+        r0_step_ms = time_ms(rank0_step)
+        print(f"  M={m}: plan {plan.record()} (KV heads {plan.kv}; rank 0: "
+              f"query heads {plan.q_heads(0)}, KV heads {plan.kv_heads(0)}, "
+              f"d_ff block {plan.block(cfg.d_ff, 0)}); the sum of the "
+              f"partials off the whole layer by {err:.3e} (bound "
+              f"{tol:.3e}: 2^-8 x (sum of {len(record)} partials' max "
+              f"{float(sum(record)):.3e} + max|y| "
+              f"{float(y_whole.float().abs().max()):.3e})); gradients "
+              f"{max(a for a, _ in pairs):.3e} from float32 (the whole bf16 "
+              f"layer's {max(b for _, b in pairs):.3e}); rank 0's block "
+              f"forward "
+              f"{r0_ms:.3f} ms against the whole layer's / M "
+              f"{whole_ms / m:.3f} ms ({r0_ms * m / whole_ms:.2f}x), "
+              f"forward + backward {r0_step_ms:.3f} ms against "
+              f"{whole_step_ms / m:.3f} ms "
+              f"({r0_step_ms * m / whole_step_ms:.2f}x)",
+              flush=True)
+        if m == max(sizes):
+            # The flash kernels at rank 0's local heads.
+            a = SimpleNamespace(**{k: p0[f"attn.{k}"].detach() for k in
+                                   ("wq", "wk", "wv", "wo")})
+            with torch.no_grad():
+                h = apply_norm(cfg.norm_kind, block.ln1, x)
+                qkv = [t.contiguous() for t in attn.gqa_qkv(
+                    cfg, a, h, pos, tp0)]
+            rows.append(flash_row(f"tp{m}", "tp_layer", *qkv, True))
+            rows.append(flash_bwd_row(f"tp{m}", "tp_layer", *qkv, True, g))
+            del qkv, h
+        del y, record, ranks, split, got, p0, leaves0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def flash_bwd_row(label, phase, q, k, v, causal, generator):
     """The flash_attention_bwd kernel of q's dtype at q [B, H, T, D], k/v
     [B, H_kv, S, D] (o, and for bf16 the log-sum-exp, the forward kernel's;
@@ -3828,11 +4040,21 @@ def shard_train_phases(args, dev, phases, cfg, sh, lm_losses, lm_walls):
         g_loss = float(met["loss"])
         del state, met
         torch.cuda.empty_cache()
+    # The plain path's steps just after, on the same host minutes: the
+    # DTensor path's cost without lm_train's distance in time.
+    plain = train(cfg, n, seq_len=T, global_batch=B, lr=TRAIN_LR,
+                  microbatches=mb, ckpt_every=0, seed=args.seed, device=dev,
+                  log=lambda *_: None)
+    p_losses, p_walls = plain.losses, plain.walls
+    del plain
+    torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, lm_losses))
     g_rel = abs(g_loss - lm_losses[0]) / abs(lm_losses[0])
-    same = losses == lm_losses[:n] and g_loss == lm_losses[0]
-    warm, lm_warm = walls[1:] or walls, lm_walls[1:] or lm_walls
-    w, lm_w = sum(warm) / len(warm), sum(lm_warm) / len(lm_warm)
+    same = losses == lm_losses[:n] == p_losses and g_loss == lm_losses[0]
+
+    def mean_warm(ws):
+        return sum(ws[1:] or ws) / len(ws[1:] or ws)
+    w, lm_w, p_w = mean_warm(walls), mean_warm(lm_walls), mean_warm(p_walls)
     print(f"phase shard_train: {cfg.name} [{B}x{T}, {mb} microbatches] on a "
           f"(1, 1) mesh, {n} steps: losses {losses} (lm_train's "
           f"{lm_losses[:n]}), max relative difference {rel:.3e}; one step "
@@ -3841,7 +4063,10 @@ def shard_train_phases(args, dev, phases, cfg, sh, lm_losses, lm_walls):
           f"{same} (bound {SHARD_LOSS_RTOL}); step walls "
           f"{[round(x, 3) for x in walls]} s, mean after the first {w:.3f} "
           f"s against lm_train's {lm_w:.3f} s ({(w - lm_w) / lm_w:+.1%}, "
-          f"the DTensor path's cost); the hooked step {g_wall:.3f} s; "
+          f"the DTensor path's cost) and the plain path's {n} steps run just "
+          f"after {p_w:.3f} s ({(w - p_w) / p_w:+.1%}; walls "
+          f"{[round(x, 3) for x in p_walls]}); the hooked step "
+          f"{g_wall:.3f} s; "
           f"model-FLOP share of a step: sharded {flop_share(cfg, 'train', B, T, w)}, "
           f"lm_train {flop_share(cfg, 'train', B, T, lm_w)}, hooked "
           f"{flop_share(cfg, 'train', B, T, g_wall)}; launches {counts} "
@@ -3851,6 +4076,9 @@ def shard_train_phases(args, dev, phases, cfg, sh, lm_losses, lm_walls):
                                                  "not finite")
     check(rel <= SHARD_LOSS_RTOL and g_rel <= SHARD_LOSS_RTOL,
           "shard_train: losses off lm_train's")
+    # A model axis of 1 splits nothing (models/tp.py): the step is
+    # lm_train's, bit for bit.
+    check(same, "shard_train: losses not bit-identical to lm_train's")
 
 
 def moe_train_section(args, dev, phases, rows, cfg=None,
@@ -5350,7 +5578,12 @@ def recurrent_section(args, dev, phases, rows, cfgs=None,
 DRYRUN_CELLS = (("olmo-1b", "train_4k", 0), ("llama3-8b", "decode_32k", 2),
                 ("mixtral-8x22b", "prefill_32k", 3),
                 ("whisper-large-v3", "train_4k", 0),
-                ("xlstm-350m", "decode_32k", 0))
+                ("xlstm-350m", "decode_32k", 0),
+                ("olmo-1b", "train_4k", 0, "16x1"))
+# olmo-1b train_4k's useful ratio at 16 x 16, heads, d_ff and vocab split
+# over "model": its 16 x 1 value (0.7723 on the card's program) less the 2 %
+# the cells may part by.
+TP_USEFUL_MIN = 0.75
 DRYRUN_TIMEOUT = 300        # seconds a cell's process may take
 
 
@@ -5455,12 +5688,15 @@ def dryrun_check(args, dev, phases, cfg=None, sh=TRAIN_SHAPES):
 
 def dryrun_cells(dev, cells=DRYRUN_CELLS):
     """dryrun_cells: ``python -m repro_torch.launch.dryrun`` on each cell at
-    16 x 16 (``--device cuda``: fake CUDA tensors, attention through the
-    flash ops' fakes), each in a process of its own, all started together;
-    each record, its roofline row on this card's constants and its trace
-    seconds printed; each must exit 0 with 256 devices and FLOPs > 0.  On
-    the CPU (a rehearsal) the cells trace the CPU's program and read the
-    H100 SXM5's constants."""
+    16 x 16, or the mesh a cell names (``--device cuda``: fake CUDA
+    tensors, attention through the flash ops' fakes), each in a process of
+    its own, all started together; each record, its tensor-parallel plan,
+    its collective bytes by kind, its roofline row on this card's
+    constants and its trace seconds printed; each must exit 0 with its
+    mesh's devices and FLOPs > 0; olmo-1b train_4k's useful ratio at 16 x
+    16 within 2 % of 16 x 1's and at least TP_USEFUL_MIN.  On the CPU (a
+    rehearsal) the cells trace the CPU's program and read the H100 SXM5's
+    constants."""
     import os
     import torch
     from repro_torch.launch import roofline
@@ -5470,17 +5706,19 @@ def dryrun_cells(dev, cells=DRYRUN_CELLS):
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t_all = time.perf_counter()
-    procs = []
+    procs, useful = [], {}
     try:
-        for arch, shape, level in cells:
-            out = out_dir / f"{arch}_{shape}_{level}.json"
+        for arch, shape, level, *mesh in cells:
+            mesh = mesh[0] if mesh else "16x16"
+            out = out_dir / f"{arch}_{shape}_{level}_{mesh}.json"
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--shape", shape, "--opt-level",
-                   str(level), "--device", dev.type, "--out", str(out)]
-            procs.append(((arch, shape, level), subprocess.Popen(
+                   str(level), "--device", dev.type, "--mesh", mesh,
+                   "--out", str(out)]
+            procs.append(((arch, shape, level, mesh), subprocess.Popen(
                 cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)))
-        for (arch, shape, level), p in procs:
+        for (arch, shape, level, mesh), p in procs:
             left = DRYRUN_TIMEOUT - (time.perf_counter() - t_all)
             try:
                 out, err = p.communicate(timeout=max(left, 1.0))
@@ -5493,12 +5731,17 @@ def dryrun_cells(dev, cells=DRYRUN_CELLS):
                                      f"{level} exited {p.returncode}: "
                                      f"{err[-1500:]}")
             rec = json.loads(out.splitlines()[-1])
-            check(rec["devices"] == 256 and rec["flops"] > 0,
+            check(rec["devices"] == math.prod(map(int, mesh.split("x")))
+                  and rec["flops"] > 0,
                   f"dryrun_cells: {arch} {shape}: {rec}")
             r = roofline.analyse(rec, chip)
-            print(f"phase dryrun_cells: {arch} {shape} level {level}: trace "
-                  f"{rec['main_compile_s']} s (process {rec['compile_s']} s "
-                  f"in the cell); record {json.dumps(rec)}")
+            useful[arch, shape, mesh] = r["useful_ratio"]
+            print(f"phase dryrun_cells: {arch} {shape} level {level} on "
+                  f"{mesh}: trace {rec['main_compile_s']} s (process "
+                  f"{rec['compile_s']} s in the cell); record "
+                  f"{json.dumps(rec)}")
+            print(f"  tensor-parallel plan {rec['tp']}; collective bytes "
+                  f"by kind {rec['collective_bytes']}")
             print(f"  roofline on {chip.name} ({card_line()}): compute "
                   f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
                   f"collective {r['collective_s']:.6f} s, dominant "
@@ -5512,6 +5755,15 @@ def dryrun_cells(dev, cells=DRYRUN_CELLS):
                 p.communicate()
     print(f"dryrun_cells: {len(cells)} cells in "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    split, one = (useful.get(("olmo-1b", "train_4k", m)) for m in
+                  ("16x16", "16x1"))
+    if split is not None and one is not None:
+        print(f"dryrun_cells: olmo-1b train_4k useful ratio {split:.4f} at "
+              f"16 x 16, {one:.4f} at 16 x 1", flush=True)
+        check(abs(split - one) <= 0.02 * one and split >= TP_USEFUL_MIN,
+              f"dryrun_cells: olmo-1b train_4k's useful ratio {split:.4f} "
+              f"at 16 x 16 against {one:.4f} at 16 x 1 (at least "
+              f"{TP_USEFUL_MIN})")
 
 
 def dryrun_section(args, dev, phases, rows, cfg=None, shapes=TRAIN_SHAPES,
@@ -5566,7 +5818,8 @@ def main(argv=None) -> int:
     phases.counters["flash_attention_bwd"] = (fa_ops, "launches_bwd")
     rows: list = []
     for section in (graph_section, kmeans_section, kmeans_view_section,
-                    lm_section, train_section, moe_train_section,
+                    lm_section, tp_section, train_section,
+                    moe_train_section,
                     moe_section, moe_window_section, mla_section,
                     vlm_section, whisper_section, recurrent_section,
                     dryrun_section):

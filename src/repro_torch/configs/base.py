@@ -6,9 +6,7 @@ All ten of the reference's configs are registered: the dense
 and ``mixtral-8x22b``, ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE,
 vision stub), ``whisper-large-v3`` (encoder-decoder, sinusoid positions,
 audio stub), ``recurrentgemma-2b`` (RG-LRU and local attention, a
-two-layer tail) and ``xlstm-350m`` (mLSTM and sLSTM).  ``PENDING`` maps
-a config still to be ported to the ROADMAP slice that brings it, and
-``get_arch`` of one raises ``NotImplementedError`` naming it; it is empty.
+two-layer tail) and ``xlstm-350m`` (mLSTM and sLSTM).
 
 Shape semantics (LM family):
   train_4k     — train_step,  seq 4096,   global batch 256
@@ -120,10 +118,6 @@ class ArchConfig:
             mlstm_chunk=8, dtype="float32", remat=False)
 
 
-# The reference's configs not yet ported, and the ROADMAP slice (queue 1)
-# that brings each: none.
-PENDING: dict = {}
-
 _REGISTRY: dict = {}
 
 
@@ -135,9 +129,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     if not _REGISTRY:
         _load_all()
-    if name in PENDING:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP queue 1, {PENDING[name]}")
     return _REGISTRY[name]
 
 

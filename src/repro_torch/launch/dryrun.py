@@ -76,13 +76,25 @@ and 2 compute the same train and prefill programs.  Level 2 adds flash
 decoding to decode; level 3 takes ``moe_strategy="a2a"`` where the config
 has experts.
 
+The train and prefill programs compute over the model axis as
+``sharding.tp_plan`` says (``models/tp.py``): rank 0's products are its
+blocks of the split parts (heads, d_ff, vocab), so its counts shrink by
+the model axis's size there and stay whole where a part is replicated,
+and its collectives add the model axis's all-reduces (the row-parallel
+sums, the column-parallel inputs' gradients, the vocab-parallel loss's
+reductions).  Decode computes replicated over the model axis.
+
 Departures from the reference's record:
 
 * ``probes`` is ``[]``: the port keeps its layers unstacked and traces
   every one of them, so there is no scan body counted once to compose.
 * The HLO parser (``collective_bytes(hlo_text)``) is not ported: there is
   no HLO, and the counting mode sees each collective as it is issued.
-* Added keys: ``device`` (the fake tensors' device); ``moe_rows``:
+* Added keys: ``device`` (the fake tensors' device); ``tp``: each part of
+  the plan on the mesh's model axis (``attention``, ``kv``, ``mlp``,
+  ``head``), ``"split"`` or ``"replicated"`` (KV heads that each rank
+  computes for its query heads read ``"replicated"``; a decode cell's
+  parts all ``"replicated"``); ``moe_rows``:
   ``"capacity"`` for a config with experts, whose dispatch the trace
   counts with every expert's buffer full (``models/moe.py``: a fake tensor
   has no routes); ``inner_loops``: ``"one_trip"`` for xLSTM, whose
@@ -584,6 +596,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "probes": [],
         "memory": got["memory"],
         "device": str(torch.device(device).type),
+        # Decode computes replicated over the model axis.
+        "tp": sharding.tp_plan(cfg, 1 if SHAPES[shape_name].kind == "decode"
+                               else dict(zip(axes, sizes)).get("model", 1)
+                               ).record(),
     }
     if cfg.n_experts:
         result["moe_rows"] = "capacity"

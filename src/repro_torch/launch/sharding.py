@@ -30,13 +30,22 @@ tensor dim ``i``, ``Replicate()`` elsewhere), the counterpart of
 DTensors so; :func:`make_gather_fn` is the ZeRO-3 hook: at the point of
 use it redistributes a layer's parameters to the layout :func:`drop_data`
 gives (the all-gather over the data axes; autograd reduce-scatters the
-gradients back to the storage layout).  The port's layer code is not
-tensor-parallel: :func:`compute_tensor` replicates a gathered parameter
-over the model axis before a layer uses it (the model axis then shards the
-storage, the MoE ``a2a`` dispatch's experts, which take the gathered
-layout as it is, and flash decoding's cache).  Its gradient is partial
-over the data axis (each rank's share of the batch) and whole on the model
-axis.
+gradients back to the storage layout).
+
+Compute over the model axis (the reference's GSPMD partitioning of that
+layout): :func:`tp_plan` says which parts of a config's layers split over
+"model" (heads, d_ff, vocab; ``models/tp.py``), and :func:`tp_local`
+hands the layer code each gathered parameter as this rank computes with
+it: the rank's block where the plan splits its part (column-parallel
+``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` and the head, row-parallel
+``wo`` and ``w_down``), the KV heads its query heads need where the KV
+heads do not split, and the parameter replicated over the model axis
+elsewhere (:func:`compute_tensor`).  Its gradient is partial over the
+data axes (each rank's share of the batch), in its block on the model
+axis, and partial there for KV heads that several ranks compute; the
+gather's backward reduce-scatters it.  MoE's ``a2a`` experts take the
+gathered layout as it is (:func:`local_block`), and flash decoding splits
+the cache's slots; decode's layer code is replicated over the model axis.
 """
 from __future__ import annotations
 
@@ -345,40 +354,46 @@ def gathered_layout(t: torch.Tensor) -> torch.Tensor:
     return t.redistribute(mesh, place)
 
 
-class _Replicated(torch.autograd.Function):
-    """Forward: a DTensor replicated over every axis, as this rank's local
-    tensor.  Backward: the local gradient, partial over the data axes, in
-    the input's placements.  An input that a gather made
-    (:func:`gathered_layout`, a tensor with a ``grad_fn``) takes it still
-    partial over the data axes, and the gather's backward reduce-scatters
-    it to the storage layout (a redistribute to replicated would
-    all-reduce it first); a stored tensor takes it summed over them."""
+class _Compute(torch.autograd.Function):
+    """Forward: a DTensor replicated over the data axes and in
+    ``model_place`` on the model axis, as this rank's local tensor.
+    Backward: the local gradient, partial over the data axes (and over the
+    model axis where ``model_partial``: ranks that each computed with the
+    whole tensor's part), in the input's placements.  An input that a
+    gather made (:func:`gathered_layout`, a tensor with a ``grad_fn``)
+    takes it still partial over the data axes, and the gather's backward
+    reduce-scatters it to the storage layout (a redistribute to replicated
+    would all-reduce it first); a stored tensor takes it summed over
+    them."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, model_place, model_partial):
         from torch.distributed.tensor import Replicate
         ctx.mesh, ctx.place = t.device_mesh, tuple(t.placements)
         ctx.gathered = t.grad_fn is not None
-        return t.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim
-                              ).to_local()
+        ctx.model_place, ctx.model_partial = model_place, model_partial
+        return t.redistribute(ctx.mesh, [
+            model_place if name == "model" else Replicate()
+            for name in axis_names(ctx.mesh)]).to_local()
 
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import DTensor, Partial, Replicate
-        mesh = ctx.mesh
-        rep = [Replicate()] * mesh.ndim
-        g = DTensor.from_local(g, mesh, grad_placements(mesh, rep),
+        mesh, names = ctx.mesh, axis_names(ctx.mesh)
+        place = [(Partial() if ctx.model_partial else ctx.model_place)
+                 if name == "model" else Replicate() for name in names]
+        g = DTensor.from_local(g, mesh, grad_placements(mesh, place),
                                run_check=False)
         return g.redistribute(mesh, [
             Partial() if ctx.gathered and name in ("pod", "data") else p
-            for name, p in zip(axis_names(mesh), ctx.place)])
+            for name, p in zip(names, ctx.place)]), None, None
 
 
 def compute_tensor(t: torch.Tensor) -> torch.Tensor:
-    """A parameter as the layer code uses it: a DTensor replicated over
-    every axis, as this rank's local tensor (its gradient partial over the
-    data axes, whole on the model axis; :class:`_Replicated`); a tensor as
-    it is."""
+    """A parameter as replicated layer code uses it: a DTensor replicated
+    over every axis, as this rank's local tensor (its gradient partial
+    over the data axes, whole on the model axis; :class:`_Compute`); a
+    tensor as it is."""
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate
@@ -388,7 +403,99 @@ def compute_tensor(t: torch.Tensor) -> torch.Tensor:
         # Nothing to gather, and a gradient partial over axes of size 1
         # is whole: the redistribute (a host dispatch a use) is skipped.
         return t.to_local(grad_placements=rep)
-    return _Replicated.apply(t)
+    return _Compute.apply(t, Replicate(), False)
+
+
+# ---------------------------------------------------------------------------
+# Compute over the model axis (models/tp.py).
+# ---------------------------------------------------------------------------
+
+def tp_plan(cfg, msize: int):
+    """The :class:`models.tp.Plan` of ``cfg`` on a model axis of
+    ``msize`` ranks, read from the specs at a model axis of that size:
+    attention splits by whole heads where ``msize`` divides n_heads and the
+    config has a GQA kind (its KV heads in blocks where ``msize`` divides
+    n_kv_heads, else each rank computes the one its query heads share, or
+    the attention stays whole where they straddle two); the MLP where the
+    spec puts d_ff on "model"; the head and the embedding lookup where it
+    puts vocab there.  Nothing splits at ``msize`` 1."""
+    from repro_torch.launch.mesh import AxisMesh
+    from repro_torch.models.tp import TP_KINDS, Plan
+    mesh = AxisMesh(("data", "model"), (1, msize))
+    h, h_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kv = "replicated"
+    gqa = any(k in TP_KINDS for k in cfg.unit)
+    if msize > 1 and gqa and h % msize == 0 and \
+            param_spec("params/units/b0/attn/wq", (1, cfg.d_model, h * hd),
+                       mesh)[-1] == "model":
+        if h_kv % msize == 0:
+            kv = "split"
+        elif (h // h_kv) % (h // msize) == 0:
+            kv = "computed"
+    mlp = bool(cfg.d_ff) and param_spec(
+        "params/units/b0/mlp/w_gate", (1, cfg.d_model, cfg.d_ff),
+        mesh)[-1] == "model"
+    head = param_spec("params/embed", (cfg.vocab, cfg.d_model),
+                      mesh)[0] == "model"
+
+    def part(split):
+        return "split" if split else "replicated"
+    return Plan(size=msize, kv=kv, mlp=part(mlp), head=part(head),
+                n_heads=h, n_kv_heads=h_kv, hd=hd, d_ff=cfg.d_ff,
+                vocab=cfg.vocab)
+
+
+def tp_of(cfg, mesh):
+    """The :class:`models.tp.TP` of this rank on ``mesh``'s model axis
+    (its index there and the axis's group), None where the plan splits
+    nothing (a model axis of 1, no mesh)."""
+    from repro_torch.models.tp import TP
+    if mesh is None or "model" not in axis_names(mesh) or \
+            model_axis_size(mesh) == 1:
+        return None
+    plan = tp_plan(cfg, model_axis_size(mesh))
+    if not plan.splits:
+        return None
+    from repro_torch.launch.mesh import axis_group
+    group, index = axis_group(mesh, "model")
+    return TP(plan, index, group)
+
+
+def mesh_of(tensors):
+    """The mesh of the first DTensor among ``tensors``, None without
+    one."""
+    return next((t.device_mesh for t in tensors if is_dtensor(t)), None)
+
+
+def tp_local(kind: str, name: str, t: torch.Tensor, tp) -> torch.Tensor:
+    """Parameter ``name`` of a block of ``kind`` (a DTensor in the
+    gathered layout) as rank ``tp`` computes with it: its block
+    (``models.tp.param_block``) where the plan splits its part, the KV
+    heads the rank's query heads share where the plan computes them on
+    each rank (taken from the whole ``wk``/``wv``, the gradient partial
+    over the model axis), replicated elsewhere or without ``tp``
+    (:func:`compute_tensor`); a tensor as it is."""
+    from repro_torch.models.tp import param_block
+    blk = None if tp is None else param_block(kind, name, tp.plan, tp.index)
+    if blk is None or not is_dtensor(t):
+        return compute_tensor(t)
+    from torch.distributed.tensor import Replicate, Shard
+    dim, start, size = blk
+    if name.endswith(("wk", "wv")) and tp.plan.kv == "computed":
+        return _Compute.apply(t, Replicate(), True).narrow(dim, start, size)
+    out = _Compute.apply(t, Shard(dim), False)
+    if out.shape[dim] != size:
+        raise ValueError(f"{name}: this rank's block of {tuple(t.shape)} "
+                         f"on the model axis has {out.shape[dim]} of dim "
+                         f"{dim}, the plan {size}")
+    return out
+
+
+def vocab_local(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's vocab block of a gathered embedding (``dim`` 0) or
+    head (``dim`` 1), in ``tp_local``'s gradient convention."""
+    from torch.distributed.tensor import Shard
+    return _Compute.apply(t, Shard(dim), False)
 
 
 def local_block(t: torch.Tensor, mesh, place) -> torch.Tensor:

@@ -4,6 +4,12 @@ bidirectional (the Whisper encoder's), multi-head latent attention (MLA,
 minicpm3) with its absorbed decode, and Whisper's cross-attention (the
 reference's ``models/attention.py`` but for flash decoding).
 
+The GQA paths (forward, prefill, cross-attention) take a ``tp``
+(``models/tp.py``): the rank's query heads and the KV heads they need,
+from its blocks of the weights, its input entering and its output leaving
+over the model axis; the prefill's cache gathers the KV heads whole.
+Decode is replicated over the model axis (``tp`` None).
+
 Positions rotate q and k by RoPE (``rope_kind="rope"``) or by Qwen2-VL's
 M-RoPE (``"mrope"``): positions [B, T] (text: three equal rows, which is
 RoPE exactly) or [3, B, T] (temporal, height and width rows).  With
@@ -78,11 +84,6 @@ from repro_torch.models.layers import (_param, apply_mrope, apply_rope,
                                        dtype_of, mm, normal_)
 
 
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1, {slice_}")
-
-
 def _check_cfg(cfg) -> None:
     if cfg.rope_kind not in ("rope", "mrope", "none"):
         raise ValueError(f"rope_kind={cfg.rope_kind!r}")
@@ -131,15 +132,24 @@ def _positions_rope(cfg, q, k, positions):
     return apply_mrope(q, pos3), apply_mrope(k, pos3)
 
 
-def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _heads(cfg, tp) -> tuple[int, int]:
+    """(query heads, KV heads) the rank computes: the config's, or the
+    plan's for rank ``tp``."""
+    if tp is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    return tp.plan.q_heads(tp.index)[1], tp.plan.kv_heads(tp.index)[1]
+
+
+def gqa_qkv(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
+            tp=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, T, D] -> q [B, H, T, Dh], k and v [B, H_kv, T, Dh], q and k
     rotated (positions [B, T], or [3, B, T] for mrope), all in x's
-    dtype."""
+    dtype; with ``tp`` the rank's heads from its weight blocks."""
     hd = cfg.hd
-    q = _split_heads(mm(x, params.wq), cfg.n_heads, hd)
-    k = _split_heads(mm(x, params.wk), cfg.n_kv_heads, hd)
-    v = _split_heads(mm(x, params.wv), cfg.n_kv_heads, hd)
+    h, h_kv = _heads(cfg, tp)
+    q = _split_heads(mm(x, params.wq), h, hd)
+    k = _split_heads(mm(x, params.wk), h_kv, hd)
+    v = _split_heads(mm(x, params.wv), h_kv, hd)
     q, k = _positions_rope(cfg, q, k, positions)
     return q, k, v
 
@@ -163,14 +173,19 @@ def _attend(q, k, v, causal: bool, use_kernel: bool) -> torch.Tensor:
 
 
 def gqa_train(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
-              causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
-    """x [B, T, D]; positions [B, T] (or [3, B, T] for mrope)."""
-    q, k, v = gqa_qkv(cfg, params, x, positions)
+              causal: bool = True, use_kernel: bool = True, tp=None
+              ) -> torch.Tensor:
+    """x [B, T, D]; positions [B, T] (or [3, B, T] for mrope).  ``tp``:
+    the rank's heads (module docstring)."""
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = gqa_qkv(cfg, params, x, positions, tp)
     if cfg.window and causal:
         out = _windowed_attention(q, k, v, cfg.window)
     else:
         out = _attend(q, k, v, causal, use_kernel)
-    return mm(_merge_heads(out), params.wo)
+    y = mm(_merge_heads(out), params.wo)
+    return y if tp is None else tp.exit(y)
 
 
 def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
@@ -358,18 +373,21 @@ def _flash_decode_attention(cfg, q, k, v, slot_pos, pos, group):
 
 
 def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
-                max_len: int, unroll: bool = False, use_kernel: bool = True
-                ) -> tuple[torch.Tensor, dict]:
+                max_len: int, unroll: bool = False, use_kernel: bool = True,
+                tp=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also builds the decode cache: k/v and
     positions of the last ``slots`` tokens of the prompt (all of them
     when it is shorter), each in its ring slot ``pos % slots``, where
     ``slots`` is ``max_len`` or ``min(window, max_len)``.  A window takes
     ``blocked_attention`` above ``BLOCKED_THRESHOLD`` and
     ``_windowed_attention`` below it.  ``unroll`` is accepted and ignored
-    (eager PyTorch has no scan)."""
+    (eager PyTorch has no scan).  ``tp``: the rank's heads, the cache's KV
+    heads gathered whole over the model axis."""
     hd = cfg.hd
     b, t, _ = x.shape
-    q, k, v = gqa_qkv(cfg, params, x, positions)
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = gqa_qkv(cfg, params, x, positions, tp)
     if not cfg.window:
         out = _attend(q, k, v, True, use_kernel)
     elif t * t > BLOCKED_THRESHOLD:
@@ -378,6 +396,9 @@ def gqa_prefill(cfg, params: GQA, x: torch.Tensor, positions: torch.Tensor,
         out = _windowed_attention(q, k, v, cfg.window)
     y = _merge_heads(out) @ params.wo
     del q, out
+    if tp is not None:
+        y = tp.exit(y)
+        k, v = tp.gather_heads(k), tp.gather_heads(v)
 
     slots = _slots(cfg, max_len)
     pos2 = positions if positions.dim() == 2 else positions[0]
@@ -563,22 +584,31 @@ def init_cross(attn: GQA, cfg, gen: torch.Generator) -> None:
     init_gqa(attn, cfg, gen)
 
 
-def cross_attend(cfg, params: GQA, x: torch.Tensor, enc_kv: tuple
+def cross_attend(cfg, params: GQA, x: torch.Tensor, enc_kv: tuple, tp=None
                  ) -> torch.Tensor:
     """x [B, T, D]; enc_kv = (k, v), each [B, H_kv, S_enc, Dh], from
     :func:`encode_cross_kv` (kept in the cache for the whole decode).
-    Non-causal ``attention_ref`` in float32, back in x's type."""
-    q = _split_heads(mm(x, params.wq), cfg.n_heads, cfg.hd)
+    Non-causal ``attention_ref`` in float32, back in x's type.  ``tp``:
+    the rank's heads, ``enc_kv`` its KV heads."""
+    if tp is not None:
+        x = tp.enter(x)
+    q = _split_heads(mm(x, params.wq), _heads(cfg, tp)[0], cfg.hd)
     k, v = enc_kv
     out = attention_ref(q.float(), k.float(), v.float(),
                         causal=False).to(x.dtype)
-    return mm(_merge_heads(out), params.wo)
+    y = mm(_merge_heads(out), params.wo)
+    return y if tp is None else tp.exit(y)
 
 
-def encode_cross_kv(cfg, params: GQA, enc_out: torch.Tensor) -> tuple:
+def encode_cross_kv(cfg, params: GQA, enc_out: torch.Tensor, tp=None
+                    ) -> tuple:
     """The encoder output [B, S_enc, D] -> (k, v), each [B, H_kv, S_enc,
     Dh], in the promoted type of ``enc_out`` and the weights (float32 for
-    float32 frames against a bf16 model, as in the reference)."""
-    k = _split_heads(mm(enc_out, params.wk), cfg.n_kv_heads, cfg.hd)
-    v = _split_heads(mm(enc_out, params.wv), cfg.n_kv_heads, cfg.hd)
+    float32 frames against a bf16 model, as in the reference); with
+    ``tp`` the rank's KV heads."""
+    if tp is not None:
+        enc_out = tp.enter(enc_out)
+    h_kv = _heads(cfg, tp)[1]
+    k = _split_heads(mm(enc_out, params.wk), h_kv, cfg.hd)
+    v = _split_heads(mm(enc_out, params.wv), h_kv, cfg.hd)
     return (k, v)

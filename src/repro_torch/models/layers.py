@@ -4,6 +4,8 @@ reference's ``models/layers.py``).
 ``init_*`` fill a given parameter from a ``torch.Generator``; ``apply_*``
 take (params, x) and compute in the reference's order and types.  Norm
 scales and biases are float32, weights are in the config dtype.
+``apply_mlp`` takes a ``tp`` (``models/tp.py``): the rank's block of d_ff,
+column-parallel in, row-parallel out.
 
 The reference defines these functions, not the published models: RoPE
 rotates *interleaved* pairs (``x[..., ::2]``, ``x[..., 1::2]``) with
@@ -185,9 +187,15 @@ def widen(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def apply_mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(params: MLP, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The SwiGLU; with ``tp`` (``models/tp.py``) on this rank's block of
+    d_ff, its input entering and its output leaving over the model
+    axis."""
+    if tp is not None:
+        x = tp.enter(x)
     gate = F.silu(mm(x, params.w_gate))
-    return mm(gate * mm(x, params.w_up), params.w_down)
+    y = mm(gate * mm(x, params.w_up), params.w_down)
+    return y if tp is None else tp.exit(y)
 
 
 class Linear(nn.Module):

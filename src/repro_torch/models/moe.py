@@ -165,9 +165,11 @@ def _expert_ffn(params: MoE, buf: torch.Tensor, rows) -> torch.Tensor:
     return torch.cat(outs)
 
 
-def moe_ffn(cfg, params: MoE, x: torch.Tensor, strategy: str = "sort"
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, D] -> (y [B, T, D] in x's dtype, aux_loss f32 scalar)."""
+def moe_ffn(cfg, params: MoE, x: torch.Tensor, strategy: str = "sort",
+            tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, D] -> (y [B, T, D] in x's dtype, aux_loss f32 scalar).
+    ``tp`` (``models/tp.py``) splits the dense residual's d_ff; the expert
+    products keep their layout under every strategy."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
     group = meshes.batch_group()
@@ -186,7 +188,7 @@ def moe_ffn(cfg, params: MoE, x: torch.Tensor, strategy: str = "sort"
         raise ValueError(strategy)
 
     if cfg.moe_dense_residual:
-        y = y + apply_mlp(params.dense, xf)
+        y = y + apply_mlp(params.dense, xf, tp)
     return y.reshape(b, t, d).to(x.dtype), aux
 
 

@@ -62,10 +62,22 @@ weights are ever resident gathered.  ``forward`` and ``prefill_forward``
 apply it to the embedding, each decoder layer, the final norm and the
 head (``decode_step`` likewise), ``encode`` to each encoder layer and its
 norm; the gathered tensors replace the module's for that call
-(``torch.func.functional_call``).  A
-gathered parameter is replicated for the layer code
+(``torch.func.functional_call``).  ``forward``, ``prefill_forward`` and
+``encode`` compute over the model axis as this rank's ``tp`` says
+(``models/tp.py``), decided once a call: given (the sharded train step
+decides it once), else the plan of the config on the hook's parameters'
+mesh (``sharding.tp_of``, ``sharding.tp_plan``): a
+block takes this rank's blocks of the parameters whose part splits
+(``sharding.tp_local``: heads, d_ff) and runs its attention and MLP on
+them, each summed over the model axis once; the embedding lookup reads
+the rank's vocab rows (summed over the axis) and the head computes the
+rank's vocab columns, gathered whole at the end (``forward(...,
+gather_logits=False)`` keeps them: the sharded train step's vocab-parallel
+loss); the prefill's cache gathers its KV heads whole.  Parameters whose
+part does not split are replicated for the layer code
 (``sharding.compute_tensor``), but an MoE block's expert weights under
 ``moe_strategy="a2a"``, which its dispatch takes in the gathered layout.
+``decode_step`` computes replicated over the model axis;
 ``decode_step(flash_decode=True)`` runs GQA's flash decoding
 (``attention.gqa_decode``) for the ``"dense"`` and ``"attn_local"``
 kinds, as the reference's does.
@@ -82,15 +94,13 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
+from repro_torch.models import tp as tpm
 from repro_torch.models.layers import (MLP, Norm, _param, apply_mlp,
                                        apply_norm, dtype_of, init_mlp,
                                        init_norm, normal_)
 
 KINDS = ("dense", "moe", "mla", "enc", "dec_cross", "attn_local", "rec",
-         "mlstm", "slstm")   # the port's kinds
-# Kinds still to be ported, and the ROADMAP slice (queue 1) that brings
-# each: none.
-KIND_SLICES: dict = {}
+         "mlstm", "slstm")   # the port's kinds: every kind of the reference
 
 
 class Cell(NamedTuple):
@@ -115,11 +125,8 @@ NO_MLP = ("mlstm", "slstm")   # xLSTM cells stand alone, as the reference's
 
 
 def _check_kind(kind: str) -> None:
-    if kind in KINDS:
-        return
-    if kind in KIND_SLICES:
-        raise attn._not_ported(f"block kind {kind!r}", KIND_SLICES[kind])
-    raise ValueError(kind)
+    if kind not in KINDS:
+        raise ValueError(kind)
 
 
 def _check_model(cfg) -> None:
@@ -314,38 +321,27 @@ def is_stacked(leaf: str) -> bool:
 EXPERT_WEIGHTS = ("ffn.w_gate", "ffn.w_up", "ffn.w_down")
 
 
-class _Apply(nn.Module):
-    """``fn(module, *args)`` as a module's forward, for
-    ``torch.func.functional_call``."""
-
-    def __init__(self, module: nn.Module, fn: Callable):
-        super().__init__()
-        self.m = module
-        self.fn = fn
-
-    def forward(self, *args):
-        return self.fn(self.m, *args)
-
-
 def keep_gathered(moe_strategy: str) -> tuple:
     """Parameters that keep the gathered layout (the a2a dispatch's)."""
     return EXPERT_WEIGHTS if moe_strategy == "a2a" else ()
 
 
 def gathered(gather_fn, module: nn.Module, hint: str, fn: Callable, *args,
-             keep: tuple = ()):
+             keep: tuple = (), kind: Optional[str] = None, tp=None):
     """``fn(module, *args)``, the module's parameters replaced for the call
     by those ``gather_fn`` gives at the point of use (each replicated for
     the layer code, but those whose names end with one of ``keep``);
-    without a hook, as they are."""
+    without a hook, as they are.  Given a block's ``kind``, ``fn`` also
+    takes ``tp``: this rank's ``models.tp.TP`` (None without a hook), and
+    the parameters are those it computes with (``sharding.tp_local``)."""
+    kw = {} if kind is None else {"tp": None if gather_fn is None else tp}
     if gather_fn is None:
-        return fn(module, *args)
-    from repro_torch.launch.sharding import compute_tensor
+        return fn(module, *args, **kw)
+    from repro_torch.launch.sharding import tp_local
     got = gather_fn(module, hint)
-    return torch.func.functional_call(
-        _Apply(module, fn), {f"m.{n}": t if n.endswith(keep) else
-                             compute_tensor(t) for n, t in got.items()},
-        args)
+    return tpm.call_with(module, {n: t if n.endswith(keep) else
+                                  tp_local(kind, n, t, tp)
+                                  for n, t in got.items()}, fn, *args, **kw)
 
 
 def gathered_param(gather_fn, p: torch.Tensor, hint: str) -> torch.Tensor:
@@ -356,17 +352,44 @@ def gathered_param(gather_fn, p: torch.Tensor, hint: str) -> torch.Tensor:
     return compute_tensor(gather_fn(p, hint))
 
 
+def _vocab_param(gather_fn, p: torch.Tensor, hint: str, tp, dim: int):
+    """(the embedding (``dim`` 0) or ``lm_head`` (``dim`` 1) as the
+    forward uses it, the TP whose vocab block it is): the rank's vocab
+    block where ``tp``'s plan splits the head, else replicated, and
+    None."""
+    if gather_fn is None:
+        return p, None
+    from repro_torch.launch.sharding import compute_tensor, vocab_local
+    t = gather_fn(p, hint)
+    vtp = None if tp is None else tp.part("head")
+    if vtp is None:
+        return compute_tensor(t), None
+    return vocab_local(t, dim), vtp
+
+
+def _tp_of(cfg, params: LM, gather_fn, tp):
+    """``tp``, or where it is not given and a hook gathers the parameters,
+    this rank's on their mesh (``sharding.tp_of``); None without a
+    hook."""
+    if gather_fn is None:
+        return None
+    if tp is not None:
+        return tp
+    from repro_torch.launch.sharding import mesh_of, tp_of
+    return tp_of(cfg, mesh_of(params.parameters()))
+
+
 def _block_with(p, kind, cfg, x, positions, use_kernel, moe_strategy,
-                enc_out):
+                enc_out, tp=None):
     return apply_block(kind, cfg, p, x, positions, use_kernel=use_kernel,
-                       moe_strategy=moe_strategy, enc_out=enc_out)
+                       moe_strategy=moe_strategy, enc_out=enc_out, tp=tp)
 
 
 def _run_block(gather_fn, block, kind, cfg, x, positions, use_kernel,
-               moe_strategy, enc_out):
+               moe_strategy, enc_out, tp):
     return gathered(gather_fn, block, "unit", _block_with, kind, cfg, x,
                     positions, use_kernel, moe_strategy, enc_out,
-                    keep=keep_gathered(moe_strategy))
+                    keep=keep_gathered(moe_strategy), kind=kind, tp=tp)
 
 
 def _norm_with(norm, kind, x):
@@ -377,37 +400,50 @@ def _norm_with(norm, kind, x):
 # Blocks.
 # ---------------------------------------------------------------------------
 
+def _parts(kind: str, tp) -> tuple:
+    """(the attention's TP, the MLP's) of a block of ``kind``: each None
+    where the plan does not split it (attention splits in the GQA
+    kinds)."""
+    if tp is None:
+        return None, None
+    return (tp.part("attention") if kind in tpm.TP_KINDS else None,
+            tp.part("mlp"))
+
+
 def _ffn_residual(kind: str, cfg, p: Block, x: torch.Tensor,
-                  moe_strategy: str) -> tuple[torch.Tensor, torch.Tensor]:
+                  moe_strategy: str, tp=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x plus the block's FFN (the expert FFN or the MLP) and the aux loss
-    (0 but for an MoE block)."""
+    (0 but for an MoE block); ``tp`` the MLP's (the dense residual's)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "moe":
         h2 = apply_norm(cfg.norm_kind, p.ln2, x)
-        y, aux = moe.moe_ffn(cfg, p.ffn, h2, strategy=moe_strategy)
+        y, aux = moe.moe_ffn(cfg, p.ffn, h2, strategy=moe_strategy, tp=tp)
         x = x + y
     elif hasattr(p, "mlp"):
         h2 = apply_norm(cfg.norm_kind, p.ln2, x)
-        x = x + apply_mlp(p.mlp, h2)
+        x = x + apply_mlp(p.mlp, h2, tp)
     return x, aux
 
 
-def _cross_residual(cfg, p: Block, x: torch.Tensor, enc_kv: tuple
+def _cross_residual(cfg, p: Block, x: torch.Tensor, enc_kv: tuple, tp=None
                     ) -> torch.Tensor:
     """x plus a ``"dec_cross"`` block's cross-attention to ``enc_kv``."""
     hc = apply_norm(cfg.norm_kind, p.ln_cross, x)
-    return x + attn.cross_attend(cfg, p.cross, hc, enc_kv)
+    return x + attn.cross_attend(cfg, p.cross, hc, enc_kv, tp)
 
 
 def apply_block(kind: str, cfg, p: Block, x: torch.Tensor,
                 positions: torch.Tensor, use_kernel: bool = True,
                 moe_strategy: str = "sort",
-                enc_out: Optional[torch.Tensor] = None
+                enc_out: Optional[torch.Tensor] = None, tp=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x', aux_loss); the aux loss is 0 but for an MoE block.
     ``enc_out`` [B, S_enc, D] is the encoder output a ``"dec_cross"``
-    block attends to."""
+    block attends to; ``tp`` this rank's ``models.tp.TP`` (``p`` then
+    holds its blocks of the parameters the plan splits)."""
     _check_kind(kind)
+    atp, mtp = _parts(kind, tp)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
     if kind in CELLS:
         x = x + CELLS[kind].forward(cfg, p.cell, h)
@@ -415,23 +451,26 @@ def apply_block(kind: str, cfg, p: Block, x: torch.Tensor,
         x = x + attn.mla_train(cfg, p.attn, h, positions, causal=True)
     else:
         x = x + attn.gqa_train(cfg, p.attn, h, positions,
-                               causal=kind != "enc", use_kernel=use_kernel)
+                               causal=kind != "enc", use_kernel=use_kernel,
+                               tp=atp)
     if kind == "dec_cross":
-        x = _cross_residual(cfg, p, x,
-                            attn.encode_cross_kv(cfg, p.cross, enc_out))
-    return _ffn_residual(kind, cfg, p, x, moe_strategy)
+        x = _cross_residual(cfg, p, x, attn.encode_cross_kv(
+            cfg, p.cross, enc_out, atp), atp)
+    return _ffn_residual(kind, cfg, p, x, moe_strategy, mtp)
 
 
 def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
                   positions: torch.Tensor, max_len: int,
                   unroll: bool = False, use_kernel: bool = True,
                   moe_strategy: str = "sort",
-                  enc_out: Optional[torch.Tensor] = None
+                  enc_out: Optional[torch.Tensor] = None, tp=None
                   ) -> tuple[torch.Tensor, dict]:
     """The block's forward and its cache; a ``"dec_cross"`` block's cache
     also holds ``cross_kv``, the encoder's (k, v); a recurrent block's is
-    {"cell": its state after the last token}."""
+    {"cell": its state after the last token}.  ``tp`` as
+    :func:`apply_block`'s; the cache's KV heads are whole."""
     _check_kind(kind)
+    atp, mtp = _parts(kind, tp)
     h = apply_norm(cfg.norm_kind, p.ln1, x)
     if kind in CELLS:
         y, cache = CELLS[kind].forward(cfg, p.cell, h, return_state=True)
@@ -441,13 +480,15 @@ def prefill_block(kind: str, cfg, p: Block, x: torch.Tensor,
         out = {"attn": cache}
     else:
         y, cache = attn.gqa_prefill(cfg, p.attn, h, positions, max_len,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, tp=atp)
         out = {"attn": cache}
     x = x + y
     if kind == "dec_cross":
-        out["cross_kv"] = attn.encode_cross_kv(cfg, p.cross, enc_out)
-        x = _cross_residual(cfg, p, x, out["cross_kv"])
-    x, _ = _ffn_residual(kind, cfg, p, x, moe_strategy)
+        kv = attn.encode_cross_kv(cfg, p.cross, enc_out, atp)
+        x = _cross_residual(cfg, p, x, kv, atp)
+        out["cross_kv"] = kv if atp is None else tuple(
+            atp.gather_heads(t) for t in kv)
+    x, _ = _ffn_residual(kind, cfg, p, x, moe_strategy, mtp)
     return x, out
 
 
@@ -563,17 +604,19 @@ def _add_positions(cfg, x: torch.Tensor, positions: torch.Tensor
 
 
 def encode(cfg, params: LM, frames: torch.Tensor, use_kernel: bool = True,
-           unroll: bool = False, gather_fn=None) -> torch.Tensor:
+           unroll: bool = False, gather_fn=None, tp=None) -> torch.Tensor:
     """The Whisper encoder over precomputed frame embeddings [B, S, D]
     (sinusoid positions 0..S-1, the ``"enc"`` blocks, ``enc_norm``), in
-    the frames' dtype.  ``use_kernel=False`` is the reference's path."""
+    the frames' dtype.  ``use_kernel=False`` is the reference's path;
+    ``gather_fn`` and ``tp`` as :func:`forward`'s."""
     _check_model(cfg)
+    tp = _tp_of(cfg, params, gather_fn, tp)
     b, s, _ = frames.shape
     pos = _default_positions(b, s, frames.device)
     x = frames + _sinusoid(pos, frames.shape[-1]).to(frames.dtype)
     for block in params.encoder:
         x, _ = gathered(gather_fn, block, "unit", _block_with, "enc", cfg,
-                        x, pos, use_kernel, "sort", None)
+                        x, pos, use_kernel, "sort", None, kind="enc", tp=tp)
     return gathered(gather_fn, params.enc_norm, "enc_norm", _norm_with,
                     cfg.norm_kind, x)
 
@@ -585,12 +628,35 @@ def _head(cfg, params: LM, embed_w: Optional[torch.Tensor] = None,
     return gathered_param(gather_fn, params.lm_head, "lm_head")
 
 
-def _embed(embed_w: torch.Tensor, tokens, embeds) -> torch.Tensor:
+def _embed(embed_w: torch.Tensor, tokens, embeds, tp=None) -> torch.Tensor:
     """The input rows: ``embeds`` [B, T, D] in the embedding's dtype where
-    given (the tokens are then not read), else the tokens' rows."""
-    if embeds is None:
+    given (the tokens are then not read), else the tokens' rows; with
+    ``tp`` ``embed_w`` is the rank's vocab block, whose rows of the tokens
+    (zero for tokens outside it) are summed over the model axis."""
+    if embeds is not None:
+        return embeds.to(embed_w.dtype)
+    if tp is None:
         return embed_w[tokens.long()]
-    return embeds.to(embed_w.dtype)
+    start, n = tp.plan.block(tp.plan.vocab, tp.index)
+    local = tokens.long() - start
+    inside = (local >= 0) & (local < n)
+    rows = embed_w[torch.where(inside, local, 0)]
+    return tp.exit(rows.masked_fill(~inside[..., None], 0))
+
+
+def _logits(cfg, params: LM, x: torch.Tensor, embed_w: torch.Tensor, tp,
+            gather_fn, gather: bool = True) -> torch.Tensor:
+    """The head on the final norm's output, f32: where ``tp``'s plan
+    splits the head (``embed_w`` then the rank's vocab block) the rank's
+    vocab columns, gathered whole over the model axis where ``gather``."""
+    if cfg.tie_embeddings:
+        w, tp = embed_w.T, None if tp is None else tp.part("head")
+    else:
+        w, tp = _vocab_param(gather_fn, params.lm_head, "lm_head", tp, 1)
+    if tp is None:
+        return (x @ w).float()
+    logits = tp.enter(x) @ w
+    return (tp.gather(logits, -1) if gather else logits).float()
 
 
 def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
@@ -598,17 +664,23 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             embeds: Optional[torch.Tensor] = None,
             use_kernel: bool = True, unroll: bool = False,
             moe_strategy: str = "sort",
-            enc_out: Optional[torch.Tensor] = None, gather_fn=None
+            enc_out: Optional[torch.Tensor] = None, gather_fn=None,
+            gather_logits: bool = True, tp=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens int32[B, T] (or ``embeds`` [B, T, D] for the stub frontends);
     positions [B, T] or, for M-RoPE, [3, B, T] (default 0..T-1);
     ``enc_out`` the encoder output an encoder-decoder's blocks attend to;
     ``gather_fn`` the ZeRO-3 hook -> (logits f32[B, T, V], aux_loss
-    scalar, the sum of the blocks' load-balancing losses)."""
+    scalar, the sum of the blocks' load-balancing losses).  ``tp`` is this
+    rank's ``models.tp.TP`` over the model axis, by default that of the
+    hook's parameters' mesh (``sharding.tp_of``); where its plan splits the
+    vocab and ``gather_logits`` is False, the logits are this rank's vocab
+    block f32[B, T, V / M] (module docstring)."""
     _check_model(cfg)
     _check_enc_out(cfg, enc_out)
-    embed_w = gathered_param(gather_fn, params.embed, "embed")
-    x = _embed(embed_w, tokens, embeds)
+    tp = _tp_of(cfg, params, gather_fn, tp)
+    embed_w, vtp = _vocab_param(gather_fn, params.embed, "embed", tp, 0)
+    x = _embed(embed_w, tokens, embeds, vtp)
     b, t, _ = x.shape
     if positions is None:
         positions = _default_positions(b, t, x.device)
@@ -618,7 +690,7 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
         p.requires_grad for p in params.parameters())
     for kind, block in zip(params.kinds, params.layers):
         args = (gather_fn, block, kind, cfg, x, positions, use_kernel,
-                moe_strategy, enc_out)
+                moe_strategy, enc_out, tp)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 _run_block, *args, use_reentrant=False)
@@ -627,25 +699,28 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
         aux = aux + a
     x = gathered(gather_fn, params.final_norm, "final_norm", _norm_with,
                  cfg.norm_kind, x)
-    return (x @ _head(cfg, params, embed_w, gather_fn)).float(), aux
+    return _logits(cfg, params, x, embed_w, tp, gather_fn,
+                   gather_logits), aux
 
 
 def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
                     max_len: int, embeds: Optional[torch.Tensor] = None,
                     unroll: bool = False, use_kernel: bool = True,
                     moe_strategy: str = "sort",
-                    enc_out: Optional[torch.Tensor] = None, gather_fn=None
-                    ) -> tuple[torch.Tensor, dict]:
+                    enc_out: Optional[torch.Tensor] = None, gather_fn=None,
+                    tp=None) -> tuple[torch.Tensor, dict]:
     """Returns (last-position logits f32[B, 1, V], cache): the full-sequence
     compute over tokens int32[B, T] (or ``embeds`` [B, T, D]) at positions
     0..T-1, the cache of every layer (with each ``"dec_cross"`` layer's
     ``cross_kv`` from ``enc_out``), and only the next-token logits.
     ``use_kernel=False`` takes the plain attention path, against which the
-    kernel path is checked; ``gather_fn`` the ZeRO-3 hook."""
+    kernel path is checked; ``gather_fn`` the ZeRO-3 hook and ``tp`` as
+    :func:`forward`'s."""
     _check_model(cfg)
     _check_enc_out(cfg, enc_out)
-    embed_w = gathered_param(gather_fn, params.embed, "embed")
-    x = _embed(embed_w, tokens, embeds)
+    tp = _tp_of(cfg, params, gather_fn, tp)
+    embed_w, vtp = _vocab_param(gather_fn, params.embed, "embed", tp, 0)
+    x = _embed(embed_w, tokens, embeds, vtp)
     b, t, _ = x.shape
     positions = _default_positions(b, t, x.device)
     x = _add_positions(cfg, x, positions)
@@ -653,19 +728,20 @@ def prefill_forward(cfg, params: LM, tokens: Optional[torch.Tensor],
     for kind, block in zip(params.kinds, params.layers):
         x, c = gathered(gather_fn, block, "unit", _prefill_with, kind, cfg,
                         x, positions, max_len, use_kernel, moe_strategy,
-                        enc_out, keep=keep_gathered(moe_strategy))
+                        enc_out, keep=keep_gathered(moe_strategy), kind=kind,
+                        tp=tp)
         caches.append(c)
     x = gathered(gather_fn, params.final_norm, "final_norm", _norm_with,
                  cfg.norm_kind, x[:, -1:])
-    return (x @ _head(cfg, params, embed_w, gather_fn)).float(), \
+    return _logits(cfg, params, x, embed_w, tp, gather_fn), \
         {"layers": caches}
 
 
 def _prefill_with(p, kind, cfg, x, positions, max_len, use_kernel,
-                  moe_strategy, enc_out):
+                  moe_strategy, enc_out, tp=None):
     return prefill_block(kind, cfg, p, x, positions, max_len,
                          use_kernel=use_kernel, moe_strategy=moe_strategy,
-                         enc_out=enc_out)
+                         enc_out=enc_out, tp=tp)
 
 
 # ---------------------------------------------------------------------------

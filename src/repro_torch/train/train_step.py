@@ -33,6 +33,10 @@ each rank computes its rows' loss term (the rows' summed log-likelihoods
 over the microbatch's whole label count, so the ranks' terms sum to the
 loss) with the parameters gathered at the point of use, one layer at a
 time: by ``TrainConfig.gather_fn``, else by ``sharding.make_gather_fn``.
+Over the "model" axis the layers compute by the plan (``models/tp.py``),
+and where it splits the vocab the loss is vocab-parallel: the logits stay
+each rank's vocab block, and log Z, the gold logit and smoothing's mean
+logit are reduced over the axis (:func:`_vocab_parallel`).
 Autograd reduce-scatters the gradients to the storage layout;
 the step accumulates each rank's blocks, takes the global norm over the
 mesh and updates the blocks in place.  Compression runs on the whole
@@ -87,18 +91,47 @@ class TrainConfig:
 
 
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
-             smoothing: float = 0.0) -> tuple:
+             smoothing: float = 0.0, tp=None) -> tuple:
     """(the summed negative log-likelihood of the unmasked labels, their
-    count)."""
+    count).  With ``tp`` (``models/tp.py``) ``logits`` are the rank's vocab
+    block: the vocab-parallel loss (:func:`_vocab_parallel`)."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        mean_logit = torch.mean(logits, dim=-1) if smoothing else None
+    else:
+        logz, gold, mean_logit = _vocab_parallel(logits, safe, tp, smoothing)
     nll = logz - gold
     if smoothing:
-        mean_logit = torch.mean(logits, dim=-1)
         nll = (1 - smoothing) * nll + smoothing * (logz - mean_logit)
     return torch.sum(torch.where(mask, nll, 0.0)), torch.sum(mask)
+
+
+def _vocab_parallel(logits: torch.Tensor, labels: torch.Tensor, tp,
+                    smoothing: float) -> tuple:
+    """(log Z, the gold logit, the mean logit or None) of the whole vocab
+    from rank ``tp``'s block of the logits: the blocks' max reduced by max
+    over the model axis (no gradient: log Z does not depend on it), their
+    sums of exp(l - max), their gold logits (zero for labels outside the
+    block) and, for smoothing, their sums of logits, each summed over the
+    axis (``sum_replicated``)."""
+    import torch.distributed as dist
+    start, n = tp.plan.block(tp.plan.vocab, tp.index)
+    m = torch.amax(logits.detach(), dim=-1)
+    if tp.group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    logz = m + torch.log(tp.exit(torch.sum(torch.exp(
+        logits - m[..., None]), dim=-1)))
+    local = labels - start
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None]
+                        )[..., 0]
+    gold = tp.exit(torch.where(inside, gold, 0.0))
+    mean = (tp.exit(torch.sum(logits, dim=-1)) / tp.plan.vocab
+            if smoothing else None)
+    return logz, gold, mean
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -108,18 +141,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll / torch.clamp(count, min=1)
 
 
-def _logits(cfg, tcfg: TrainConfig, params, batch, gather_fn=None):
+def _logits(cfg, tcfg: TrainConfig, params, batch, gather_fn=None,
+            gather_logits: bool = True, tp=None):
     gather_fn = gather_fn or tcfg.gather_fn
     enc_out = None
     if "frames" in batch:
         enc_out = transformer.encode(cfg, params, batch["frames"],
                                      use_kernel=tcfg.use_flash_kernel,
-                                     gather_fn=gather_fn)
+                                     gather_fn=gather_fn, tp=tp)
     return transformer.forward(
         cfg, params, batch["tokens"], positions=batch.get("positions"),
         embeds=batch.get("embeds"), use_kernel=tcfg.use_flash_kernel,
         moe_strategy=tcfg.moe_strategy, enc_out=enc_out,
-        gather_fn=gather_fn)
+        gather_fn=gather_fn, gather_logits=gather_logits, tp=tp)
 
 
 def make_loss_fn(cfg, tcfg: TrainConfig):
@@ -140,11 +174,15 @@ def make_rank_loss_fn(cfg, tcfg: TrainConfig, mesh):
     to the microbatch's loss.  The parameters are gathered a layer at a
     time, by ``tcfg.gather_fn`` or else ``sharding.make_gather_fn``."""
     hook = tcfg.gather_fn or sharding.make_gather_fn(mesh)
+    tp = sharding.tp_of(cfg, mesh)
+    vtp = None if tp is None else tp.part("head")   # the logits' vocab block
 
     def loss_fn(params, batch, split: bool):
         with meshes.set_mesh(mesh, batch_split=split):
-            logits, aux = _logits(cfg, tcfg, params, batch, hook)
-        nll, count = _nll_sum(logits, batch["labels"], tcfg.label_smoothing)
+            logits, aux = _logits(cfg, tcfg, params, batch, hook,
+                                  gather_logits=False, tp=tp)
+        nll, count = _nll_sum(logits, batch["labels"], tcfg.label_smoothing,
+                              vtp)
         dp = meshes.dp_size(mesh)
         if split:
             import torch.distributed as dist

@@ -11,9 +11,13 @@ record and against arithmetic.
   ``init_cache`` cache, the token and its position) divided by the sizes
   of the axes its spec names (``tree_specs``, ``batch_spec``,
   ``cache_tree_specs`` under the reference test's ``FakeMesh`` stand-ins).
-* FLOPs: reduced olmo-1b's step on fake worlds of 1 and 4 ranks reads the
-  same FLOPs x devices; full-width olmo-1b ``train_4k`` on (16, 1) reads
-  the ``useful_ratio`` that remat and the flash formulas predict.
+* FLOPs: reduced olmo-1b's step on fake worlds of 1 and 4 ranks over
+  "data" reads the same FLOPs x devices; full-width olmo-1b ``train_4k``
+  on (16, 1) reads the ``useful_ratio`` that remat and the flash formulas
+  predict, and on (16, 16), its heads, d_ff and vocab split over "model"
+  (``models/tp.py``), exactly a sixteenth of those FLOPs; reduced olmo-1b
+  with one KV head on (2, 2) reads (1, 1)'s FLOPs / 4 plus the KV
+  projections that both model ranks compute.
 * The flash custom ops under ``FakeTensorMode`` on fake CUDA tensors give
   the kernels' shapes and dtypes, launching nothing; the step's FLOPs
   through the ops less those through ``ref.py`` are what the formulas say.
@@ -21,7 +25,8 @@ record and against arithmetic.
   (the node asks the CUDA device guard for a stream), so the step cases
   route fake CPU tensors to the ops (``ops.on_card``, monkeypatched).
 * Collective bytes on a fake (2, 1) world: the ZeRO-3 gathers and their
-  reduce-scatters, summed from the port's parameter list.
+  reduce-scatters, summed from the port's parameter list; on (2, 2), the
+  all-reduces over "model" (5 a layer with remat) and "data".
 * The same step counted on real CPU tensors in a gloo world of one and on
   fake ones reads the same FLOPs, bytes, collectives and argument bytes.
 * The fake-tensor paths: MoE at capacity, xLSTM's one trip.
@@ -183,7 +188,24 @@ def test_argument_bytes_equal_the_reference(arch, shape, multi_pod):
 STEP = Shape("step", 32, 8, "train")
 
 
+def test_kv_heads_each_rank_computes_are_counted_twice():
+    """Reduced olmo-1b with one KV head (remat) on (2, 2) against (1, 1):
+    the model axis splits the query heads, d_ff and vocab, and each rank
+    computes the one KV head whole, so 4 x (2, 2)'s FLOPs are (1, 1)'s plus
+    the KV projections' once more: K = layers x 2 products (k, v) x 2 N D
+    Dh (N tokens) x 4 (forward, remat's recomputation, and the backward's
+    input and weight gradients)."""
+    cfg = _small(remat=True, n_kv_heads=1)
+    one = _trace(cfg, STEP, (1, 1))
+    split = _trace(cfg, STEP, (2, 2))
+    n = STEP.global_batch * STEP.seq_len
+    kv = cfg.n_layers * 2 * 2 * n * cfg.d_model * cfg.hd * 4
+    assert split["flops"] * 4 == one["flops"] + kv
+
+
 def test_flops_times_devices_do_not_depend_on_the_mesh():
+    """Over the data axis (a model axis of 1) each rank computes its rows'
+    share of the step: FLOPs x devices equal one device's."""
     cfg = _small(remat=True)
     one = _trace(cfg, STEP, (1, 1))
     four = _trace(cfg, STEP, (4, 1))
@@ -191,8 +213,30 @@ def test_flops_times_devices_do_not_depend_on_the_mesh():
     assert one["flops"] == four["flops"] * 4
 
 
-def test_olmo_train_useful_ratio_is_the_arithmetics(monkeypatch):
-    """olmo-1b train_4k on (16, 1), attention through the flash ops.
+@pytest.fixture(scope="module")
+def olmo_train():
+    """mesh -> the counts of olmo-1b train_4k on it, attention through the
+    flash ops (fake CPU tensors routed to them), each mesh traced once."""
+    cache = {}
+
+    def get(mesh_shape):
+        if mesh_shape not in cache:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(ops, "on_card", lambda q: True)
+                with dryrun.fake_world(mesh_shape, ("data", "model"),
+                                       "cpu") as (mesh, _):
+                    cell = dryrun.build_cell("olmo-1b", "train_4k", mesh, 0,
+                                             "cpu")
+                    got = dryrun.trace(cell.fn, cell.args)
+                    got.pop("out")
+            cache[mesh_shape] = got
+        return cache[mesh_shape]
+    return get
+
+
+def test_olmo_train_useful_ratio_is_the_arithmetics(olmo_train):
+    """olmo-1b train_4k on (16, 1), attention through the flash ops: a
+    model axis of 1, so every rank computes its data row's whole layers.
     Global FLOPs: each layer's products 2 N_layer a token forward, again in
     remat's recomputation, twice in the backward (8 N_layer), less the MLP's
     down projection in the recomputation (2 D F: ``torch.utils.checkpoint``
@@ -201,12 +245,9 @@ def test_olmo_train_useful_ratio_is_the_arithmetics(monkeypatch):
     (outside remat); per layer and (row, head) the flash forward's formula
     twice and the backward's once.  useful_ratio = model_flops over
     that."""
-    monkeypatch.setattr(ops, "on_card", lambda q: True)
     cfg = get_arch("olmo-1b")
     shape = SHAPES["train_4k"]
-    with dryrun.fake_world((16, 1), ("data", "model"), "cpu") as (mesh, _):
-        cell = dryrun.build_cell(cfg, shape, mesh, 0, "cpu")
-        got = dryrun.trace(cell.fn, cell.args)
+    got = olmo_train((16, 1))
     rec = {"arch": "olmo-1b", "shape": "train_4k", "devices": 16,
            "flops": got["flops"], "bytes_accessed": got["bytes_accessed"],
            "collective_bytes": got["collective_bytes"]}
@@ -221,6 +262,19 @@ def test_olmo_train_useful_ratio_is_the_arithmetics(monkeypatch):
         6 * v * d * b * t + cfg.n_layers * attn
     want = roofline.model_flops("olmo-1b", "train_4k") / predicted
     assert abs(row["useful_ratio"] - want) <= 0.02 * want, (row, want)
+
+
+def test_olmo_train_splits_by_the_model_axis(olmo_train):
+    """olmo-1b train_4k on (16, 16): its 16 heads, d_ff and vocab split
+    over "model" (``sharding.tp_plan``), so every product and the flash
+    formulas of rank 0 are a sixteenth of (16, 1)'s, exactly (norms and
+    element-wise operators are not counted); the ZeRO-3 gathers are the
+    model axis's blocks'."""
+    one, split = olmo_train((16, 1)), olmo_train((16, 16))
+    assert split["flops"] * 16 == one["flops"]
+    assert split["collective_bytes"]["all-gather"] * 16 < \
+        one["collective_bytes"]["all-gather"] * 1.1
+    assert split["collective_bytes"]["all-reduce"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +362,30 @@ def test_gather_and_reduce_scatter_bytes_from_the_parameters():
     assert gather > 0
     assert got["collective_bytes"]["all-gather"] == gather
     assert got["collective_bytes"]["reduce-scatter"] == scatter
+
+
+def test_model_axis_all_reduces_are_the_arithmetics():
+    """Reduced olmo-1b (remat, float32) on (2, 2), one microbatch: the
+    all-reduces (2x their bytes), N = B T / 2 a data row's tokens, D wide.
+    Over "model", a layer's attention and MLP each sum their row-parallel
+    outputs in the forward and their column-parallel inputs' gradients in
+    the backward, and remat's recomputation sums the attention's output
+    again but not the MLP's (``torch.utils.checkpoint`` stops once every
+    saved tensor is back: the down projection's output, and so its sum,
+    are none): 5 of N D floats; the vocab-parallel lookup sums its rows
+    (N D) and the head's input sums its gradient (N D); the loss reduces 3
+    of N floats (max, sum of exp, gold logit).  Over "data": the label count (int64) and the
+    loss (float32).  The global norm reduces a float per leaf over each
+    axis.  No parameter's gradient is all-reduced: each is reduce-scattered
+    to its storage."""
+    cfg = _small(remat=True)
+    got = _trace(cfg, STEP, (2, 2))
+    n = STEP.global_batch * STEP.seq_len // 2
+    d = cfg.d_model
+    model = cfg.n_layers * 5 * n * d + 2 * n * d + 3 * n
+    leaves = len(transformer.stacked_leaves(transformer.LM(cfg, "meta")))
+    want = 2 * (4 * model + 8 + 4 + 2 * 4 * leaves)
+    assert got["collective_bytes"]["all-reduce"] == want
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +498,9 @@ def test_dryrun_single_cell_entrypoint(tmp_path):
     assert rec["flops"] > 0
     assert rec["collective_bytes"]["total"] > 0
     assert rec["probes"] == []
+    # Decode computes replicated over "model".
+    assert set(rec["tp"]) == {"attention", "kv", "mlp", "head"}
+    assert set(rec["tp"].values()) == {"replicated"}
     rows = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.roofline",
          str(out_file), "--card", "h100-sxm5"], env=env,

@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import all_archs as j_all_archs
 from repro.configs import get_arch as j_get_arch
 from repro.data.tokens import TokenPipeline as JTokenPipeline
 from repro.models import layers as jl
@@ -38,7 +39,7 @@ from repro.train.serve_step import generate as j_generate
 from repro.train.serve_step import serve_step as j_serve_step
 
 from repro_torch import convert
-from repro_torch.configs import PENDING, all_archs, get_arch
+from repro_torch.configs import all_archs, get_arch
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
@@ -123,14 +124,24 @@ def test_configs_equal_the_reference(name):
 
 
 def test_only_dense_configs_registered_others_name_their_slice():
-    """All ten of the reference's configs are registered (dense, MoE, MLA,
-    VLM, Whisper and the recurrent two), and none is pending."""
+    """Every config of the reference is registered in the port (all ten:
+    dense, MoE, MLA, VLM, Whisper and the recurrent two), and every block
+    kind its configs use (the units, and the encoder's ``"enc"``) builds a
+    port block."""
     everything = ARCHS + MOE_ARCHS + MLA_VLM_ARCHS + RECURRENT_ARCHS
-    assert list(all_archs()) == sorted(everything)
+    assert list(all_archs()) == sorted(everything) == sorted(j_all_archs())
     assert len(all_archs()) == 10
-    assert PENDING == {} and tt.KIND_SLICES == {}
+    kinds = set()
     for name in everything:
-        assert get_arch(name).name == j_get_arch(name).name
+        j = j_get_arch(name)
+        assert get_arch(name).name == j.name
+        kinds |= set(j.unit) | ({"enc"} if j.encoder_layers else set())
+    assert kinds == set(tt.KINDS)
+    for kind in sorted(kinds):
+        cfg = get_arch(next(n for n in everything if kind in
+                            get_arch(n).unit + (("enc",) if get_arch(
+                                n).encoder_layers else ()))).reduced()
+        assert isinstance(tt.Block(kind, cfg, "meta"), torch.nn.Module)
 
 
 def test_token_pipeline_equals_the_reference():

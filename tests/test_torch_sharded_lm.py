@@ -7,19 +7,44 @@ as ``tests/test_torch_distributed.py`` spawns its worlds.  At ``reduced()``
 size:
 
 * training: olmo-1b (with remat) and mixtral-8x22b (4 experts, top 2,
-  capacity factor 1.25, which drops copies) train 2 steps through
+  capacity factor 1.25, which drops copies), olmo-1b with one KV head
+  and with 3 heads, and arctic-480b (mixtral's MoE plus a dense residual
+  MLP, whose d_ff the model axis splits), train 2 steps through
   ``launch/train.py``'s ``train(mesh=...)`` with compression none and
-  delta; each loss is within
-  1e-5 relative of the one-device run's (the test process runs it), every
-  parameter leaf within 1e-5 of its max |value|; every rank's block of
+  delta; each loss is within 1e-5 relative of the one-device run's (the
+  test process runs it), every leaf of μ and ν within 1e-5 of its max
+  |value|, and every parameter within 1e-5 of its leaf's max |value|.  Where the model axis
+  splits the layers' products (1x2, 2x2: ``models/tp.py``) their sums
+  run in another order, and Adam's first step moves a weight by lr·g /
+  (|g| + eps): an element whose first gradient is not zero but lies below
+  float32's rounding floor of its leaf's sums (``NOISE_FLOOR`` of the
+  leaf's max |g|, the one-device run's first step) moves by a share of lr
+  that rounding decides.  olmo-1b's ``units.b0_dense.mlp.w_gate[0, 56,
+  33]`` is one: a first gradient of 3.1e-8 against the leaf's max of
+  6.4e-2, where the one-device run through ``attention_ref`` in place of
+  the flash op's plain version already puts the weight after two steps
+  4.1e-6 from the flash path's, and the 1x2 mesh 1.4e-5 (1e-5 of the
+  leaf's max: 5.7e-6); 3 to 7 elements a case lie there.  On those meshes
+  such an element is held within 1e-5 of its leaf's max plus the most
+  that AdamW's two updates can move it when each step's gradient moves by
+  the Δg that the μ check admits (``_adam_bound``); every other element
+  within 1e-5 of its leaf's max.
+  Each rank reports the plan (which parts split, whether the KV heads
+  split or each rank computes them) and the block of ``wq`` it computes
+  with: H·Dh/M columns where M divides the heads.  Every rank's block of
   each parameter, μ and ν holds exactly numel / prod(sizes of the axes
   its spec names); one step given a hook that wraps
   ``make_gather_fn(mesh)`` gives the loss of the step's own gather, and
-  the hook is called a layer at a time (again in remat's recomputation); at a capacity factor of E / k one step of
-  mixtral through the a2a dispatch (EP, or TP on 1x2 with E = 3) gives
-  sort's loss and first moment; a 1x2 run's checkpoint (whole tensors,
-  rank 0 writes) resumes sharded and on one device to the straight run's
-  losses;
+  the hook is called a layer at a time (again in remat's recomputation);
+  at a capacity factor of E / k one step of mixtral through the a2a
+  dispatch (EP, or TP on 1x2 with E = 3) gives sort's loss and first
+  moment; a 1x2 run's checkpoint (whole tensors, rank 0 writes) resumes
+  sharded and on one device to the straight run's losses;
+* prefill on 1x2 with the attention, MLP and head split (llama3-8b with
+  its KV heads split, and with one KV head that both ranks compute): the
+  last logits, the cache and 4 teacher-forced decode steps from it against
+  one device's; the vocab-parallel loss against ``cross_entropy`` with
+  and without label smoothing, labels masked;
 * the sort and one-hot dispatches on a batch split over "data" (2x2, at a
   capacity factor of 0.5) equal to the whole batch's on each rank's rows,
   the load-balancing terms summing to the whole batch's loss;
@@ -55,6 +80,13 @@ ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT_S = 120
 MESHES = {2: ["2x1", "1x2"], 4: ["2x2"]}   # world -> its meshes
 TRAIN_ARCHS = ["olmo-1b", "mixtral-8x22b"]
+# Reduced configs whose heads the model axis of 2 splits otherwise: one KV
+# head (each rank computes it for its query heads), and 3 heads (the
+# attention replicated; the MLP and the head split); and arctic-480b, whose
+# MoE blocks add a dense residual with its d_ff split.
+TP_CASES = {"olmo-1b-kv1": ("olmo-1b", dict(n_kv_heads=1)),
+            "olmo-1b-h3": ("olmo-1b", dict(n_heads=3, n_kv_heads=3)),
+            "arctic-480b": ("arctic-480b", {})}
 COMPRESSIONS = ["none", "delta"]
 TRAIN = dict(steps=2, seq_len=16, global_batch=8, microbatches=2, lr=3e-3)
 LOSS_RTOL = 1e-5
@@ -67,6 +99,15 @@ A2A_SHAPE = (4, 16)          # B, T
 A2A_CAPACITY = 0.25
 Y_TOL = 1e-5
 GRAD_TOL = 1e-4
+# Prefill on 1x2 (llama3-8b reduced: KV heads split, and one KV head that
+# both ranks compute), then teacher-forced decode from its cache.
+TP_PREFILL = dict(batch=2, prompt=20, steps=4, max_len=32,
+                  cases={"kv4": {}, "kv1": {"n_kv_heads": 1}})
+TP_RTOL = 1e-5
+VOCAB_LOSS_RTOL = 1e-6
+# A first gradient below this share of its leaf's max |g| is float32's
+# rounding of the products' sums (module docstring).
+NOISE_FLOOR = 1e-6
 
 
 def _mesh_shape(name: str) -> tuple:
@@ -78,11 +119,13 @@ def _cfg(arch: str):
     return get_arch(arch).reduced()
 
 
-def _train_cfg(arch: str):
-    """olmo-1b trains with remat (each layer gathered again in its
-    recomputation), mixtral-8x22b without."""
+def _train_cfg(name: str):
+    """olmo-1b (and its TP_CASES) trains with remat (each layer gathered
+    again in its recomputation), mixtral-8x22b without."""
     import dataclasses
-    return dataclasses.replace(_cfg(arch), remat=arch == "olmo-1b")
+    arch, changes = TP_CASES.get(name, (name, {}))
+    return dataclasses.replace(_cfg(arch), remat=arch == "olmo-1b",
+                               **changes)
 
 
 def _a2a_cfg(mode: str, get_arch):
@@ -138,8 +181,9 @@ def _train_cases(mesh_name, out_dir, rank) -> dict:
                            f"{t.numel()} (want {want})")
         return bad
 
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + list(TP_CASES):
         cfg = _train_cfg(arch)
+        tp = sharding.tp_of(cfg, mesh)
         for comp in COMPRESSIONS:
             res = train(cfg, TRAIN["steps"], seq_len=TRAIN["seq_len"],
                         global_batch=TRAIN["global_batch"], lr=TRAIN["lr"],
@@ -155,14 +199,26 @@ def _train_cases(mesh_name, out_dir, rank) -> dict:
             sharded = sum(sharding.local(p).numel() < p.numel()
                           for p in st.params.parameters())
             stacked = tts.stacked_params(st.params)
+            moments = {f"{key}/{k}": sharding.full(v) for key, tree in
+                       (("mu", st.opt.mu), ("nu", st.opt.nu))
+                       for k, v in tree.items()}
             if rank == 0:
                 np.savez(Path(out_dir, f"train_{mesh_name}_{arch}_{comp}"
                                        f".npz"),
                          **{k: v.float().numpy() for k, v in
-                            stacked.items()})
+                            {**stacked, **moments}.items()})
+            # The block of wq that this rank computes with.
+            wq = tuple(sharding.tp_local(
+                "dense", "attn.wq", sharding.gathered_layout(
+                    st.params.layers[0].attn.wq), tp).shape)
             out[f"train/{mesh_name}/{arch}/{comp}"] = {
                 "losses": res.losses, "blocks_bad": bad,
-                "sharded_params": int(sharded)}
+                "sharded_params": int(sharded),
+                "plan": None if tp is None else tp.plan.record(),
+                "kv": None if tp is None else tp.plan.kv,
+                "wq_block": list(wq)}
+        if arch not in TRAIN_ARCHS:
+            continue
 
         # One step with and without a ZeRO-3 hook given, from one state;
         # the given hook counts its calls.
@@ -308,6 +364,96 @@ def _decode_cases(rank) -> dict:
     return out
 
 
+def _tp_prefill_cases() -> dict:
+    """Prefill through the hook on parameters stored on 1x2 (attention,
+    MLP and head split over "model"), against one device's prefill: the
+    last logits, each layer's cache (K/V heads gathered whole), then
+    TP_PREFILL["steps"] teacher-forced decode steps from each cache."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tt
+
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    hook = sharding.make_gather_fn(mesh)
+    B, P_, n, L = (TP_PREFILL[k] for k in ("batch", "prompt", "steps",
+                                          "max_len"))
+    out = {}
+    for name, changes in TP_PREFILL["cases"].items():
+        cfg = dataclasses.replace(_cfg("llama3-8b"), **changes)
+        params = tt.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+        stored = sharding.shard_params(copy.deepcopy(params), mesh)
+        tokens = TokenPipeline(cfg.vocab, P_ + n, B, seed=4,
+                               device="cpu").batch_at(0)["tokens"]
+        with torch.no_grad():
+            want, cache = tt.prefill_forward(cfg, params, tokens[:, :P_], L)
+            got, tcache = tt.prefill_forward(cfg, stored, tokens[:, :P_], L,
+                                             gather_fn=hook)
+            leaves = [(c["attn"][k], t["attn"][k]) for c, t in zip(
+                cache["layers"], tcache["layers"]) for k in ("k", "v",
+                                                              "pos")]
+            full, split = [], []
+            for i in range(P_, P_ + n):
+                pos = torch.tensor(i)
+                full.append(tt.decode_step(cfg, params, tokens[:, i:i + 1],
+                                           cache, pos)[0])
+                split.append(tt.decode_step(cfg, stored,
+                                            tokens[:, i:i + 1], tcache, pos,
+                                            gather_fn=hook)[0])
+        full, split = torch.cat(full, 1), torch.cat(split, 1)
+        plan = sharding.tp_of(cfg, mesh).plan
+        out[f"tp_prefill/{name}"] = {
+            "kv": plan.kv, "attention": plan.attention,
+            "logits_err": float((got - want).abs().max()
+                                / want.abs().max()),
+            "same_layout": all(a.shape == b.shape and a.dtype == b.dtype
+                               for a, b in leaves),
+            "pos_equal": all(torch.equal(a, b) for a, b in leaves[2::3]),
+            "layer0_equal": all(torch.equal(a, b) for a, b in leaves[:2]),
+            "cache_err": max(float((a - b).abs().max() / a.abs().max())
+                             for a, b in leaves if a.is_floating_point()),
+            "decode_err": float((split - full).abs().max()
+                                / full.abs().max())}
+    return out
+
+
+def _vocab_loss_case() -> dict:
+    """The vocab-parallel loss on 1x2 (each rank's half of the vocab)
+    against ``cross_entropy`` on the whole logits, with and without label
+    smoothing, a quarter of the labels masked: the loss and the gradient
+    of the rank's logits."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import train_step as tts
+    cfg = _cfg("olmo-1b")
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    tp = sharding.tp_of(cfg, mesh)
+    start, n = tp.plan.block(cfg.vocab, tp.index)
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn(4, 16, cfg.vocab, generator=g) * 4
+    labels = torch.randint(0, cfg.vocab, (4, 16), generator=g,
+                           dtype=torch.int32)
+    labels[torch.rand(4, 16, generator=g) < 0.25] = -1
+    out = {}
+    for smoothing in (0.0, 0.1):
+        whole = logits.clone().requires_grad_()
+        want = tts.cross_entropy(whole, labels, smoothing)
+        (gw,) = torch.autograd.grad(want, [whole])
+        part = logits[..., start:start + n].clone().requires_grad_()
+        nll, count = tts._nll_sum(part, labels, smoothing, tp)
+        got = nll / count
+        (gp,) = torch.autograd.grad(got, [part])
+        out[f"vocab_loss/{smoothing}"] = {
+            "err": abs(float(got) - float(want)) / abs(float(want)),
+            "grad_err": float((gp - gw[..., start:start + n]).abs().max()
+                              / gw.abs().max()),
+            "masked": int((labels < 0).sum())}
+    return out
+
+
 def _a2a_case(mode, out_dir, rank) -> dict:
     from torch.distributed.tensor import Replicate
 
@@ -428,6 +574,8 @@ def _rank_main(rank: int, world: int, init_file: str, out_dir: str) -> None:
             out.update(_a2a_case("ep", out_dir, rank))
         else:
             out.update(_a2a_case("tp", out_dir, rank))
+            out.update(_tp_prefill_cases())
+            out.update(_vocab_loss_case())
         walls["rest"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -497,22 +645,31 @@ TRAIN_MESHES = [m for names in MESHES.values() for m in names]
 
 @pytest.fixture(scope="module")
 def one_device():
-    """{(arch, compression): (losses, stacked parameters)} of the
-    one-device run."""
+    """{(arch, compression): (losses, stacked parameters, μ and ν, each
+    leaf's first gradient |g| (from one step's ν))} of the one-device
+    run."""
     from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import stacked_params
+    b2 = AdamWConfig().b2
     out = {}
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + list(TP_CASES):
         for comp in COMPRESSIONS:
-            res = train(_train_cfg(arch), TRAIN["steps"],
-                        seq_len=TRAIN["seq_len"],
-                        global_batch=TRAIN["global_batch"], lr=TRAIN["lr"],
-                        microbatches=TRAIN["microbatches"],
-                        compression=comp, ckpt_every=0, device="cpu",
-                        log=lambda *_: None)
+            runs = [train(_train_cfg(arch), steps, seq_len=TRAIN["seq_len"],
+                          global_batch=TRAIN["global_batch"], lr=TRAIN["lr"],
+                          microbatches=TRAIN["microbatches"],
+                          compression=comp, ckpt_every=0, device="cpu",
+                          log=lambda *_: None)
+                    for steps in (TRAIN["steps"], 1)]
+            res = runs[0]
             out[arch, comp] = (res.losses, {
                 k: v.float().numpy()
-                for k, v in stacked_params(res.state.params).items()})
+                for k, v in stacked_params(res.state.params).items()}, {
+                f"{key}/{k}": v.numpy() for key, tree in
+                (("mu", res.state.opt.mu), ("nu", res.state.opt.nu))
+                for k, v in tree.items()}, {
+                k: np.sqrt(v.numpy() / (1 - b2))
+                for k, v in runs[1].state.opt.nu.items()})
     return out
 
 
@@ -578,12 +735,15 @@ def _rel(a, b) -> float:
 
 
 @pytest.mark.parametrize("comp", COMPRESSIONS)
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS + list(TP_CASES))
 @pytest.mark.parametrize("mesh_name", TRAIN_MESHES)
 def test_sharded_training_equals_one_device(worlds, one_device, mesh_name,
                                             arch, comp):
     found, tmp = worlds(_world_of(mesh_name))
-    want_losses, want_params = one_device[arch, comp]
+    want_losses, want_params, want_moments, first_g = \
+        one_device[arch, comp]
+    cfg = _train_cfg(arch)
+    m = _mesh_shape(mesh_name)[1]
     key = f"train/{mesh_name}/{arch}/{comp}"
     for r, f in enumerate(found):
         got = f[key]
@@ -592,11 +752,77 @@ def test_sharded_training_equals_one_device(worlds, one_device, mesh_name,
         for a, b in zip(got["losses"], want_losses):
             assert abs(a - b) <= LOSS_RTOL * abs(b), (r, got["losses"],
                                                        want_losses)
-    params = dict(np.load(tmp / f"train_{mesh_name}_{arch}_{comp}.npz"))
+        # The plan: on "model" of 2 the MLP and head split, and the
+        # attention by whole heads where 2 divides them; wq's block the
+        # rank's H / M heads.
+        heads = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+        assert got["wq_block"] == [cfg.d_model, heads * cfg.hd], got
+        if m == 1:
+            assert got["plan"] is None
+        else:
+            assert got["plan"] == {
+                "attention": "split" if heads < cfg.n_heads else
+                "replicated", "kv": "split" if cfg.n_kv_heads % m == 0
+                else "replicated", "mlp": "split", "head": "split"}, got
+            assert got["kv"] == ("replicated" if heads == cfg.n_heads else
+                                 "split" if cfg.n_kv_heads % m == 0 else
+                                 "computed")
+    saved = dict(np.load(tmp / f"train_{mesh_name}_{arch}_{comp}.npz"))
+    params = {k: v for k, v in saved.items() if "/" not in k}
     assert set(params) == set(want_params)
-    for name, want in want_params.items():
-        err = np.abs(params[name] - want).max()
+    for name, want in want_moments.items():
+        err = np.abs(saved[name] - want).max()
         assert err <= PARAM_TOL * np.abs(want).max(), (name, err)
+    # Every parameter; where the model axis splits products, the elements
+    # whose first gradient lies below the noise floor within what AdamW
+    # makes of the gradients' rounding (module docstring).
+    for name, want in want_params.items():
+        err = np.abs(params[name] - want)
+        bound = np.full(want.shape, PARAM_TOL * np.abs(want).max())
+        if m > 1:
+            g = first_g[name].reshape(want.shape)
+            floor = (g > 0) & (g < NOISE_FLOOR * g.max())
+            bound[floor] += _adam_bound(
+                g[floor], want_moments[f"mu/{name}"].reshape(want.shape)[
+                    floor], want_moments[f"nu/{name}"].reshape(
+                    want.shape)[floor], np.abs(want_moments[
+                        f"mu/{name}"]).max())
+        assert np.all(err <= bound), (name, err.max(),
+                                      float((err / bound).max()))
+
+
+def _adam_bound(g1, mu, nu, mu_max) -> np.ndarray:
+    """The most that AdamW's two updates (``TRAIN``) move each element
+    when each step's gradient moves by at most Δg = PARAM_TOL · ``mu_max``
+    / (1 - b1), the change of one step's gradient that the μ check admits
+    (``mu_max`` the leaf's max |μ|): ``g1`` = |the first gradient|, ``mu``
+    and ``nu`` after step 2 (one device's), of the elements.  Step 1 moves
+    an element by lr_1·g/(|g| + eps), which rises with g, so its change
+    over |δ| <= Δg is the larger at the two ends; step 2 by lr_2·m̂/(√v̂ +
+    eps), where m̂ (a mean of the two gradients) and √v̂ (their root mean
+    square, weights summing to 1) each move by at most Δg, so its change
+    is the largest at the four corners.  Weight decay's share (lr·wd
+    times the weights' own difference) is left in PARAM_TOL."""
+    import torch
+
+    from repro_torch.launch.train import WARMUP_STEPS
+    from repro_torch.train.optimizer import AdamWConfig, lr_schedule
+    cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=WARMUP_STEPS,
+                      total_steps=TRAIN["steps"])
+    lr1, lr2 = (float(lr_schedule(cfg, torch.tensor(s))) for s in (1, 2))
+    g1, mu, nu = (np.asarray(a, np.float64) for a in (g1, mu, nu))
+    dg = PARAM_TOL * float(mu_max) / (1 - cfg.b1)
+
+    def f(g):
+        return g / (np.abs(g) + cfg.eps)
+    step1 = np.maximum(f(g1 + dg) - f(g1), f(g1) - f(g1 - dg))
+    m_hat = mu / (1 - cfg.b1 ** 2)
+    r_hat = np.sqrt(nu / (1 - cfg.b2 ** 2))
+    u = m_hat / (r_hat + cfg.eps)
+    step2 = np.max([np.abs((m_hat + a) / (np.maximum(r_hat + b, 0.0)
+                                           + cfg.eps) - u)
+                    for a in (-dg, dg) for b in (-dg, dg)], axis=0)
+    return lr1 * step1 + lr2 * step2
 
 
 def test_checkpoint_is_whole_and_resumes_anywhere(worlds):
@@ -672,6 +898,36 @@ def test_flash_decode_on_a_sharded_cache(worlds, arch):
         assert got["local_slots"] == (16 if arch == "llama3-8b" else 8)
         assert got["err"] <= DECODE_RTOL, got
         assert got["prefill_err"] <= DECODE_RTOL, got
+
+
+@pytest.mark.parametrize("case", sorted(TP_PREFILL["cases"]))
+def test_tp_prefill_and_decode_equal_one_device(worlds, case):
+    """Prefill on 1x2 with the attention, MLP and head split: the last
+    logits within 1e-5 of one device's; the cache in one device's layout
+    (K/V heads whole, shapes and dtypes equal), its positions and layer
+    0's K/V (the embedding's rows through the rank's columns of wk, wv)
+    exactly equal, every layer's K/V within 1e-5 (the ranks' row-parallel
+    sums round apart from one product from layer 1 on); decode from it
+    within 1e-5."""
+    found, _ = worlds(2)
+    for f in found:
+        got = f[f"tp_prefill/{case}"]
+        assert got["attention"] == "split", got
+        assert got["kv"] == ("split" if case == "kv4" else "computed"), got
+        assert got["same_layout"] and got["pos_equal"], got
+        assert got["layer0_equal"], got
+        for key in ("logits_err", "cache_err", "decode_err"):
+            assert got[key] <= TP_RTOL, (key, got)
+
+
+@pytest.mark.parametrize("smoothing", ["0.0", "0.1"])
+def test_vocab_parallel_loss_equals_cross_entropy(worlds, smoothing):
+    found, _ = worlds(2)
+    for f in found:
+        got = f[f"vocab_loss/{smoothing}"]
+        assert got["masked"] > 0
+        assert got["err"] <= VOCAB_LOSS_RTOL, got
+        assert got["grad_err"] <= VOCAB_LOSS_RTOL, got
 
 
 @pytest.mark.parametrize("strategy", ["sort", "onehot"])
